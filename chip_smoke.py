@@ -9,9 +9,11 @@ It drives the port only (no JAX, nothing of ``iv_slam_tpu``):
      CUDA kernels from ``iv_slam_tpu_torch/csrc``;
   2. kernel phase: records the inputs that one KITTI-sized frame hands each
      kernel's wrapper, then holds each kernel bit for bit against its plain
-     PyTorch version on the card at those inputs (K1 also at threshold 20,
-     K3 also at clip-limit window centers) and times kernel and plain
-     version with CUDA events;
+     PyTorch version on the card at those inputs (K1 also at threshold 20
+     and on a level-0-sized noise image at threshold 0, K2 also at
+     keypoints 0-5 and 18-19 px from the canvas edges, K3 also at
+     clip-limit window centers) and times kernel and plain version with
+     CUDA events;
   3. slice phase: StereoFrontend at KITTI-00 geometry (376x1241, 2000
      features, 8 levels, FAST 20/7) through process() and through
      submit()/collect() at depth 3, with every launch counter set to 0 just
@@ -48,6 +50,14 @@ N_PROCESS, N_PIPE, DEPTH = 60, 60, 3  # frames through process / submit+collect
 # rate outside the tensor cores, used for these kernels' 32-bit scalar ops
 PEAK_BYTES = 3.35e12
 PEAK_OPS = 67e12
+
+# K1's least work a pixel, in two-input operations on the ring bytes: the
+# 16 circular 9-window minima and maxima, 42 each (suffix and prefix runs
+# inside ring halves 0-7 and 8-15, then one a window); 15 maxima of the
+# minima and 15 minima of the maxima over the arcs; 2 differences with the
+# center; max, -1, compare, select. tests/test_torch_fast.py computes FAST
+# that way, counting, and holds the count to this.
+FAST_OPS_PER_PX = 2 * 42 + 2 * 15 + 2 + 4
 
 
 def test_pair(h, w, seed=0):
@@ -182,12 +192,12 @@ class Smoke:
         """The inputs one frame of the main path hands each wrapper."""
         ops = self.port["ops"]
         rec = {"fast_score": [], "orient_brief": [], "sad_windows": []}
-        orig = (ops.fast_cuda.fast_score, ops.finish_cuda.orient_brief,
+        orig = (ops.fast_cuda.fast_score_levels, ops.finish_cuda.orient_brief,
                 ops.stereo_cuda.sad_windows)
 
-        def fast(img, th):
-            rec["fast_score"].append((img.clone(), th))
-            return orig[0](img, th)
+        def fast(levels, th):
+            rec["fast_score"].append(([lv.clone() for lv in levels], th))
+            return orig[0](levels, th)
 
         def ob(raw, blur, yx):
             rec["orient_brief"].append((raw.clone(), blur.clone(), yx.clone()))
@@ -197,40 +207,43 @@ class Smoke:
             rec["sad_windows"].append(tuple(t.clone() for t in (cl, cr, yc, xl, xr)))
             return orig[2](cl, cr, yc, xl, xr)
 
-        ops.fast_cuda.fast_score, ops.finish_cuda.orient_brief = fast, ob
+        ops.fast_cuda.fast_score_levels, ops.finish_cuda.orient_brief = fast, ob
         ops.stereo_cuda.sad_windows = sad
         try:
             fe.process(left, right, 0.0)
         finally:
-            (ops.fast_cuda.fast_score, ops.finish_cuda.orient_brief,
+            (ops.fast_cuda.fast_score_levels, ops.finish_cuda.orient_brief,
              ops.stereo_cuda.sad_windows) = orig
         self.torch.cuda.synchronize()
-        require(len(rec["orient_brief"]) == 1 and len(rec["sad_windows"]) == 1,
+        require(all(len(v) == 1 for v in rec.values()),
                 {k: len(v) for k, v in rec.items()})
         return rec
 
     def check_fast(self, rec):
         torch, ops = self.torch, self.port["ops"]
-        calls = rec["fast_score"]
+        fc = ops.fast_cuda
+        (levels, th), = rec["fast_score"]
+        noise = torch.from_numpy(np.random.default_rng(3).integers(
+            0, 256, size=(1, H, W), dtype=np.uint8)).to(levels[0].device)
+        cases = [(levels, t) for t in sorted({th, 20})] + [([noise], 0)]
         worst = 0
-        for img, th in calls:
-            for t in sorted({th, 20}):
-                k = ops.fast_cuda.fast_score(img, t)
-                p = ops.fast.fast_score(img, t)
+        for lvs, t in cases:
+            ks = fc.fast_score_levels(lvs, t)
+            for lv, k in zip(lvs, ks):
+                p = ops.fast.fast_score(lv, t)
                 torch.cuda.synchronize()
                 err = int((k.to(torch.int32) - p.to(torch.int32)).abs().max())
                 worst = max(worst, err)
                 require(k.dtype == torch.int16 and torch.equal(k, p),
-                        f"FAST kernel != plain at {tuple(img.shape)}, threshold {t}: max err {err}")
-        fns = (lambda: [ops.fast_cuda.fast_score(i, t) for i, t in calls],
-               lambda: [ops.fast.fast_score(i, t) for i, t in calls])
-        px = sum(i.numel() for i, _ in calls)
-        # per pixel: 32 ring differences (both signs), 16 arcs x 8 minima
-        # for each sign, 32 arc maxima, then max / -1 / compare / select
-        bnd, by = bound_ms(px * 3, px * (32 + 16 * 16 + 32 + 4))
-        shapes = ", ".join(f"{tuple(i.shape)}" for i, _ in calls)
-        print(f"K1 fast_score: {len(calls)} launches/frame over {shapes}; thresholds "
-              f"{sorted({t for _, t in calls} | {20})}: bit-equal")
+                        f"FAST kernel != plain at {tuple(lv.shape)}, threshold {t}: "
+                        f"max err {err}")
+        fns = (lambda: fc.fast_score_levels(levels, th),
+               lambda: [ops.fast.fast_score(lv, th) for lv in levels])
+        px = sum(lv.numel() for lv in levels)
+        bnd, by = bound_ms(px * 3, px * FAST_OPS_PER_PX)
+        shapes = ", ".join(f"{tuple(lv.shape)}" for lv in levels)
+        print(f"K1 fast_score: 1 launch/frame over {shapes}; thresholds "
+              f"{sorted({th, 20})} and noise {(1, H, W)} at 0: bit-equal")
         self.kernels["fast_score"] = dict(
             name="fast_score", route="cuda", source="iv_slam_tpu_torch/csrc/fast_score.cu",
             replaces="iv_slam_tpu/ops/fast_pallas.py:77", max_abs_err=float(worst),
@@ -240,8 +253,15 @@ class Smoke:
     def check_orient_brief(self, rec):
         torch, ops = self.torch, self.port["ops"]
         raw, blur, yx = rec["orient_brief"][0]
-        ang, desc = ops.finish_cuda.orient_brief(raw, blur, yx)
-        ang_p, desc_p = ops.finish_cuda.orient_brief_plain(raw, blur, yx)
+        # the main path's keypoints, then keypoints 0-5 and 18-19 px from
+        # every edge and corner of the canvas, where the patch and the staged
+        # window are cut or clamped at the border
+        R, C = raw.shape
+        near = lambda n: (0, 2, 5, 18, 19, n - 20, n - 19, n - 6, n - 3, n - 1)
+        edge = [(r, c) for r in near(R) for c in near(C)]
+        yx_e = torch.cat([yx, torch.tensor(edge, dtype=torch.int32, device=yx.device)])
+        ang, desc = ops.finish_cuda.orient_brief(raw, blur, yx_e)
+        ang_p, desc_p = ops.finish_cuda.orient_brief_plain(raw, blur, yx_e)
         torch.cuda.synchronize()
         err = max(float((ang - ang_p).abs().max()),
                   float((desc.to(torch.int32) - desc_p.to(torch.int32)).abs().max()))
@@ -264,12 +284,13 @@ class Smoke:
         circle = (torch.arange(-half, half + 1, device=raw.device)[None, :].abs()
                   <= torch.as_tensor(ext, device=raw.device)[:, None]).reshape(-1)
         raw_b = touched(torch, raw, square[:, circle])
-        blur_b = touched(torch, blur, ops.brief.pattern_indices(*blur.shape, yx, ang))
-        n_bytes = raw_b + blur_b + yx.numel() * 4 + n * (4 + 32) + (512 * 2 + 31) * 4
+        blur_b = touched(torch, blur, ops.brief.pattern_indices(*blur.shape, yx, ang[:n]))
+        n_bytes = raw_b + blur_b + yx.numel() * 4 + n * (4 + 32) + 512 * 2 + 31 * 4
         bnd, by = bound_ms(n_bytes, n * ops_per_kp)
-        print(f"K2 orient_brief: canvas {tuple(raw.shape)}, {n} keypoints: angles and "
-              f"descriptors bit-equal; bound reads {raw_b} raw + {blur_b} blurred "
-              f"canvas bytes of {raw.numel()} each, {n_bytes} bytes in all")
+        print(f"K2 orient_brief: canvas {tuple(raw.shape)}, {n} keypoints + {len(edge)} "
+              f"at the canvas edges: angles and descriptors bit-equal; bound reads "
+              f"{raw_b} raw + {blur_b} blurred canvas bytes of {raw.numel()} each, "
+              f"{n_bytes} bytes in all")
         self.kernels["orient_brief"] = dict(
             name="orient_brief", route="cuda", source="iv_slam_tpu_torch/csrc/orient_brief.cu",
             replaces="iv_slam_tpu/ops/finish_pallas.py:83", max_abs_err=err,
@@ -340,8 +361,7 @@ class Smoke:
         launches = {k: m.launches for k, m in mods.items()}
 
         n_frames = N_PROCESS + N_PIPE
-        n_levels = sum(1 for lay in fe.extractor.layouts if lay.active)
-        want = {"fast_score": n_levels * n_frames, "orient_brief": n_frames,
+        want = {"fast_score": n_frames, "orient_brief": n_frames,
                 "sad_windows": n_frames}
         print(f"launches over {n_frames} frames: {launches} (expected {want})")
         for k, v in launches.items():

@@ -6,34 +6,52 @@
 // orient_brief_pallas ran after it outside the kernel
 // (iv_slam_tpu/ops/brief.py::descriptors_from_patches). Same function as
 // the plain versions iv_slam_tpu_torch/ops/orient.py::ic_angles_integral and
-// ops/brief.py::descriptors_global_gather, bit for bit:
+// ops/brief.py::descriptors_global_gather, bit for bit, for any keypoint
+// position:
 //   angle = cv fastAtan2(m01, m10) in degrees, with m10 = sum u*I and
-//   m01 = sum v*I over the 31x31 circular umax patch of the raw canvas;
+//   m01 = sum v*I over the 31x31 circular umax patch of the raw canvas
+//   (rows clamped to the canvas, columns outside it left out, as the plain
+//   version's clamped prefix sums do);
 //   bit i of the descriptor = blur[p(2i)] < blur[p(2i+1)], where
 //   p(k) = (y + rint(px_k*sin + py_k*cos), x + rint(px_k*cos - py_k*sin)),
-//   packed LSB first into 32 bytes.
+//   clamped to the canvas, packed LSB first into 32 bytes.
 //
 // Exactness: the moments are integers (|m| < 2^24, exact in f32). Every
 // multiply, add and divide of fastAtan2 and of the pattern rotation is an
 // explicitly rounded intrinsic (__fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn),
 // which the compiler never contracts into an FMA, so the arithmetic is the
 // same sequence of f32 roundings as the plain version's separate tensor ops.
-// cosf/sinf are the full-precision library functions (never fast math:
-// rint at .5 boundaries would flip bits).
+// sincosf is the full-precision library function (never fast math: rint at
+// .5 boundaries would flip bits).
 //
 // Bound on the H100: it reads only each keypoint's circular patch of the
-// raw canvas (~800 px) and its 512 rotated pattern samples of the blurred
-// one, at most 4000 x ~1.3 kB = 5.2 MB at KITTI size and less where
-// patches overlap, and writes 4000 x 36 bytes: ~1.5 us at 3.35 TB/s or
-// less. ~6.5k operations per keypoint (26 M in all) take ~0.4 us at
-// 67 T/s. chip_smoke.py computes the bound from the run's keypoints. Per
-// launch it is latency-bound.
+// raw canvas and its 512 rotated pattern samples of the blurred one (2.38
+// MB at KITTI size, where patches overlap) and writes 4000 x 36 bytes:
+// ~0.7 us at 3.35 TB/s; ~5.8k operations a keypoint (23 M in all) take
+// ~0.35 us at 67 T/s. chip_smoke.py computes the bound from the run's
+// keypoints. The work is small; what costs is latency.
 //
-// Design: one warp per keypoint, four keypoints per 128-thread block. Lane v
-// (0..30) sums row v-15 of the circular patch for m01 and m10 in int32; a
-// butterfly shuffle gives every lane both totals, so every lane computes the
-// same angle with no broadcast. Lane j then builds descriptor byte j from 8
-// pattern pairs. The 39x39 patch never leaves the cache hierarchy.
+// Design, against latency: one warp per keypoint, 8 keypoints a block. Every global load of a keypoint is independent of the
+// others and issued before any arithmetic:
+//  * lane u (0..30) reads column u-15 of the raw patch, its 31 rows, into
+//    registers (neighbouring lanes read neighbouring bytes); the circular
+//    mask is symmetric (finish_cuda.py checks it), so lane u keeps the rows
+//    |v| <= umax[|u|];
+//  * the warp copies the blurred 37x37 window around the keypoint (the
+//    rotated pattern reaches at most 18 px: finish_cuda.py checks the
+//    pattern) into shared memory, 4 bytes a lane and step, rows and
+//    columns clamped to the canvas as the plain version clamps its
+//    indices; windows clear of the side edges read each word as two
+//    aligned 4-byte loads and a funnel shift, without clamps. TMA
+//    does not fit: the canvas pitch (1241 B) is no multiple of 16 and each
+//    window starts at an arbitrary byte;
+//  * the 512 pattern points are loaded once per block into shared memory as
+//    floats, laid out so lane j's 16 points are conflict-free.
+// Then the moments (column sums in int32, a butterfly across the warp; every
+// lane computes the same angle), one sincosf, and lane j's 16 gathers from
+// the shared window for descriptor byte j. Offsets are rounded half to even
+// by adding 1.5 * 2^23 (exact for |v| < 2^22, the same integer as rintf),
+// which keeps the rounding off the conversion pipe.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,7 +59,16 @@
 namespace {
 
 constexpr int HALF_PATCH = 15;
-constexpr int WARPS_PER_BLOCK = 4;
+constexpr int PATCH = 2 * HALF_PATCH + 1;  // 31
+constexpr int REACH = 18;                  // |rint(rotated pattern offset)| <= 18
+constexpr int WIN = 2 * REACH + 1;         // 37
+constexpr int WIN_WORDS = 10;              // a window row: 40 bytes
+constexpr int WIN_ITEMS = WIN * WIN_WORDS;  // 370 words a window
+constexpr int WIN_STEPS = (WIN_ITEMS + 31) / 32;
+constexpr int WARPS = 8;
+static_assert(256 % (32 * WARPS) == 0, "threads share the 256 pattern pairs evenly");
+constexpr float kRound = 12582912.0f;      // 1.5 * 2^23
+constexpr int kRoundBits = 0x4B400000;     // its bit pattern
 
 // cv::fastAtan2 coefficients (degrees) as the exact float32 values of
 // ops/orient.py _P1.._P7 and _DBL_EPS, and ops/brief.py _FACTOR_PI
@@ -72,35 +99,91 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-__global__ void orient_brief_kernel(const uint8_t* __restrict__ raw,
-                                    const uint8_t* __restrict__ blur,
-                                    int R, int W,
-                                    const int* __restrict__ yx, int N,
-                                    const int* __restrict__ pattern,   // (512, 2) x, y
-                                    const int* __restrict__ extents,   // (31,) umax[|v|]
-                                    float* __restrict__ ang_out,
-                                    uint8_t* __restrict__ desc_out) {
-  const int k = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (k >= N) return;  // whole warp exits together
-  const int y = yx[2 * k];
-  const int x = yx[2 * k + 1];
+// rint(v) for |v| < 2^22: round half to even, as rintf
+__device__ __forceinline__ int rint_small(float v) {
+  return __float_as_int(__fadd_rn(v, kRound)) - kRoundBits;
+}
 
-  // ---- intensity-centroid moments: lane v sums row offset v - 15 --------
-  int m01 = 0, m10 = 0;
-  if (lane < 2 * HALF_PATCH + 1) {
-    const int v = lane - HALF_PATCH;
-    const int a = extents[lane];
-    const uint8_t* row = raw + (size_t)clampi(y + v, 0, R - 1) * W;
-    int s = 0, su = 0;
-    for (int u = -a; u <= a; ++u) {
-      const int p = row[clampi(x + u, 0, W - 1)];
-      s += p;
-      su += u * p;
+__global__ void __launch_bounds__(32 * WARPS)
+orient_brief_kernel(const uint8_t* __restrict__ raw, const uint8_t* __restrict__ blur,
+                    int R, int W, const int* __restrict__ yx, int N,
+                    const uint32_t* __restrict__ pattern,  // 256 pairs (x0, y0, x1, y1) int8
+                    const int* __restrict__ extents,       // (31,) umax[|u|], u = -15..15
+                    float* __restrict__ ang_out, uint8_t* __restrict__ desc_out) {
+  __shared__ float pat[8][4][32];  // pair 8j + t of lane j: [t][x0, y0, x1, y1][j]
+  __shared__ int ext[PATCH];
+  __shared__ uint32_t win[WARPS][WIN][WIN_WORDS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int k = blockIdx.x * WARPS + warp;
+  const bool live = k < N;  // the same for the whole warp
+
+  // ---- every global load first ------------------------------------------
+  uint32_t pairs[256 / (32 * WARPS)];
+#pragma unroll
+  for (int i = 0; i < 256 / (32 * WARPS); ++i) pairs[i] = pattern[threadIdx.x + 32 * WARPS * i];
+  const int e = threadIdx.x < PATCH ? extents[threadIdx.x] : 0;
+  int y = 0, x = 0;
+  int col[PATCH];                 // raw patch column lane - 15, rows -15..15
+  uint32_t words[WIN_STEPS];      // blurred window words lane + 32 s
+  if (live) {
+    y = yx[2 * k];
+    x = yx[2 * k + 1];
+    const int cx = x + lane - HALF_PATCH;
+    const bool in = lane < PATCH && cx >= 0 && cx < W;
+#pragma unroll
+    for (int v = 0; v < PATCH; ++v)
+      col[v] = in ? raw[clampi(y + v - HALF_PATCH, 0, R - 1) * W + cx] : 0;
+    // a window clear of the side edges reads each of its words as the two
+    // aligned words around it: bytes c0-3 .. c0+7 of the row, inside it
+    const bool clear = x >= REACH + 3 && x + 4 * WIN_WORDS - REACH + 4 <= W;
+#pragma unroll
+    for (int s = 0; s < WIN_STEPS; ++s) {
+      const int i = lane + 32 * s;
+      uint32_t word = 0;
+      if (i < WIN_ITEMS) {
+        const int r = i / WIN_WORDS, c0 = x - REACH + 4 * (i - r * WIN_WORDS);
+        const uint8_t* row = blur + clampi(y - REACH + r, 0, R - 1) * W;
+        if (clear) {
+          const uintptr_t a = reinterpret_cast<uintptr_t>(row + c0);
+          const uint32_t* wp = reinterpret_cast<const uint32_t*>(a & ~(uintptr_t)3);
+          word = __funnelshift_r(__ldg(wp), __ldg(wp + 1), 8 * (unsigned)(a & 3));
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) word |= (uint32_t)row[clampi(c0 + j, 0, W - 1)] << (8 * j);
+        }
+      }
+      words[s] = word;
     }
-    m01 = v * s;
-    m10 = su;
   }
+#pragma unroll
+  for (int i = 0; i < 256 / (32 * WARPS); ++i) {
+    const int q = threadIdx.x + 32 * WARPS * i;  // pair q = 8j + t
+#pragma unroll
+    for (int c = 0; c < 4; ++c) pat[q & 7][c][q >> 3] = (float)(int8_t)(pairs[i] >> (8 * c));
+  }
+  if (threadIdx.x < PATCH) ext[threadIdx.x] = e;
+  if (live) {
+    uint32_t* w = &win[warp][0][0];
+#pragma unroll
+    for (int s = 0; s < WIN_STEPS; ++s)
+      if (lane + 32 * s < WIN_ITEMS) w[lane + 32 * s] = words[s];
+  }
+  __syncthreads();
+  if (!live) return;
+
+  // ---- intensity-centroid moments: lane u sums column u - 15 ------------
+  const int u = lane - HALF_PATCH;
+  const int eu = lane < PATCH ? ext[lane] : -1;  // rows |v| <= eu of column u
+  int s = 0, sv = 0;
+#pragma unroll
+  for (int v = 0; v < PATCH; ++v) {
+    const int dv = v - HALF_PATCH;
+    if ((dv < 0 ? -dv : dv) <= eu) {
+      s += col[v];
+      sv += dv * col[v];
+    }
+  }
+  int m01 = sv, m10 = u * s;
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     m01 += __shfl_xor_sync(0xffffffffu, m01, off);
@@ -110,27 +193,23 @@ __global__ void orient_brief_kernel(const uint8_t* __restrict__ raw,
   if (lane == 0) ang_out[k] = ang;
 
   // ---- rBRIEF: lane j builds byte j from pattern pairs 8j .. 8j+7 -------
-  const float rad = __fmul_rn(ang, kFactorPi);
-  const float ca = cosf(rad);
-  const float sb = sinf(rad);
+  float sb, ca;
+  sincosf(__fmul_rn(ang, kFactorPi), &sb, &ca);
+  const uint8_t* wb = reinterpret_cast<const uint8_t*>(&win[warp][0][0]);
   unsigned byte = 0;
 #pragma unroll
   for (int t = 0; t < 8; ++t) {
     int val[2];
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int i = 2 * (8 * lane + t) + e;
-      const float px = (float)pattern[2 * i];
-      const float py = (float)pattern[2 * i + 1];
-      const int dr = (int)rintf(__fadd_rn(__fmul_rn(px, sb), __fmul_rn(py, ca)));
-      const int dc = (int)rintf(__fsub_rn(__fmul_rn(px, ca), __fmul_rn(py, sb)));
-      const int r = clampi(y + dr, 0, R - 1);
-      const int c = clampi(x + dc, 0, W - 1);
-      val[e] = blur[(size_t)r * W + c];
+    for (int h = 0; h < 2; ++h) {
+      const float px = pat[t][2 * h][lane], py = pat[t][2 * h + 1][lane];
+      const int dr = rint_small(__fadd_rn(__fmul_rn(px, sb), __fmul_rn(py, ca)));
+      const int dc = rint_small(__fsub_rn(__fmul_rn(px, ca), __fmul_rn(py, sb)));
+      val[h] = wb[(REACH + dr) * (4 * WIN_WORDS) + REACH + dc];
     }
     byte |= (unsigned)(val[0] < val[1]) << t;
   }
-  desc_out[(size_t)k * 32 + lane] = (uint8_t)byte;
+  desc_out[k * 32 + lane] = (uint8_t)byte;
 }
 
 }  // namespace
@@ -140,10 +219,11 @@ extern "C" int orient_brief_launch(const void* raw, const void* blur, int R, int
                                    const void* extents, void* ang_out,
                                    void* desc_out, void* stream) {
   if (N <= 0) return 0;
-  const int blocks = (N + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
-  orient_brief_kernel<<<blocks, 32 * WARPS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+  if ((long long)R * W > 0x7fffffffLL || N > 0x7fffffff / 32) return (int)cudaErrorInvalidValue;
+  const int blocks = (N + WARPS - 1) / WARPS;
+  orient_brief_kernel<<<blocks, 32 * WARPS, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)raw, (const uint8_t*)blur, R, W, (const int*)yx, N,
-      (const int*)pattern, (const int*)extents, (float*)ang_out,
+      (const uint32_t*)pattern, (const int*)extents, (float*)ang_out,
       (uint8_t*)desc_out);
   return (int)cudaGetLastError();
 }

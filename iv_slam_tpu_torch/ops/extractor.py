@@ -4,7 +4,7 @@ Port of ``iv_slam_tpu/ops/extractor.py`` for its default selection path
 (``ORBConfig.select_path == "hist"``, no quality map). Reproduces the
 reference's active extraction path (ORBextractor.cc:880-1296):
 
-  pyramid -> per-level FAST (kernel 1, ops/fast_cuda.py) -> cell-local NMS
+  pyramid -> FAST on all levels (kernel 1, ops/fast_cuda.py) -> cell-local NMS
   and the iniTh/minTh per-cell choice -> one budget-redistribution pass ->
   per-cell and per-level retain-best by integer-threshold search -> IC
   orientation + 7x7/sigma2 Gaussian blur + rBRIEF over the flattened
@@ -336,19 +336,20 @@ class OrbExtractor:
         return t
 
     def select(self, levels: List[torch.Tensor]):
-        """Histogram keypoint selection for B images: per level, kernel 1's
-        FAST scores -> phase A; one batched redistribution for all
-        (level, image) rows; phase B per level. Returns a list of
-        (level, yx (B, n_l, 2) int32, resp, valid, xy0) per active level."""
+        """Histogram keypoint selection for B images: kernel 1's FAST scores
+        of every active level (one launch) -> phase A per level; one batched
+        redistribution for all (level, image) rows; phase B per level.
+        Returns a list of (level, yx (B, n_l, 2) int32, resp, valid, xy0)
+        per active level."""
         if self.cfg.select_path != "hist":
             raise NotImplementedError(_TOPK_TODO)
         B = levels[0].shape[0]
+        act = [lvl for lvl, lay in enumerate(self.layouts) if lay.active]
+        scores = fast_cuda.fast_score_levels(
+            [levels[lvl].contiguous() for lvl in act], self.cfg.min_th_fast)
         stage_a = []
-        for lvl, lay in enumerate(self.layouts):
-            if not lay.active:
-                continue
-            score_min = fast_cuda.fast_score(levels[lvl].contiguous(),
-                                             self.cfg.min_th_fast)
+        for lvl, score_min in zip(act, scores):
+            lay = self.layouts[lvl]
             t, n_tot = _level_score_tiles(score_min, lay, self.cfg.ini_th_fast)
             stage_a.append((lvl, lay, t, n_tot))
         active = [lay for _, lay, _, _ in stage_a]

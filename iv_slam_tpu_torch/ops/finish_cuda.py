@@ -13,6 +13,7 @@ from __future__ import annotations
 from ctypes import c_int, c_void_p
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from .. import _kernels
@@ -32,13 +33,41 @@ def orient_brief_plain(raw: torch.Tensor, blur: torch.Tensor, yx: torch.Tensor):
     return ang, brief.descriptors_global_gather(blur, yx, ang)
 
 
+# the kernel stages a (2 REACH + 1)^2 window of the blurred canvas around
+# each keypoint (csrc/orient_brief.cu REACH)
+REACH = 18
+
+
+def pattern_reach(pat: np.ndarray) -> int:
+    """The largest |rint(x sin + y cos)| or |rint(x cos - y sin)| of the
+    pattern points (x, y) over all angles: rint of the largest point norm
+    (|x sin + y cos| <= hypot(x, y)), refused within 1e-3 of a .5 boundary
+    where f32 rounding could tip it."""
+    r = float(np.hypot(pat[:, 0], pat[:, 1]).max())
+    if abs(r - np.floor(r) - 0.5) < 1e-3:
+        raise ValueError(f"pattern norm {r} too close to a rounding boundary")
+    return int(np.floor(r + 0.5))
+
+
 def _device_tables(dev: torch.device):
-    """BRIEF pattern (512, 2) and circular row extents (31,), int32, cached
-    on the device so the per-frame path uploads nothing."""
+    """BRIEF pattern (512, 2) int8, one 4-byte word per point pair, and the
+    circular patch extents (31,) int32, cached on the device so the
+    per-frame path uploads nothing. Checks what the kernel relies on: the
+    rotated pattern stays within REACH px, and the patch mask is symmetric,
+    so the extent of row v is also that of column v."""
     t = _tables.get(dev)
     if t is None:
-        t = (torch.as_tensor(brief.pattern(), dtype=torch.int32, device=dev).contiguous(),
-             torch.as_tensor(orient.row_extents(), dtype=torch.int32, device=dev))
+        pat = brief.pattern()
+        if pattern_reach(pat) > REACH or np.abs(pat).max() > 127:
+            raise ValueError(f"BRIEF pattern reaches {pattern_reach(pat)} px; "
+                             f"the kernel's window holds {REACH}")
+        ext = orient.row_extents()
+        u = np.arange(-orient.HALF_PATCH, orient.HALF_PATCH + 1)
+        mask = np.abs(u)[None, :] <= ext[:, None]
+        if not np.array_equal(mask, mask.T):  # the kernel sums columns
+            raise ValueError("circular patch mask is not symmetric")
+        t = (torch.as_tensor(pat.astype(np.int8), device=dev).contiguous(),
+             torch.as_tensor(ext, dtype=torch.int32, device=dev))
         _tables[dev] = t
     return t
 
@@ -47,9 +76,10 @@ def orient_brief(raw: torch.Tensor, blur: torch.Tensor, yx: torch.Tensor):
     """Angles and descriptors of keypoints on a pyramid canvas.
 
     raw/blur: (R, W) uint8 canvases (unblurred / 7x7 sigma=2 blurred);
-    yx: (N, 2) int32 canvas coords, at least 19 px from every level border
-    (the extractor guarantees it). Returns (angles_deg (N,) float32,
-    desc (N, 32) uint8), bit-equal to ``orient_brief_plain``.
+    yx: (N, 2) int32 canvas coords (the extractor keeps them 19 px from
+    every level border; any position gives the plain result). Returns
+    (angles_deg (N,) float32, desc (N, 32) uint8), bit-equal to
+    ``orient_brief_plain``.
     """
     global launches
     if raw.device.type == "cpu":
@@ -73,5 +103,5 @@ def orient_brief(raw: torch.Tensor, blur: torch.Tensor, yx: torch.Tensor):
         _launch(raw.data_ptr(), blur.data_ptr(), raw.shape[0], raw.shape[1],
                 yx.data_ptr(), n, pat.data_ptr(), ext.data_ptr(),
                 ang.data_ptr(), desc.data_ptr(), _kernels.stream_of(raw))
-    launches += 1
+    launches += n > 0  # the entry point launches nothing for no keypoints
     return ang, desc

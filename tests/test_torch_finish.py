@@ -53,6 +53,37 @@ def test_orient_brief_exact_vs_jax_cpu_path(h, w, n):
     assert torch.equal(ang, ang_p) and torch.equal(desc, desc_p)
 
 
+def test_orient_brief_canvas_edges_and_empty_vs_jax_cpu_path():
+    """Keypoints 19 px from every edge and corner of the canvas, and N=0,
+    through the wrapper's CPU dispatch: equal to the JAX CPU path."""
+    h, w = 90, 140
+    _, raw, blur = _canvas(4, h, w)
+    near = lambda n: (19, n // 2, n - 20)
+    yx = np.array([(r, c) for r in near(h) for c in near(w)], dtype=np.int32)
+    for pts in (yx, yx[:0]):
+        ang_ref = jorient.ic_angles_integral(jnp.asarray(raw), jnp.asarray(pts))
+        desc_ref = jbrief.descriptors_onehot_mxu(jnp.asarray(blur), jnp.asarray(pts),
+                                                 ang_ref)
+        ang, desc = finish_cuda.orient_brief(
+            torch.from_numpy(raw), torch.from_numpy(blur), torch.from_numpy(pts))
+        assert ang.shape == (len(pts),) and desc.shape == (len(pts), 32)
+        np.testing.assert_array_equal(ang.numpy(), np.asarray(ang_ref))
+        np.testing.assert_array_equal(desc.numpy(), np.asarray(desc_ref))
+
+
+def test_pattern_fits_the_kernel_window():
+    """The rotated BRIEF pattern reaches at most finish_cuda.REACH px at
+    any angle: checked here on the table, and over a sweep of angles by
+    the plain rotation itself."""
+    pat = tbrief.pattern()
+    assert finish_cuda.pattern_reach(pat) == finish_cuda.REACH == 18
+    ang = torch.linspace(0, 360, 7201, dtype=torch.float32)
+    idx = tbrief.pattern_indices(1001, 1001, torch.full((len(ang), 2), 500,
+                                                        dtype=torch.int32), ang)
+    dr, dc = idx // 1001 - 500, idx % 1001 - 500
+    assert int(dr.abs().max()) == 18 and int(dc.abs().max()) == 18
+
+
 def test_brief_exact_at_arbitrary_angles():
     """Rotated-pattern rounding (rint at .5 boundaries) agrees with the JAX
     one-hot and flat-gather paths over many angles, negative ones included."""
