@@ -11,8 +11,9 @@ It drives the port only (no JAX, nothing of ``iv_slam_tpu``):
      kernel's wrapper, then holds each kernel bit for bit against its plain
      PyTorch version on the card at those inputs (K1 also at threshold 20
      and on a level-0-sized noise image at threshold 0, K2 also at
-     keypoints 0-5 and 18-19 px from the canvas edges, K3 also at
-     clip-limit window centers) and times kernel and plain version with
+     keypoints 0-5 and 18-19 px from the canvas edges, K3 on the main
+     path's own canvas views, at clip-limit window centers, at base offsets
+     0-15 and at the extreme values) and times kernel and plain version with
      CUDA events;
   3. slice phase: StereoFrontend at KITTI-00 geometry (376x1241, 2000
      features, 8 levels, FAST 20/7) through process() and through
@@ -204,7 +205,14 @@ class Smoke:
             return orig[1](raw, blur, yx)
 
         def sad(cl, cr, yc, xl, xr):
-            rec["sad_windows"].append(tuple(t.clone() for t in (cl, cr, yc, xl, xr)))
+            # the canvases are [0] and [1] of one (2, R, C) tensor: keep it
+            # whole, so that K3 is checked on views at the same offsets
+            R, C = cl.shape
+            require(cl.is_contiguous() and cr.data_ptr() == cl.data_ptr() + R * C,
+                    "SAD canvases are not [0] and [1] of one (2, R, C) tensor")
+            both = self.torch.as_strided(cl, (2, R, C), (R * C, C, 1)).clone()
+            rec["sad_windows"].append(
+                (both, cr.data_ptr() % 16) + tuple(t.clone() for t in (yc, xl, xr)))
             return orig[2](cl, cr, yc, xl, xr)
 
         ops.fast_cuda.fast_score_levels, ops.finish_cuda.orient_brief = fast, ob
@@ -299,22 +307,43 @@ class Smoke:
 
     def check_sad(self, rec):
         torch, ops = self.torch, self.port["ops"]
-        cl, cr, yc, xl, xr = rec["sad_windows"][0]
+        canvas, main_mod16, yc, xl, xr = rec["sad_windows"][0]
+        cl, cr = canvas[0], canvas[1]  # views, as the main path hands them over
         R, C = cl.shape
         w, l = ops.stereo_cuda._W, ops.stereo_cuda._L
         dev = cl.device
+        mod16 = cr.data_ptr() % 16
+        require(mod16 == main_mod16,
+                f"right view at {mod16} mod 16, the main path's at {main_mod16}")
 
-        def i32(v):
-            return torch.tensor(v, dtype=torch.int32, device=dev)
-        # the clip limits match_stereo applies (tests/test_stereo_pallas.py)
-        yc_e = torch.cat([yc, i32([w, R - w - 1, w, R - w - 1])])
-        xl_e = torch.cat([xl, i32([w, C - w - 1, C - w - 1, w])])
-        xr_e = torch.cat([xr, i32([w + l, C - w - l - 1, w + l, C - w - l - 1])])
-        k = ops.stereo_cuda.sad_windows(cl, cr, yc_e, xl_e, xr_e)
-        p = ops.stereo_cuda.sad_windows_plain(cl, cr, yc_e, xl_e, xr_e)
-        torch.cuda.synchronize()
-        err = float((k - p).abs().max())
-        require(torch.equal(k, p), f"SAD kernel != plain: max err {err}")
+        # the main path's centers and the 8 clip-limit corners match_stereo
+        # allows (tests/test_stereo_pallas.py)
+        lim = [(y, a, b) for y in (w, R - w - 1) for a in (w, C - w - 1)
+               for b in (w + l, C - w - l - 1)]
+        yc_e, xl_e, xr_e = (torch.cat([v, torch.tensor(e, dtype=torch.int32, device=dev)])
+                            for v, e in zip((yc, xl, xr), zip(*lim)))
+        # the top of the range: left patches 255 around a center of 0, right
+        # windows 0 around a center of 255, at the main path's centers
+        ext = torch.stack([torch.full_like(cl, 255), torch.zeros_like(cr)])
+        rows = yc_e.long()
+        ext[0, rows, xl_e.long()] = 0
+        for d in range(-l, l + 1):
+            ext[1, rows, xr_e.long() + d] = 255
+        cases = [("main-path views", canvas), ("extreme values", ext)]
+        for off in range(16):  # the same canvas at every base offset mod 16
+            buf = torch.empty(off + canvas.numel(), dtype=torch.uint8, device=dev)
+            buf[off:] = canvas.reshape(-1)
+            cases.append((f"base offset {off}", buf[off:].view(canvas.shape)))
+        err, top = 0.0, None
+        for what, c in cases:
+            k = ops.stereo_cuda.sad_windows(c[0], c[1], yc_e, xl_e, xr_e)
+            p = ops.stereo_cuda.sad_windows_plain(c[0], c[1], yc_e, xl_e, xr_e)
+            torch.cuda.synchronize()
+            e = float((k - p).abs().max())
+            err = max(err, e)
+            require(torch.equal(k, p), f"SAD kernel != plain on {what}: max err {e}")
+            if what == "extreme values":
+                top = int(k.max())
         fns = (lambda: ops.stereo_cuda.sad_windows(cl, cr, yc, xl, xr),
                lambda: ops.stereo_cuda.sad_windows_plain(cl, cr, yc, xl, xr))
         n = yc.shape[0]
@@ -324,9 +353,12 @@ class Smoke:
         right_b = touched(torch, cr, window_indices(torch, cr, yc, xr, w, w + l))
         n_bytes = left_b + right_b + 3 * n * 4 + n * 11 * 4
         bnd, by = bound_ms(n_bytes, n * 11 * 121 * 4)
-        print(f"K3 sad_windows: canvases {tuple(cl.shape)}, {n} keypoints + 4 clip-limit "
-              f"centers: bit-equal; bound reads {left_b} left + {right_b} right canvas "
-              f"bytes of {cl.numel()} each, {n_bytes} bytes in all")
+        print(f"K3 sad_windows: canvas {tuple(canvas.shape)}, right view at byte "
+              f"{cr.storage_offset()} ({mod16} mod 16, as on the main path); {n} keypoints "
+              f"+ {len(lim)} clip-limit centers on those views, at base offsets 0-15 and at "
+              f"the extreme values: bit-equal (largest extreme SAD {top}); bound reads "
+              f"{left_b} left + {right_b} right canvas bytes of {cl.numel()} each, "
+              f"{n_bytes} bytes in all")
         self.kernels["sad_windows"] = dict(
             name="sad_windows", route="cuda", source="iv_slam_tpu_torch/csrc/sad_windows.cu",
             replaces="iv_slam_tpu/ops/stereo_pallas.py:88", max_abs_err=err,

@@ -4,8 +4,8 @@ Every test here needs an NVIDIA GPU and nvcc and skips without them. The
 main-path shapes are checked by chip_smoke.py; these cases cover the edges
 it does not reach: tiny and odd image sizes and level lists mixing them,
 keypoint counts that do not fill a block, keypoints 0-5 and 18-19 px
-from the canvas edges, clip-limit window centers, and the wrappers'
-refusals. This file imports no JAX, so it runs where JAX is not installed:
+from the canvas edges, clip-limit window centers, SAD canvases that are
+views at every byte offset mod 16, and the wrappers' refusals. This file imports no JAX, so it runs where JAX is not installed:
 
     python -m pytest -o addopts="" --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -92,21 +92,53 @@ def test_orient_brief_kernel_equals_plain(dev, n):
     assert torch.equal(desc, desc_p)
 
 
-@pytest.mark.parametrize("n", [1, 3, 70])
-def test_sad_kernel_equals_plain(dev, n):
-    rng = np.random.default_rng(n)
-    H, W, w, l = 96, 200, stereo_cuda._W, stereo_cuda._L
-    cl, cr = _u8(rng, H, W), _u8(rng, H, W)
-    yc = np.r_[rng.integers(w, H - w - 1, n), [w, H - w - 1, w, H - w - 1]]
-    xl = np.r_[rng.integers(w, W - w - 1, n), [w, W - w - 1, W - w - 1, w]]
-    xr = np.r_[rng.integers(w + l, W - w - l - 1, n),
-               [w + l, W - w - l - 1, w + l, W - w - l - 1]]
-    args = [cl.to(dev), cr.to(dev)] + [
-        torch.from_numpy(v.astype(np.int32)).to(dev) for v in (yc, xl, xr)]
-    got = stereo_cuda.sad_windows(*args)
-    ref = stereo_cuda.sad_windows_plain(*args)
+def _sad_centers(rng, n, H, W):
+    """n window centers: the first ones at every residue of xl and xr mod
+    16 and at the clip limits (first and last rows and columns), the rest
+    random inside the clip."""
+    w, l = stereo_cuda._W, stereo_cuda._L
+    yc = rng.integers(w, H - w, n)
+    xl = rng.integers(w, W - w, n)
+    xr = rng.integers(w + l, W - w - l, n)
+    lim = [(y, a, b) for y in (w, H - w - 1) for a in (w, W - w - 1)
+           for b in (w + l, W - w - l - 1)]
+    res = [(w + i, 16 + i, 16 + (i + 5) % 16) for i in range(16)]
+    fixed = np.array(lim + res)[:n]
+    yc[:len(fixed)], xl[:len(fixed)], xr[:len(fixed)] = fixed.T
+    return [v.astype(np.int32) for v in (yc, xl, xr)]
+
+
+@pytest.mark.parametrize("fill", ["random", "extreme"])
+@pytest.mark.parametrize("off", range(16))
+@pytest.mark.parametrize("W", [1241, 203])
+@pytest.mark.parametrize("n", [0, 1, 3, 70, 4001])
+def test_sad_kernel_equals_plain(dev, n, W, off, fill):
+    """Canvases as the main path hands them over: [0] and [1] of one
+    (2, H, W) tensor, here a view `off` bytes into a buffer that ends where
+    the right canvas does, so the words around the first and last window
+    rows reach outside both canvases. "extreme" is the top of the range:
+    left patches 255 around a center of 0, right windows 0 around 255."""
+    rng = np.random.default_rng(1000 * n + W + off)
+    H = 96
+    yc, xl, xr = _sad_centers(rng, n, H, W)
+    c = rng.integers(0, 256, (2, H, W), dtype=np.uint8)
+    if fill == "extreme":
+        c[0], c[1] = 255, 0
+        c[0, yc, xl] = 0
+        for d in range(-stereo_cuda._L, stereo_cuda._L + 1):
+            c[1, yc, xr + d] = 255
+    buf = torch.zeros(off + 2 * H * W, dtype=torch.uint8)
+    buf[off:] = torch.from_numpy(c.reshape(-1))
+    canvas = buf.to(dev)[off:].view(2, H, W)
+    cl, cr = canvas[0], canvas[1]
+    centers = [torch.from_numpy(v).to(dev) for v in (yc, xl, xr)]
+    before = stereo_cuda.launches
+    got = stereo_cuda.sad_windows(cl, cr, *centers)
+    assert stereo_cuda.launches == before + (n > 0)
+    ref = stereo_cuda.sad_windows_plain(cl, cr, *centers)
     torch.cuda.synchronize()
-    assert got.shape == (n + 4, 11) and torch.equal(got, ref)
+    assert got.shape == (n, 11) and got.dtype == torch.float32
+    assert torch.equal(got, ref)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):

@@ -55,6 +55,85 @@ def test_sad_plain_matches_pallas_edge_positions():
     _sad_pair(1, H, W, yc, xl, xr)
 
 
+# csrc/sad_windows.cu's range argument: an operand a + cR or b + cL is at
+# most 510; a slide's packed sum adds per 16-bit half at most 6 columns x
+# 11 rows of |.| (low half: columns 0,2,..,10), and its two halves together
+# 121 terms
+_OPERAND_MAX = 2 * 255
+_HALF_MAX = 6 * (2 * _W + 1) * _OPERAND_MAX   # 33,660
+_SAD_MAX = (2 * _W + 1) ** 2 * _OPERAND_MAX   # 61,710
+
+
+def _sad_packed(cl, cr, yc, xl, xr):
+    """numpy emulation of the kernel's arithmetic: operands a + cR and
+    b + cL held as uint16, absolute differences as max - min of the halves,
+    row sums, then the slide sums accumulated per half in uint16 (each half
+    checked against the same sum in int64: no wrap), and the halves added."""
+    r = np.arange(-_W, _W + 1)
+    s = np.arange(-_W - _L, _W + _L + 1)
+    rows = yc[:, None, None] + r[None, :, None]
+    IL = cl[rows, xl[:, None, None] + r[None, None, :]].astype(np.uint16)
+    IR = cr[rows, xr[:, None, None] + s[None, None, :]].astype(np.uint16)
+    cL = IL[:, _W, _W]
+    out = np.zeros((len(yc), 2 * _L + 1), np.float32)
+    for inc in range(2 * _L + 1):
+        cR = IR[:, _W, _W + inc]
+        x = IL + cR[:, None, None]                      # a + cR
+        y = IR[:, :, inc:inc + 2 * _W + 1] + cL[:, None, None]  # b + cL
+        assert x.dtype == y.dtype == np.uint16
+        assert x.max(initial=0) <= _OPERAND_MAX and y.max(initial=0) <= _OPERAND_MAX
+        d = np.maximum(x, y) - np.minimum(x, y)         # |.|, no borrow
+        halves = []
+        for cols in (slice(0, None, 2), slice(1, None, 2)):
+            rowsum = d[:, :, cols].sum(axis=2, dtype=np.uint16)
+            half = rowsum.sum(axis=1, dtype=np.uint16)
+            wide = d[:, :, cols].sum(axis=(1, 2), dtype=np.int64)
+            assert wide.max(initial=0) <= _HALF_MAX and np.array_equal(half, wide)
+            halves.append(half)
+        total = halves[0].astype(np.uint32) + halves[1]
+        assert total.max(initial=0) <= _SAD_MAX < 1 << 16
+        out[:, inc] = total
+    return out
+
+
+def _extreme_pair(H, W, yc, xl, xr):
+    """The top of the range: left patches 255 around a center of 0, right
+    windows 0 around a center of 255 (every slide's center)."""
+    cl = np.full((H, W), 255, np.uint8)
+    cr = np.zeros((H, W), np.uint8)
+    cl[yc, xl] = 0
+    for d in range(-_L, _L + 1):
+        cr[yc, xr + d] = 255
+    return cl, cr
+
+
+@pytest.mark.parametrize("fill", ["random", "extreme"])
+def test_sad_packed_formulation_matches_plain_and_pallas(fill):
+    rng = np.random.default_rng(5)
+    H, W, n = 64, 203, 40
+    yc = rng.integers(_W, H - _W, n).astype(np.int32)
+    xl = rng.integers(_W, W - _W, n).astype(np.int32)
+    xr = rng.integers(_W + _L, W - _W - _L, n).astype(np.int32)
+    yc[:4] = [_W, H - _W - 1, _W, H - _W - 1]
+    xl[:4] = [_W, W - _W - 1, W - _W - 1, _W]
+    xr[:4] = [_W + _L, W - _W - _L - 1, _W + _L, W - _W - _L - 1]
+    if fill == "random":
+        cl = rng.integers(0, 256, (H, W)).astype(np.uint8)
+        cr = rng.integers(0, 256, (H, W)).astype(np.uint8)
+    else:
+        cl, cr = _extreme_pair(H, W, yc, xl, xr)
+    got = _sad_packed(cl, cr, yc, xl, xr)
+    plain = stereo_cuda.sad_windows_plain(
+        *[torch.from_numpy(a) for a in (cl, cr, yc, xl, xr)]).numpy()
+    pallas = np.asarray(sad_windows_pallas(
+        *[jnp.asarray(a) for a in (cl, cr, yc, xl, xr)], interpret=True))
+    np.testing.assert_array_equal(got, plain)
+    np.testing.assert_array_equal(got, pallas)
+    if fill == "extreme":
+        # every term but the center's is 510 or 255: near the ceiling
+        assert got.max() > 0.95 * _SAD_MAX
+
+
 def _stereo_pair(h, w, shift, seed):
     import cv2
 
