@@ -19,10 +19,25 @@ It drives the port only (no JAX, nothing of ``iv_slam_tpu``):
      features, 8 levels, FAST 20/7) through process() and through
      submit()/collect() at depth 3, with every launch counter set to 0 just
      before and read just after; checks slot fill, the 20 px disparity of
-     the test pair and repeatability; then each kernel's device time from
-     torch.profiler, equality of every Frame field with the CPU path (plain
-     versions) on a small pair, and a profile of whole frames;
-  4. prints one {"kernels": [...]} line and, last, the status line.
+     the test pair and repeatability; then equality of every Frame field
+     with the CPU path (plain versions) on a small pair;
+  4. tracking phase, at bench.py's full-loop world and configuration
+     (tests/synth_world.py PlaneWorld, seed 11, 376x1241, 2000 features),
+     frames from the card's StereoFrontend (K1-K3 on every frame, counted):
+     (a) a map from frame 0 (MapStore, DeviceMap.sync), then FusedTracker
+     steps over frames 1-14 of the accelerating path with the motion model,
+     each held to the reference's limits (>= 20 motion matches, >= 30
+     inliers), and the ATE of the tracked poses; (b) a map of 5 keyframes at
+     their ground-truth poses 16 m apart (live rung 16384, so the local
+     search compacts the table), 14 frames tracked between two of them,
+     each pose held against ground truth and both compaction overflows to 0;
+     one step of (b) again on the CPU path (same inputs), compared; host
+     syncs inside a step (CUDA sync debug mode);
+  5. from torch.profiler, after every phase that times the host: each
+     kernel's device time, the tracking step's device time and kernel
+     launches, and a profile of whole frames;
+  6. prints one {"tracking": {...}} line, one {"kernels": [...]} line and,
+     last, the status line.
 
 A phase that fails is reported and the script exits 1 without a result.
 With no CUDA device, or run outside a checkout, it exits 2 at once.
@@ -46,6 +61,13 @@ H, W = 376, 1241                      # KITTI-00 image geometry
 SMALL_H, SMALL_W = 240, 320           # CPU-vs-GPU comparison pair
 DISPARITY = 20                        # of the test pair, in pixels
 N_PROCESS, N_PIPE, DEPTH = 60, 60, 3  # frames through process / submit+collect
+
+# tracking phase: bench.py's full-loop world and camera
+FX = 718.856
+N_TRACK_A = 14          # frames tracked after frame 0 in part (a)
+KF_EVERY_B = 20         # part (b): a keyframe every 20 frames (16 m at 0.8 m/frame)
+N_KF_B, N_TRACK_B = 5, 14
+STEP_PROFILE_ITERS = 2
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, and the float32
 # rate outside the tensor cores, used for these kernels' 32-bit scalar ops
@@ -106,9 +128,10 @@ def dev_us(e) -> float:
     return getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
 
 
-def device_ms(torch, fn, iters=20, warmup=3) -> float:
-    """Mean device milliseconds per call of fn(): the summed durations of
-    the kernels it launches, from torch.profiler (no host gaps)."""
+def device_ms(torch, fn, iters=20, warmup=3):
+    """(mean device milliseconds, kernel launches) per call of fn(): the
+    summed durations and the count of the kernels it launches, from
+    torch.profiler (no host gaps)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -118,8 +141,10 @@ def device_ms(torch, fn, iters=20, warmup=3) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(dev_us(e) for e in prof.key_averages() if e.device_type.name == "CUDA")
-    return us / 1e3 / iters
+    rows = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    us = sum(dev_us(e) for e in rows)
+    n = sum(e.count for e in rows if not e.key.startswith(("Memcpy", "Memset")))
+    return us / 1e3 / iters, n / iters
 
 
 def require(ok, what) -> None:
@@ -160,6 +185,7 @@ class Smoke:
         self.failures = []
         self.kernels = {}
         self.fps = {}
+        self.trk = None
 
     def phase(self, name, fn, *args):
         t0 = time.perf_counter()
@@ -455,12 +481,16 @@ class Smoke:
 
     def device_times(self):
         """Each kernel's and plain version's device time per frame, from
-        torch.profiler; run after the slice phase, since the host runs
-        slower once the profiler has been active in the process."""
+        torch.profiler: the first profiling of the process, after every
+        phase that times the host (the host runs slower once the profiler
+        has been active). Each wrapper call launches one kernel, so the
+        profile must hold one kernel a call: fewer would mean lost events
+        and a time too low."""
         for k in self.kernels.values():
             kern, plain = k.pop("fns")
-            k["ms"] = device_ms(self.torch, kern)
-            k["plain_ms"] = device_ms(self.torch, plain, iters=5)
+            k["ms"], per_call = device_ms(self.torch, kern)
+            require(per_call == 1, f"{k['name']}: profiled {per_call} kernels a call, not 1")
+            k["plain_ms"], _ = device_ms(self.torch, plain, iters=5)
 
     def profile(self, fe, left, right):
         """Device time by kernel over a few pipelined frames (informational)."""
@@ -491,6 +521,266 @@ class Smoke:
         for e in rows[:8]:
             print(f"  {dev_us(e) / 1e3 / n:8.3f} ms/frame  {e.count // n:5d}x  {e.key[:90]}")
 
+    # ---- phase 4: tracking ------------------------------------------------
+    def tracking_setup(self):
+        """bench.py's full-loop world (bench.py:265-290) and configuration,
+        the card's frontend and tracker, and a counter of the step's
+        launches of K1-K3 (every frame goes through the frontend)."""
+        torch, port = self.torch, self.port
+        sys.path.insert(0, os.path.join(HERE, "tests"))
+        import synth_world
+
+        world = synth_world.PlaneWorld(
+            np.random.default_rng(11), tex_size=8192, res=40.0, fx=FX, fy=FX,
+            cx=W / 2.0, cy=H / 2.0, w=W, h=H, baseline=0.54)
+        cfg = port["config"].Config()
+        cfg.camera = port["config"].CameraConfig(
+            fx=FX, fy=FX, cx=W / 2.0, cy=H / 2.0, bf=0.54 * FX, width=W, height=H,
+            th_depth=35.0, fps=10.0)
+        cfg.orb = port["config"].ORBConfig(n_features=2000, n_levels=8, ini_th_fast=20,
+                                           min_th_fast=7)
+        fe = port["frame"].StereoFrontend(cfg, H, W)
+        tr = port["fused"].FusedTracker(cfg, H, W)
+        self.trk = SimpleNamespace(world=world, cfg=cfg, fe=fe, tr=tr, synth=synth_world,
+                                   frames=0, step_ms=[], n_motion=[], n_final=[],
+                                   record=None, out={})
+        for m in self.counters().values():
+            m.launches = 0
+        print(f"tracking: frame capacity {fe.extractor.capacity}, pose-LM table "
+              f"{port['fused'].pose_cap(fe.extractor.capacity)} rows, local-search "
+              f"table {port['fused'].LOCAL_CAP} rows")
+
+    def _frame(self, Twc, i, pose_cw=None):
+        t = self.trk
+        left, right = t.world.render_stereo(Twc)
+        fr = t.fe.process(left, right, 0.1 * i)
+        t.frames += 1
+        if pose_cw is not None:
+            fr.set_pose(pose_cw)
+        return fr
+
+    def _add_keyframe(self, m, fr):
+        """A keyframe and its stereo points, through the MapStore calls of
+        Tracking._stereo_initialization (tracking.py:677-695)."""
+        cam = self.trk.cfg.camera
+        kf = m.add_keyframe(fr)
+        for i in np.nonzero(fr.valid & (fr.depth > 0))[0]:
+            pid = m.add_point(fr.unproject_stereo(i, cam.fx, cam.fy, cam.cx, cam.cy), kf, 1.0)
+            m.add_observation(pid, kf, int(i))
+            fr.map_pt[i] = pid
+            m.compute_distinctive_descriptor(pid)
+            m.update_normal_and_depth(pid)
+
+    def _track(self, m, dmap, fr, last, T_pred, record=False):
+        """One step through FusedTracker.track, read as Tracking._track_fused
+        reads its host pack (tracking.py:808-865); fails the phase below the
+        reference's limits of 20 motion matches and 30 inliers."""
+        torch, t = self.torch, self.trk
+        if record:  # keep this step's inputs for the CPU comparison
+            orig = t.tr._step
+            t.tr._step = lambda *a: (setattr(t, "record", [x.clone() for x in a]),
+                                     orig(*a))[1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            res, flat = t.tr.track(fr, last, last.map_pt, T_pred, dmap)
+            out = flat.cpu().numpy()
+        finally:
+            if record:
+                del t.tr._step
+        t.step_ms.append((time.perf_counter() - t0) * 1e3)
+        n = fr.map_pt.shape[0]
+        pack, small = out[:10 * n].reshape(n, 10), out[10 * n:]
+        assign = pack[:, 7].astype(np.int32)
+        T = small[:16].reshape(4, 4).astype(np.float32)
+        n_motion, n_final, n_gate, ovf = (int(v) for v in small[16:20])
+        good = assign >= 0
+        n_inliers = int(np.count_nonzero(m.pt_n_obs[assign[good]] > 0))
+        require(np.isfinite(T).all() and np.isfinite(pack).all(),
+                f"frame {fr.frame_id}: a value not finite")
+        require(n_motion >= 20 and n_inliers >= 30,
+                f"frame {fr.frame_id}: lost ({n_motion} motion matches, {n_inliers} inliers)")
+        fr.set_pose(T)
+        fr.map_pt[:] = assign
+        t.n_motion.append(n_motion)
+        t.n_final.append(n_final)
+        if record:
+            t.record_out = (T, assign, n_motion, n_final)
+        return n_motion, n_final, n_gate, ovf
+
+    def track_a(self):
+        """(a) the start of a session: a map from frame 0, then the motion
+        model over the accelerating path of bench.py."""
+        t, port = self.trk, self.port
+        gt, x = [], 0.0
+        for i in range(N_TRACK_A + 1):
+            x += min(0.1 * i, 0.8)
+            gt.append(t.synth.camera_pose(np.array([x, 0.1 * np.sin(i * 0.3), 0.0],
+                                                   np.float32),
+                                          height=15.0, yaw=0.01 * np.sin(i * 0.2)))
+        m = port["map_store"].MapStore(n_levels=8, scale_factor=1.2)
+        dmap = port["device_map"].DeviceMap()
+        last = self._frame(gt[0], 0, np.eye(4, dtype=np.float32))
+        self._add_keyframe(m, last)
+        dmap.sync(m)
+        est = [last.pose.copy()]
+        velocity = np.eye(4, dtype=np.float32)
+        rows = []
+        for i in range(1, N_TRACK_A + 1):
+            fr = self._frame(gt[i], i)
+            rows.append(self._track(m, dmap, fr, last, velocity @ last.pose))
+            velocity = fr.pose @ np.linalg.inv(last.pose)
+            est.append(fr.pose.copy())
+            last = fr
+        ate = port["trajectory"].ate_rmse([np.linalg.inv(T) for T in est], gt)
+        # a lost or wrong track: a nadir view of a plane 15 m away trades a
+        # tilt of 1 degree for 0.26 m of shift, so the gate is loose
+        require(ate < 0.25, f"ATE {ate} m")
+        require(all(r[3] == 0 for r in rows), f"overflow in (a): {rows}")
+        t.out.update(a_frames=N_TRACK_A, a_points=m.n_points, a_ate_m=ate,
+                     a_path_m=float(x))
+        print(f"tracking (a): map of {m.n_points} points from frame 0 (rung {dmap.live_cap}); "
+              f"{N_TRACK_A} frames over {x:.1f} m, n_motion "
+              f"{[r[0] for r in rows]}, n_final {[r[1] for r in rows]}; ATE {ate:.4f} m")
+
+    def track_b(self):
+        """(b) the 16k live rung: keyframes at their ground-truth poses, 16 m
+        apart, and frames tracked between two of them."""
+        t, port = self.trk, self.port
+
+        def twc(i):
+            return t.synth.camera_pose(np.array([0.8 * i, 0.1 * np.sin(i * 0.3), 0.0],
+                                                np.float32),
+                                       height=15.0, yaw=0.01 * np.sin(i * 0.2))
+
+        m = port["map_store"].MapStore(n_levels=8, scale_factor=1.2)
+        dmap = port["device_map"].DeviceMap()
+        kfs = {}
+        for k in range(N_KF_B):
+            i = k * KF_EVERY_B
+            kfs[i] = self._frame(twc(i), i, np.linalg.inv(twc(i)))
+            self._add_keyframe(m, kfs[i])
+        dmap.sync(m)
+        require(dmap.live_cap == 16384, f"live rung {dmap.live_cap} ({m.n_points} points)")
+        last = kfs[KF_EVERY_B]
+        velocity = np.linalg.inv(twc(KF_EVERY_B)) @ twc(KF_EVERY_B - 1)
+        rows, errs = [], []
+        for j in range(1, N_TRACK_B + 1):
+            i = KF_EVERY_B + j
+            fr = self._frame(twc(i), i)
+            rows.append(self._track(m, dmap, fr, last, velocity @ last.pose,
+                                    record=j == N_TRACK_B // 2))
+            velocity = fr.pose @ np.linalg.inv(last.pose)
+            # estimated Tcw times true Twc: I when exact; the angle from
+            # atan2 in float64 (arccos of a float32 trace reads 0 below 0.02 deg)
+            d = fr.pose.astype(np.float64) @ twc(i)
+            r = d[:3, :3]
+            vee = np.array([r[2, 1] - r[1, 2], r[0, 2] - r[2, 0], r[1, 0] - r[0, 1]])
+            ang = np.arctan2(np.linalg.norm(vee) / 2.0, (np.trace(r) - 1.0) / 2.0)
+            errs.append((float(np.linalg.norm(d[:3, 3])), float(np.degrees(ang))))
+            last = fr
+        n_gate = [r[2] for r in rows]
+        ovf = [r[3] for r in rows]
+        local_ovf = [max(g - port["fused"].LOCAL_CAP, 0) for g in n_gate]
+        print(f"tracking (b): {N_KF_B} keyframes, {m.n_points} points, live rung "
+              f"{dmap.live_cap}; {N_TRACK_B} frames: n_gate {n_gate} (cap "
+              f"{port['fused'].LOCAL_CAP}), local-search overflow {local_ovf}, "
+              f"pose-LM overflow {ovf}, n_motion "
+              f"{[r[0] for r in rows]}, n_final {[r[1] for r in rows]}")
+        print("  error against ground truth (m, deg): "
+              + ", ".join(f"({e[0]:.4f}, {e[1]:.4f})" for e in errs))
+        require(max(n_gate) <= port["fused"].LOCAL_CAP and max(ovf) == 0,
+                f"an overflow: n_gate {n_gate}, pose-LM {ovf}")
+        max_t, max_r = max(e[0] for e in errs), max(e[1] for e in errs)
+        require(max_t < 0.5 and max_r < 2.0, f"pose error {max_t} m, {max_r} deg")
+        t.out.update(b_frames=N_TRACK_B, b_points=m.n_points, b_live_rung=dmap.live_cap,
+                     b_n_gate_max=max(n_gate), b_overflow_local=max(local_ovf),
+                     b_overflow_pose=max(ovf), b_max_err_m=max_t, b_max_err_deg=max_r)
+
+    def track_launches(self):
+        """K1-K3 ran once on every frame of the tracking phase."""
+        t = self.trk
+        launches = {k: m.launches for k, m in self.counters().items()}
+        want = {k: t.frames for k in launches}
+        print(f"tracking: launches over its {t.frames} frames: {launches}")
+        require(launches == want, f"launch counts {launches} != {want}")
+        t.out["frontend_launches"] = launches
+
+    def track_cpu_vs_card(self):
+        """One recorded step of (b) again on the CPU path, same inputs."""
+        torch, t, port = self.torch, self.trk, self.port
+        require(t.record is not None, "no step was recorded")
+        tr_cpu = port["fused"].FusedTracker(t.cfg, H, W, device="cpu")
+        t0 = time.perf_counter()
+        res, _ = tr_cpu._step(*(x.cpu() for x in t.record))
+        cpu_s = time.perf_counter() - t0
+        T, assign, n_motion, n_final = t.record_out
+        same = float(np.mean(res.assign_map.numpy() == assign))
+        dT = float(np.abs(res.T.numpy() - T).max())
+        eq = (int(res.n_motion) == n_motion, int(res.n_final) == n_final)
+        print(f"tracking: one step of (b), card vs CPU path: assign_map equal at "
+              f"{same:.2%}, n_motion {n_motion} vs {int(res.n_motion)}, n_final "
+              f"{n_final} vs {int(res.n_final)}, max |dT| {dT:.3g} (CPU step {cpu_s:.1f} s)")
+        t.out["cpu_vs_card"] = dict(assign_equal=same, n_motion_equal=eq[0],
+                                    n_final_equal=eq[1], max_abs_dT=dT)
+        require(same >= 0.99 and dT <= 1e-4, f"card and CPU differ: {same}, {dT}")
+
+    def track_step_syncs(self):
+        """Host syncs inside one step (CUDA sync debug mode), on the
+        recorded step's inputs."""
+        import warnings
+
+        torch, t = self.torch, self.trk
+        t.tr._step(*t.record)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t.tr._step(*t.record)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = [f"{w.filename}:{w.lineno}" for w in caught
+                 if "called a synchronizing CUDA operation" in str(w.message)]
+        torch.cuda.synchronize()
+        print(f"tracking step: {len(syncs)} host syncs inside the step")
+        require(not syncs, f"host syncs inside the step, at: {sorted(set(syncs))}")
+        t.out["host_syncs_in_step"] = len(syncs)
+
+    def track_step_profile(self):
+        """The step's device time and launches from torch.profiler, on the
+        recorded step's inputs, beside its host time from the tracking
+        phases."""
+        from torch.profiler import ProfilerActivity, profile
+
+        torch, t = self.torch, self.trk
+        step = lambda: t.tr._step(*t.record)  # noqa: E731
+        step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(STEP_PROFILE_ITERS):
+                step()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        kern = [e for e in rows if not e.key.startswith(("Memcpy", "Memset"))]
+        busy = sum(dev_us(e) for e in rows) / 1e3 / STEP_PROFILE_ITERS
+        launches = sum(e.count for e in kern) / STEP_PROFILE_ITERS
+        copies = sum(e.count for e in rows
+                     if e.key.startswith(("Memcpy", "Memset"))) / STEP_PROFILE_ITERS
+        host = float(np.median(t.step_ms))
+        print(f"tracking step: host {host:.2f} ms (median of {len(t.step_ms)}, track() to "
+              f"the host pack read), device {busy:.3f} ms, {launches:.0f} kernel launches "
+              f"and {copies:.0f} copies a step")
+        rows.sort(key=dev_us, reverse=True)
+        for e in rows[:6]:
+            print(f"  {dev_us(e) / 1e3 / STEP_PROFILE_ITERS:8.3f} ms/step  "
+                  f"{e.count // STEP_PROFILE_ITERS:5d}x  {e.key[:90]}")
+        t.out.update(frames_tracked=len(t.step_ms),
+                     median_n_motion=float(np.median(t.n_motion)),
+                     median_n_final=float(np.median(t.n_final)),
+                     host_ms_per_step=host, device_ms_per_step=busy,
+                     kernel_launches_per_step=launches, copies_per_step=copies)
+
 
 def main() -> int:
     try:
@@ -507,13 +797,16 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     from iv_slam_tpu_torch import _kernels, config
+    from iv_slam_tpu_torch.io import trajectory
     from iv_slam_tpu_torch.ops import (brief, fast, fast_cuda, finish_cuda, orient,
                                        stereo_cuda)
-    from iv_slam_tpu_torch.slam import frame
+    from iv_slam_tpu_torch.slam import device_map, frame, fused_track, map_store
 
     ops = SimpleNamespace(brief=brief, fast=fast, fast_cuda=fast_cuda,
                           finish_cuda=finish_cuda, orient=orient, stereo_cuda=stereo_cuda)
-    port = {"kernels": _kernels, "config": config, "frame": frame, "ops": ops}
+    port = {"kernels": _kernels, "config": config, "frame": frame, "ops": ops,
+            "fused": fused_track, "map_store": map_store, "device_map": device_map,
+            "trajectory": trajectory}
 
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -538,13 +831,27 @@ def main() -> int:
         smoke.phase("slice", smoke.drive_slice, fe, left, right)
     else:
         smoke.failures.append("slice: skipped, a kernel check failed")
+    smoke.phase("card vs CPU path", smoke.cpu_vs_gpu)
+    # tracking before any profiling: the profiler slows the host for the
+    # rest of the process, and the tracking phase times host steps
+    n_fail = len(smoke.failures)
+    smoke.phase("tracking setup", smoke.tracking_setup)
+    for name, fn in (("tracking (a) start of a session", smoke.track_a),
+                     ("tracking (b) 16k live rung", smoke.track_b),
+                     ("tracking frontend launches", smoke.track_launches),
+                     ("tracking card vs CPU path", smoke.track_cpu_vs_card),
+                     ("tracking step syncs", smoke.track_step_syncs)):
+        if len(smoke.failures) > n_fail:
+            smoke.failures.append(f"{name}: skipped, an earlier tracking phase failed")
+        else:
+            smoke.phase(name, fn)
     if len(smoke.kernels) == 3:
         smoke.phase("kernel device times", smoke.device_times)
-    smoke.phase("card vs CPU path", smoke.cpu_vs_gpu)
-    prof_failures = len(smoke.failures)
+    if smoke.trk is not None and smoke.trk.record is not None:
+        smoke.phase("tracking step profile", smoke.track_step_profile)
+    else:
+        smoke.failures.append("tracking step profile: skipped, no step was recorded")
     smoke.phase("profile", smoke.profile, fe, left, right)
-    if len(smoke.failures) > prof_failures:  # the profiler is informational
-        print(f"profile: not measured ({smoke.failures.pop()})")
 
     if smoke.failures:
         print("\n".join(["FAILED"] + smoke.failures))
@@ -560,6 +867,7 @@ def main() -> int:
                for n in ("fast_score", "orient_brief", "sad_windows")]
     print(json.dumps({"frontend": smoke.fps,
                       "card": card}))
+    print(json.dumps({"tracking": dict(smoke.trk.out, card=card)}))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -60,9 +60,11 @@ class Frame:
     # (N, 7) device tensor [x, y, octave, valid, u_right, depth, qual] kept
     # for deferred frames so materializing is one download
     host_pack: object = None
-    # device-resident copies of u_right/depth, kept past materialization
+    # device-resident copies of u_right/depth/qual_score, kept past
+    # materialization (the fused tracking step reads these)
     ur_dev: object = None
     depth_dev: object = None
+    qual_dev: object = None
     _angle: np.ndarray = None
     _desc: np.ndarray = None
 
@@ -275,6 +277,7 @@ class StereoFrontend:
             host_pack=handle.host_pack,
             ur_dev=handle.u_right,
             depth_dev=handle.depth,
+            qual_dev=handle.qual,
         )
         if not defer:
             if handle.host_copy is not None:

@@ -38,7 +38,14 @@ def test_port_files_exist():
                  "iv_slam_tpu_torch/_kernels.py", "iv_slam_tpu_torch/slam/frame.py",
                  "iv_slam_tpu_torch/ops/fast_cuda.py",
                  "iv_slam_tpu_torch/ops/finish_cuda.py",
-                 "iv_slam_tpu_torch/ops/stereo_cuda.py", "chip_smoke.py"):
+                 "iv_slam_tpu_torch/ops/stereo_cuda.py", "chip_smoke.py",
+                 "iv_slam_tpu_torch/geometry/se3.py", "iv_slam_tpu_torch/geometry/camera.py",
+                 "iv_slam_tpu_torch/geometry/sim3.py", "iv_slam_tpu_torch/ops/match.py",
+                 "iv_slam_tpu_torch/solvers/pose_opt.py",
+                 "iv_slam_tpu_torch/slam/map_store.py",
+                 "iv_slam_tpu_torch/slam/device_map.py",
+                 "iv_slam_tpu_torch/slam/fused_track.py",
+                 "iv_slam_tpu_torch/io/trajectory.py", "iv_slam_tpu_torch/numerics.py"):
         assert must in names, must
 
 

@@ -1,0 +1,75 @@
+"""The port's device-independent float32 arithmetic (iv_slam_tpu_torch/numerics.py).
+
+Each function must give the float32 result that a plain statement of its
+rounding gives in numpy: the correctly rounded value for one operation, a
+fixed left-to-right order for small matrix products. Those are the results
+the GPU gives too, so the tracking step makes the same choices on both
+devices (chip_smoke.py compares a step of the card with the CPU path).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from iv_slam_tpu_torch import numerics
+
+
+def f32(rng, lo, hi, n=1 << 16):
+    return rng.uniform(lo, hi, n).astype(np.float32)
+
+
+@pytest.mark.parametrize("name", ["sqrt", "sin", "cos", "log"])
+def test_unary_functions_round_once(rng, name):
+    x = f32(rng, 1e-3, 1e4)
+    want = getattr(np, name)(x.astype(np.float64)).astype(np.float32)
+    got = getattr(numerics, name)(torch.from_numpy(x))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_sqrt_is_the_rounded_root(rng):
+    x = f32(rng, 0, 1e4)
+    np.testing.assert_array_equal(numerics.sqrt(torch.from_numpy(x)).numpy(), np.sqrt(x))
+
+
+def test_atan2_and_division_by_a_constant(rng):
+    y, x = f32(rng, -5, 5), f32(rng, -5, 5)
+    np.testing.assert_array_equal(
+        numerics.atan2(torch.from_numpy(y), torch.from_numpy(x)).numpy(),
+        np.arctan2(y.astype(np.float64), x.astype(np.float64)).astype(np.float32))
+    for c in (6.0, 24.0, 120.0, 720.0, 12.0):
+        np.testing.assert_array_equal(numerics.div(torch.from_numpy(x), c).numpy(),
+                                      x / np.float32(c))
+
+
+def test_total_is_the_float64_sum_rounded(rng):
+    x = f32(rng, -3, 3, 10 * 1537).reshape(10, 1537)
+    got = numerics.total(torch.from_numpy(x), dim=-1)
+    np.testing.assert_array_equal(got.numpy(), x.astype(np.float64).sum(-1).astype(np.float32))
+
+
+@pytest.mark.parametrize("shapes", [((5, 3), (3, 3)), ((7, 4, 4), (4, 4)),
+                                    ((4, 4), (9, 4, 4)), ((6, 3, 3), (6, 3, 1))])
+def test_matmul_sums_left_to_right(rng, shapes):
+    a = rng.normal(size=shapes[0]).astype(np.float32)
+    b = rng.normal(size=shapes[1]).astype(np.float32)
+    got = numerics.matmul(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    want = a[..., :, 0, None] * b[..., None, 0, :]
+    for k in range(1, a.shape[-1]):
+        want = want + a[..., :, k, None] * b[..., None, k, :]
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 1536, 4608])
+def test_tree_sum_is_a_fixed_pairwise_tree(rng, n):
+    x = rng.normal(size=(n, 5)).astype(np.float32)
+    want = x
+    p = 1 << max(n - 1, 0).bit_length()
+    want = np.concatenate([want, np.zeros((p - n, 5), np.float32)])
+    while want.shape[0] > 1:
+        h = want.shape[0] // 2
+        want = want[:h] + want[h:]
+    got = numerics.tree_sum(torch.from_numpy(x))
+    assert got.dtype == torch.float32 and got.shape == (5,)
+    np.testing.assert_array_equal(got.numpy(), want[0])

@@ -124,6 +124,112 @@ def _task_frontend(left, right, cam, n_features, n_levels, max_keypoints):
     return out
 
 
+def _task_pose_opt(T0, Xw, obs, inv_sigma2, qual, valid, K, n_rounds, n_iters):
+    """pose_optimization (jitted) on one problem, and one robust LM round
+    (``_lm_round``, jitted) from T0 over all valid edges; K is
+    (fx, fy, cx, cy, bf)."""
+    import jax
+    import jax.numpy as jnp
+
+    from iv_slam_tpu.geometry import camera
+    from iv_slam_tpu.solvers import pose_opt
+
+    Kj = camera.Intrinsics(*(jnp.float32(v) for v in K))
+    a = [jnp.asarray(v) for v in (T0, Xw, obs, inv_sigma2, qual, valid)]
+    res = pose_opt.pose_optimization(*a, Kj, n_rounds=int(n_rounds), n_iters=int(n_iters))
+    is_stereo = a[2][:, 2] >= 0
+    delta_sq = jnp.where(is_stereo, pose_opt.DELTA_STEREO_SQ, pose_opt.DELTA_MONO_SQ) \
+        * a[4] * a[4]
+    T_round = jax.jit(pose_opt._lm_round, static_argnums=(8, 9))(
+        a[0], a[1], a[2], a[3], delta_sq, is_stereo, a[5], Kj, True, int(n_iters))
+    return {"T": np.asarray(res.T), "inlier": np.asarray(res.inlier),
+            "chi2": np.asarray(res.chi2), "n_inliers": np.asarray(res.n_inliers),
+            "T_round": np.asarray(T_round)}
+
+
+STEP_INPUTS = ("cur_xy", "cur_oct", "cur_angle", "cur_desc", "cur_ur", "cur_valid",
+               "cur_qual", "cur_depth", "last_xy", "last_oct", "last_angle",
+               "last_valid", "last_pt_ids", "T_pred", "T_last", "map_pos", "map_desc",
+               "map_normal", "map_mind", "map_maxd", "map_qual", "map_valid")
+RESULT_FIELDS = ("T", "assign_map", "inlier", "chi2", "n_motion", "n_final")
+
+
+def _tracking_config(cam, n_features, n_levels):
+    """A JAX-package Config from cam = (fx, fy, cx, cy, bf, width, height)."""
+    from iv_slam_tpu.config import CameraConfig, Config, ORBConfig
+
+    fx, fy, cx, cy, bf, w, h = [float(v) for v in cam]
+    cfg = Config()
+    cfg.camera = CameraConfig(fx=fx, fy=fy, cx=cx, cy=cy, bf=bf, width=int(w),
+                              height=int(h))
+    cfg.orb = ORBConfig(n_features=int(n_features), n_levels=int(n_levels))
+    return cfg
+
+
+def _result(res, flat):
+    out = {f: np.asarray(getattr(res, f)) for f in RESULT_FIELDS}
+    out["flat"] = np.asarray(flat)
+    return out
+
+
+def _task_fused_step(cam, n_features, n_levels, **inputs):
+    """FusedTracker._step (jitted) on each case of the given frame,
+    last-frame and map arrays (stacked on a leading case axis, one shape:
+    one compile); the results come back stacked the same way."""
+    import jax.numpy as jnp
+
+    from iv_slam_tpu.slam.fused_track import FusedTracker
+
+    cfg = _tracking_config(cam, n_features, n_levels)
+    tr = FusedTracker(cfg, cfg.camera.height, cfg.camera.width)
+    outs = [_result(*tr._step(*(jnp.asarray(inputs[k][i]) for k in STEP_INPUTS)))
+            for i in range(len(inputs["T_pred"]))]
+    return {k: np.stack([o[k] for o in outs]) for k in outs[0]}
+
+
+def init_map(m, frame, cam, propagate_keyptqual=False):
+    """A map from one stereo frame at the identity pose, through the MapStore
+    calls of Tracking._stereo_initialization (tracking.py:677-695); works on
+    the JAX package's MapStore and Frame and on the port's."""
+    frame.set_pose(np.eye(4, dtype=np.float32))
+    kf = m.add_keyframe(frame)
+    for i in np.nonzero(frame.valid & (frame.depth > 0))[0]:
+        pos = frame.unproject_stereo(i, cam.fx, cam.fy, cam.cx, cam.cy)
+        pid = m.add_point(pos, kf, frame.qual_score[i] if propagate_keyptqual else 1.0)
+        m.add_observation(pid, kf, int(i))
+        frame.map_pt[i] = pid
+        m.compute_distinctive_descriptor(pid)
+        m.update_normal_and_depth(pid)
+    return kf
+
+
+def _task_fused_slice(left0, right0, left1, right1, cam, n_features, n_levels):
+    """The slice as a whole on the JAX package: StereoFrontend on two pairs,
+    a map from frame 0 (MapStore, DeviceMap.sync), then FusedTracker.track
+    of frame 1 against frame 0 at T_pred = frame 0's pose."""
+    from iv_slam_tpu.slam.device_map import DeviceMap
+    from iv_slam_tpu.slam.frame import StereoFrontend
+    from iv_slam_tpu.slam.fused_track import FusedTracker
+    from iv_slam_tpu.slam.map_store import MapStore
+
+    cfg = _tracking_config(cam, n_features, n_levels)
+    h, w = cfg.camera.height, cfg.camera.width
+    fe = StereoFrontend(cfg, h, w)
+    f0 = fe.process(left0, right0, 0.0)
+    f1 = fe.process(left1, right1, 0.1)
+    m = MapStore(n_levels=cfg.orb.n_levels, scale_factor=cfg.orb.scale_factor)
+    init_map(m, f0, cfg.camera)
+    dmap = DeviceMap()
+    dmap.sync(m)
+    res, flat = FusedTracker(cfg, h, w).track(f1, f0, f0.map_pt, f0.pose, dmap)
+    out = _result(res, flat)
+    out.update(map_pt0=f0.map_pt, n_points=np.int32(m.n_points),
+               **{"map_" + f: np.asarray(v) for f, v in zip(
+                   ("pos", "desc", "normal", "mind", "maxd", "qual", "valid"),
+                   dmap.live_views())})
+    return out
+
+
 def _main(task, src, dst):
     sys.path[:0] = [HERE, os.path.dirname(HERE)]
     import conftest  # noqa: F401  (the tests' JAX-on-CPU settings)
