@@ -9,10 +9,16 @@ Layout (mirrors the JAX package):
   config.py      copy of the dataclass config tree
   _kernels.py    nvcc build + ctypes loading of csrc/*.cu (first use)
   csrc/          hand-written CUDA C++ kernels for sm_90a
+  numerics.py    float32 arithmetic that rounds alike on the CPU and the GPU
+  geometry/      SE(3), Sim(3), camera projection
   ops/           image, pyramid, FAST, orientation, BRIEF, Hamming, stereo,
                  extractor; each kernel has a ``*_cuda.py`` wrapper beside
-                 its plain PyTorch version
-  slam/frame.py  Frame + StereoFrontend (image pair -> Frame)
+                 its plain PyTorch version; projection matching and fuse,
+                 triangulation
+  solvers/       pose LM, bundle adjustment (Schur LM + local BA window)
+  slam/          Frame + StereoFrontend, MapStore, DeviceMap, the fused
+                 tracking step, LocalMapping, Tracking, System
+  io/            trajectory writers and metrics
 
 Device rule: functions follow the device of the tensors they are given. A
 wrapper handed a CPU tensor runs the plain PyTorch version; handed a CUDA

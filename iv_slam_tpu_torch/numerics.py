@@ -16,7 +16,14 @@ or less in the pose LM moves the pose by about a millimetre. An elementwise
 
 So those are computed here in float64 and rounded once to float32. For one
 operation that gives the correctly rounded float32 result; for a sum or a
-solve, the float64 error lies far below half a float32 ulp. Products of
+solve, the float64 error lies far below half a float32 ulp. ``log`` is the
+exception: it is XLA:CPU's float32 logarithm (Eigen's Cephes polynomial)
+written out in float32 operations, which round alike on both devices. The
+reference takes ceil(log(maxDist / dist) / log(scaleFactor)) as a
+predicted pyramid level, and a frame at its keyframe's pose sees a ratio of
+exactly scaleFactor^k: there the quotient sits on an integer, and XLA's
+log, one ulp off the correctly rounded value on ~9% of inputs, decides the
+level. Products of
 small matrices are written out as separate products and additions, summed
 left to right, the order in which XLA reduces a short axis. A sum that must
 keep float32 rounding, as the reference's does, is taken as a fixed
@@ -45,8 +52,48 @@ def cos(x: torch.Tensor) -> torch.Tensor:
     return rounded(torch.cos, x)
 
 
+# Eigen's plog constants, as XLA:CPU emits them (float32)
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+          1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+          3.3333331174e-1)
+_LOG_Q1, _LOG_Q2 = -2.12194440e-4, 0.693359375
+_SQRT_HALF = 0.707106781186547524
+_MIN_NORMAL = 1.17549435e-38
+
+
 def log(x: torch.Tensor) -> torch.Tensor:
-    return rounded(torch.log, x)
+    """float32 natural logarithm, bit for bit XLA:CPU's jnp.log (without FMA
+    contraction): split x = m 2^e with m in [sqrt(1/2), sqrt(2)), a degree-9
+    polynomial in m - 1, and e log 2 added in two parts. Subnormal inputs
+    count as 0, as XLA:CPU flushes them."""
+    x = x.to(torch.float32)
+    bits = torch.clamp(x, min=_MIN_NORMAL).contiguous().view(torch.int32)
+    e = ((bits >> 23) - 0x7F).to(torch.float32) + 1.0
+    m = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)   # in [0.5, 1)
+    low = m < _SQRT_HALF
+    tmp = torch.where(low, m, 0.0)
+    m = m - 1.0
+    e = e - torch.where(low, 1.0, 0.0)
+    m = m + tmp
+    m2 = m * m
+    m3 = m2 * m
+    p = _LOG_P
+    y = p[0] * m + p[1]
+    y1 = p[3] * m + p[4]
+    y2 = p[6] * m + p[7]
+    y = y * m + p[2]
+    y1 = y1 * m + p[5]
+    y2 = y2 * m + p[8]
+    y = y * m3 + y1
+    y = y * m3 + y2
+    y = y * m3
+    y = y + e * _LOG_Q1
+    m = m - m2 * 0.5
+    m = m + y
+    m = m + e * _LOG_Q2
+    m = torch.where(x == float("inf"), float("inf"), m)
+    m = torch.where((x < 0) | torch.isnan(x), float("nan"), m)
+    return torch.where((x >= 0) & (x < _MIN_NORMAL), float("-inf"), m)
 
 
 def atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

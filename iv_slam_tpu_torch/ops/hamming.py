@@ -18,8 +18,9 @@ BITS = 256
 
 
 def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
-    """(N, 32) u8, (M, 32) u8 -> (N, M) int32 Hamming distances."""
+    """(..., N, 32) u8, (..., M, 32) u8 -> (..., N, M) int32 Hamming
+    distances (leading axes broadcast)."""
     a = unpack_pm1(desc_a, torch.float32)
     b = unpack_pm1(desc_b, torch.float32)
-    dot = (a @ b.T).to(torch.int32)
+    dot = (a @ b.transpose(-1, -2)).to(torch.int32)
     return (BITS - dot) // 2

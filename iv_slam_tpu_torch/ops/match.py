@@ -18,8 +18,11 @@ port takes a stable sort or first-index ``argmin``s, never ``torch.topk``
 synchronisation, and rounds alike on the CPU and on the GPU (its roots,
 logarithms and matrix products go through numerics.py).
 
-Not ported in this slice: ``search_for_initialization`` (ROADMAP A9) and
-the fuse functions (A6).
+  * fuse_into_keyframes (+ the _compact and _compact_indexed forms):
+    ORBmatcher::Fuse batched over target keyframes and points, the
+    projection pass of LocalMapping::SearchInNeighbors
+
+Not ported yet: ``search_for_initialization`` (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -37,6 +40,21 @@ TH_LOW = 50
 HISTO_LENGTH = 30
 
 _BIG = 1 << 20
+
+
+def compact(mask: torch.Tensor, cap: int):
+    """The first `cap` set positions of a (P,) mask, in order, by k-th-set-bit
+    search over the inclusive prefix count (no scatter, no host sync).
+
+    Returns (sel (cap,) int32 positions clamped to P-1, sel_ok (cap,) bool
+    for the rows that hold a set position, cum (P,) int32 prefix count)."""
+    P = mask.shape[0]
+    cum = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32)
+    want = torch.arange(1, cap + 1, dtype=torch.int32, device=mask.device)
+    sel = torch.searchsorted(cum, want, side="left", out_int32=True)
+    sel = torch.clamp(sel, max=P - 1)
+    sel_ok = torch.arange(cap, device=mask.device) < cum[-1]
+    return sel, sel_ok, cum
 
 
 def resolve_one_to_one(best_j, best_d, ok, m):
@@ -275,3 +293,133 @@ def search_by_projection_local_map(
     assign, _wins = resolve_one_to_one(best_j.to(torch.int32), best_d, point_matched,
                                        cur_xy.shape[0])
     return assign, (assign >= 0).sum(dtype=torch.int32)
+
+
+def fuse_into_keyframes(
+    # target keyframes, stacked (NB, ...)
+    kf_xy: torch.Tensor,        # (NB, N, 2)
+    kf_oct: torch.Tensor,       # (NB, N)
+    kf_desc: torch.Tensor,      # (NB, N, 32)
+    kf_valid: torch.Tensor,     # (NB, N)
+    kf_ur: torch.Tensor,        # (NB, N) mvuRight; < 0 = mono keypoint
+    kf_T: torch.Tensor,         # (NB, 4, 4) Tcw
+    # candidate map points (P, ...)
+    pt_pos, pt_desc, pt_normal, pt_mind, pt_maxd,
+    pt_mask_nb: torch.Tensor,   # (NB, P) point eligible for this target
+    scale_factors: torch.Tensor,
+    log_scale: torch.Tensor,
+    fx, fy, cx, cy, width, height, bf,   # 0-d float32 tensors
+    radius_th: torch.Tensor,    # 3.0 (ORBmatcher::Fuse th) / 4.0 (Scw)
+    scw: bool = False,
+) -> torch.Tensor:
+    """ORBmatcher::Fuse over every (target, point): the best matching
+    feature per (target, point) or -1, (NB, P) int32. The host applies the
+    add-observation / MapPoint::Replace bookkeeping.
+
+    Gating as the reference (ORBmatcher.cc:831-981): the distance gate on
+    0.8 minD / 1.2 maxD, the octave window kpLevel in [pred-1, pred], and
+    a per-candidate reprojection gate before the Hamming argmin: stereo
+    keypoints (u_right >= 0) (ex^2+ey^2+er^2)/sigma^2 <= 7.8 with er
+    against the point's virtual right coordinate u - bf/z, mono ones
+    (ex^2+ey^2)/sigma^2 <= 5.99. ``scw=True`` is the loop-closing variant
+    (ORBmatcher.cc:983-1106): no reprojection gate."""
+    sf = scale_factors
+    inv_sigma2 = torch.reciprocal(sf * sf)
+    n_levels = sf.shape[0]
+    R = kf_T[:, :3, :3]
+    O = -numerics.matmul(R.transpose(-1, -2), kf_T[:, :3, 3:4])[..., 0]   # (NB, 3)
+    pc = se3.transform_points(kf_T, pt_pos)                               # (NB, P, 3)
+    z = pc[..., 2]
+    zs = torch.clamp(z, min=1e-9)
+    u = fx * pc[..., 0] / zs + cx
+    v = fy * pc[..., 1] / zs + cy
+    diff = pt_pos[None] - O[:, None, :]
+    dist = numerics.sqrt(se3.sum3(diff, diff))
+    vcos = se3.sum3(diff, pt_normal[None]) / torch.clamp(dist, min=1e-9)
+    visible = ((z > 0) & (u >= 0) & (u < width) & (v >= 0) & (v < height)
+               & (dist >= 0.8 * pt_mind) & (dist <= 1.2 * pt_maxd)
+               & (vcos >= 0.5) & pt_mask_nb)
+    pred = torch.ceil(
+        numerics.log(torch.clamp(pt_maxd / torch.clamp(dist, min=1e-9), min=1e-9))
+        / log_scale)
+    pred = torch.clamp(pred, 0, n_levels - 1).to(torch.int32)          # (NB, P)
+    r = (radius_th * sf[pred])[..., None]                               # (NB, P, 1)
+    ex = kf_xy[:, None, :, 0] - u[..., None]                            # (NB, P, N)
+    ey = kf_xy[:, None, :, 1] - v[..., None]
+    d_oct = kf_oct[:, None, :] - pred[..., None]
+    in_win = ((torch.abs(ex) < r) & (torch.abs(ey) < r) & (d_oct >= -1) & (d_oct <= 0)
+              & kf_valid[:, None, :])
+    if not scw:
+        e2 = ex * ex + ey * ey
+        ur_pt = u - bf / zs                                             # virtual u_r
+        er = kf_ur[:, None, :] - ur_pt[..., None]
+        e2_st = e2 + er * er
+        isig = inv_sigma2[kf_oct][:, None, :]                           # (NB, 1, N)
+        gate = torch.where(kf_ur[:, None, :] >= 0, e2_st * isig <= 7.8,
+                           e2 * isig <= 5.99)
+        in_win = in_win & gate
+    dmat = hamming_matrix(pt_desc, kf_desc)                             # (NB, P, N)
+    masked = torch.where(in_win & visible[..., None], dmat, _BIG)
+    best = torch.argmin(masked, dim=-1)                                 # first minimum
+    bd = torch.gather(masked, -1, best[..., None])[..., 0]
+    return torch.where(bd <= TH_LOW, best.to(torch.int32), -1)
+
+
+# fused matches per keyframe event are O(1000) (4-6k across 64 targets at
+# KITTI scale in the reference's profile): the cap sits above that, and an
+# overflow is reported by the count, never silent
+F_CAP = 8192
+
+
+def fuse_into_keyframes_compact(
+    kf_xy, kf_oct, kf_desc, kf_valid, kf_ur, kf_T,
+    pt_pos, pt_desc, pt_normal, pt_mind, pt_maxd, pt_mask_nb,
+    scale_factors, log_scale,
+    fx, fy, cx, cy, width, height, bf,
+    radius_th,
+    scw: bool = False,
+) -> torch.Tensor:
+    """fuse_into_keyframes with the matches compacted on the device: an
+    (F_CAP, 3) table of [target, point, feature] triples in (target-major,
+    point) order, then the true count. Returns a flat (F_CAP*3 + 1,)
+    float32 tensor (the reference's layout)."""
+    assign = fuse_into_keyframes(
+        kf_xy, kf_oct, kf_desc, kf_valid, kf_ur, kf_T,
+        pt_pos, pt_desc, pt_normal, pt_mind, pt_maxd, pt_mask_nb,
+        scale_factors, log_scale, fx, fy, cx, cy, width, height, bf, radius_th,
+        scw=scw)                                                         # (NB, P)
+    p = assign.shape[1]
+    flat = assign.reshape(-1)
+    sel, slot_ok, cum = compact(flat >= 0, F_CAP)
+    f32 = torch.float32
+    rows = torch.stack([(sel // p).to(f32), (sel % p).to(f32), flat[sel.long()].to(f32)],
+                       dim=1)
+    out = torch.where(slot_ok[:, None], rows, 0.0)
+    return torch.cat([out.reshape(-1), cum[-1:].to(f32)])
+
+
+def fuse_into_keyframes_compact_indexed(
+    kf_xy, kf_oct, kf_desc, kf_valid, kf_ur, kf_T,
+    kf_ok,                       # (NB,) bool: real (non-padded) targets
+    # full-capacity device-map tables (slam/device_map.py full_views)
+    map_pos, map_desc, map_normal, map_mind, map_maxd, map_valid,
+    pid_idx,                     # (P,) int32 rows of the map; >= capacity = padding
+    scale_factors, log_scale,
+    fx, fy, cx, cy, width, height, bf,
+    radius_th,
+    scw: bool = False,
+) -> torch.Tensor:
+    """fuse_into_keyframes_compact with the candidate point tables gathered
+    from the device map by row index (the caller synced the map first), so
+    a keyframe event uploads a (P,) index vector instead of the tables.
+    Output and semantics as fuse_into_keyframes_compact (point i = row i of
+    pid_idx)."""
+    cap = map_valid.shape[0]
+    pid = torch.clamp(pid_idx, max=cap - 1).long()     # jnp clips the gather
+    pt_ok = (pid_idx < cap) & map_valid[pid]
+    return fuse_into_keyframes_compact(
+        kf_xy, kf_oct, kf_desc, kf_valid, kf_ur, kf_T,
+        map_pos[pid], map_desc[pid], map_normal[pid], map_mind[pid], map_maxd[pid],
+        kf_ok[:, None] & pt_ok[None, :],
+        scale_factors, log_scale, fx, fy, cx, cy, width, height, bf, radius_th,
+        scw=scw)

@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import resolve_device
+
 
 def _splice(packed, desc, valid, packed_rows, desc_rows, valid_rows):
     """New tables whose first n rows are the given rows and whose other rows
@@ -48,13 +50,7 @@ class DeviceMap:
     DELTA_RUNGS = (256, 1024, 4096)
 
     def __init__(self, capacity: int = 32768, device=None):
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "DeviceMap: no CUDA device; pass device='cpu' to keep the "
-                    "tables on the CPU")
-            device = "cuda"
-        self.device = torch.device(device)
+        self.device = resolve_device(device, "DeviceMap")
         self.capacity = capacity
         self._packed = torch.zeros((capacity, 9), dtype=torch.float32, device=self.device)
         self.desc = torch.zeros((capacity, 32), dtype=torch.uint8, device=self.device)

@@ -28,6 +28,7 @@ from ..config import Config
 from ..ops import pyramid as pyr
 from ..ops import stereo
 from ..ops.extractor import Keypoints, OrbExtractor
+from . import resolve_device
 
 _COST_MAP_TODO = ("introspection cost maps are not ported yet (ROADMAP A11)")
 
@@ -170,15 +171,7 @@ class StereoFrontend:
     (the tests' reference path)."""
 
     def __init__(self, cfg: Config, height: int, width: int, device=None):
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "StereoFrontend: no CUDA device; pass device='cpu' to run "
-                    "the plain PyTorch path")
-            device = "cuda"
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.device = resolve_device(device, "StereoFrontend")
         self.cfg = cfg
         self.extractor = OrbExtractor(cfg.orb, height, width)
         self.shapes = self.extractor.shapes

@@ -29,6 +29,7 @@ import torch
 from ..geometry import camera
 from ..ops import match as match_ops
 from ..solvers import pose_opt
+from . import resolve_device
 
 LOCAL_CAP = 4096
 
@@ -49,34 +50,13 @@ def pose_cap(n_kp: int) -> int:
     return 1024 if n_kp <= 1536 else 1536
 
 
-def _compact(mask: torch.Tensor, cap: int):
-    """The first `cap` set positions of a (P,) mask, by k-th-set-bit search
-    over the inclusive prefix count (no scatter, no host sync).
-
-    Returns (sel (cap,) int32 positions clamped to P-1, sel_ok (cap,) bool
-    for the rows that hold a set position, cum (P,) int32 prefix count)."""
-    P = mask.shape[0]
-    cum = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32)
-    want = torch.arange(1, cap + 1, dtype=torch.int32, device=mask.device)
-    sel = torch.searchsorted(cum, want, side="left", out_int32=True)
-    sel = torch.clamp(sel, max=P - 1)
-    sel_ok = torch.arange(cap, device=mask.device) < cum[-1]
-    return sel, sel_ok, cum
-
-
 class FusedTracker:
     """The fused tracking step on one device. ``device`` defaults to CUDA;
     with no CUDA device the caller must pass ``device="cpu"`` (the tests'
     path)."""
 
     def __init__(self, cfg, height: int, width: int, device=None):
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "FusedTracker: no CUDA device; pass device='cpu' to run on "
-                    "the CPU")
-            device = "cuda"
-        self.device = dev = torch.device(device)
+        self.device = dev = resolve_device(device, "FusedTracker")
         self.cfg = cfg
         self.height = height
         self.width = width
@@ -114,7 +94,7 @@ class FusedTracker:
                 T0, map_pos[sl], obs, inv_s2, qual, has & map_valid[sl], self.K,
                 n_rounds=n_rounds)
             return res, torch.zeros((), dtype=torch.int32, device=slots.device)
-        sel, sel_ok, cum = _compact(has, POSE_CAP)
+        sel, sel_ok, cum = match_ops.compact(has, POSE_CAP)
         sl = torch.clamp(slots[sel], 0, cap - 1)
         qual = map_qual[sl] if cfg.iv.propagate_keyptqual else cur_qual[sel]
         res = pose_opt.pose_optimization(
@@ -191,7 +171,7 @@ class FusedTracker:
         tables = (map_pos, map_desc, map_normal, map_mind, map_maxd, map_valid)
         sel = None
         if P > LOCAL_CAP:
-            sel, sel_ok, _ = _compact(gate, LOCAL_CAP)
+            sel, sel_ok, _ = match_ops.compact(gate, LOCAL_CAP)
             tables = tuple(t[sel] for t in tables)
             tables = tables[:-1] + (tables[-1] & sel_ok,)
 

@@ -1,0 +1,474 @@
+"""Local mapping, run inline per keyframe (LocalMapping.cc:47-170).
+
+Port of the single-threaded ``loop_once`` path of
+``iv_slam_tpu/slam/local_mapping.py`` (the reference's LoopOnce,
+LocalMapping.cc:119-170):
+
+  ProcessNewKeyFrame -> MapPointCulling (236) -> CreateNewMapPoints (273)
+  -> SearchInNeighbors (527) -> LocalBundleAdjustment (if > 2 keyframes
+  and run_ba) -> KeyFrameCulling (705)
+
+The device work of an event (triangulation against up to 16 covisible
+neighbors in chunks of TRI_CHUNK, fusion in chunks of FUSE_CHUNK targets,
+the local BA) runs on the device of the tracker's frames; everything that
+decides which points survive is host numpy, order for order the
+reference's: dict insertion order of the observation lists and of
+``recent_points``, ``covisible_keyframes`` order, ``np.unique`` in the fuse
+assembly. Each device call is read back before the host applies it, so an
+event waits for the device (a keyframe event is not held to zero syncs).
+
+Not ported yet: the worker thread (``start_worker``/``kick_async``, ROADMAP
+A7), the async local BA (A7), ``set_link_profile`` (the port always uses
+the chunked shapes), and the vis/constrained BA modes (A11/A12).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..ops import match as match_ops
+from ..ops import triangulate as tri
+from ..solvers import local_ba
+from . import resolve_device
+
+log = logging.getLogger(__name__)
+
+
+class LocalMapping:
+    # neighbors per triangulation call and targets per forward-fuse call
+    TRI_CHUNK = 8
+    FUSE_CHUNK = 16
+    # reverse-fuse point-axis cap: the union of up to 64 covisible
+    # keyframes' points; beyond it the candidate set is truncated
+    P_CAP = 16384
+
+    def __init__(self, cfg: Config, map_store, device=None):
+        if cfg.iv.ba_mode != "standard":
+            raise NotImplementedError(
+                f"ba_mode {cfg.iv.ba_mode!r} is not ported yet (ROADMAP A11/A12)")
+        self.cfg = cfg
+        self.map = map_store
+        self.device = resolve_device(device, "LocalMapping")
+        self.queue: List[int] = []
+        # recently added points: pid -> kf_id when created
+        self.recent_points: Dict[int, int] = {}
+        # device map mirror (the tracker's DeviceMap), set by Tracking when
+        # fused tracking runs: fuse gathers its candidate tables from it
+        self.dmap = None
+        # optional per-stage timer: an object whose time(name) is a context
+        self.stage_timer = None
+        # per event: the BA rung solved; overflows of the compact tables
+        self.ba_rungs: List[tuple] = []
+        self.overflows = {"triangulate": 0, "fuse": 0}
+        cam = cfg.camera
+        f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=self.device)  # noqa: E731
+        self._cam = tuple(f32(v) for v in (cam.fx, cam.fy, cam.cx, cam.cy, cam.bf))
+        self._wh = (f32(cam.width), f32(cam.height))
+        sf = map_store.scale_factors
+        self._sf = torch.as_tensor(np.asarray(sf, np.float32), device=self.device)
+        self._log_scale = f32(np.log(sf[1] / sf[0]) if len(sf) > 1 else 1.0)
+        self._fuse_th = f32(3.0)
+
+    def _stage(self, name: str):
+        if self.stage_timer is None:
+            return contextlib.nullcontext()
+        return self.stage_timer.time(name)
+
+    def _up(self, a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cuda":
+            t = t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def insert_keyframe(self, kf_id: int):
+        self.queue.append(kf_id)
+        frame = self.map.kf_frames[kf_id]
+        for i in np.nonzero(frame.map_pt >= 0)[0]:
+            pid = int(frame.map_pt[i])
+            if self.map.pt_first_kf[pid] == kf_id:
+                self.recent_points[pid] = kf_id
+
+    def loop_once(self, run_ba: bool = True):
+        while self.queue:
+            kf_id = self.queue.pop(0)
+            self._process_one(kf_id, run_ba)
+
+    def _process_one(self, kf_id: int, run_ba: bool = True):
+        with self._stage("lm_cull_points"):
+            self._cull_map_points(kf_id)
+        with self._stage("lm_triangulate"):
+            self._create_new_map_points(kf_id)
+        with self._stage("lm_fuse"):
+            self._search_in_neighbors(kf_id)
+        if self.map.n_keyframes > 2 and run_ba:
+            with self._stage("lm_local_ba"):
+                self._run_local_ba(kf_id)
+        with self._stage("lm_cull_keyframes"):
+            self._cull_keyframes(kf_id)
+
+    # -------------------------------------------------------- triangulation
+
+    def _create_new_map_points(self, kf_id: int, n_neighbors: int = 10):
+        """LocalMapping::CreateNewMapPoints (273-525): triangulate new points
+        against the best covisible keyframes, one device call per chunk of
+        TRI_CHUNK neighbors (padded slots carry all-False free masks)."""
+        m = self.map
+        cam = self.cfg.camera
+        cur = m.kf_frames[kf_id]
+        if cur is None:
+            return
+        K = cam.K().astype(np.float64)
+        Kinv = np.linalg.inv(K)
+        T1 = m.kf_pose[kf_id]
+        O1 = m.kf_camera_center(kf_id)
+        free1 = cur.valid & (cur.map_pt < 0)
+        if free1.sum() < 5:
+            return
+        is_mono = cur.depth.max() <= 0
+
+        # host gates + per-neighbor tables (LocalMapping.cc:295-330)
+        cand = []
+        for nb, _w in m.covisible_keyframes(kf_id)[:n_neighbors]:
+            T2 = m.kf_pose[nb]
+            O2 = m.kf_camera_center(nb)
+            baseline = float(np.linalg.norm(O2 - O1))
+            if is_mono:
+                # mono gate: baseline / median scene depth > 0.01
+                med_depth = self._median_scene_depth(nb)
+                if med_depth <= 0 or baseline / med_depth < 0.01:
+                    continue
+            elif baseline < cam.baseline:
+                # stereo gate: baseline must exceed the stereo baseline
+                continue
+            nf = m.kf_frames[nb]
+            free2 = nf.valid & (nf.map_pt < 0)
+            if free2.sum() < 5:
+                continue
+            # epipole of cam1 in image 2
+            c1_in2 = T2[:3, :3] @ O1 + T2[:3, 3]
+            if abs(c1_in2[2]) < 1e-6:
+                continue
+            epipole2 = np.array(
+                [cam.fx * c1_in2[0] / c1_in2[2] + cam.cx,
+                 cam.fy * c1_in2[1] / c1_in2[2] + cam.cy], np.float32)
+            # F12 = K^-T [t12]x R12 K^-1 (ComputeF12, LocalMapping.cc:609)
+            R1m, t1m = T1[:3, :3], T1[:3, 3]
+            R2m, t2m = T2[:3, :3], T2[:3, 3]
+            R12 = R1m @ R2m.T
+            t12 = -(R12 @ t2m) + t1m
+            tx = np.array([[0.0, -t12[2], t12[1]],
+                           [t12[2], 0.0, -t12[0]],
+                           [-t12[1], t12[0], 0.0]])
+            F12 = (Kinv.T @ tx @ R12 @ Kinv).astype(np.float32)
+            cand.append(dict(nb=nb, nf=nf, T2=T2, free2=free2, F12=F12,
+                             epipole2=epipole2))
+        if not cand:
+            return
+
+        nb_cap = self.TRI_CHUNK
+        cand = cand[:16]
+        f32s = np.float32
+
+        def dev_or_up(t, a):
+            return t if t is not None else self._up(np.asarray(a, f32s))
+
+        def build_args(chunk):
+            pad = [chunk[0]] * (nb_cap - len(chunk))
+            rows = chunk + pad
+
+            def dstack(get):
+                return torch.stack([get(c) for c in rows])
+
+            free2 = np.stack([c["free2"] for c in chunk]
+                             + [np.zeros_like(chunk[0]["free2"])] * len(pad))
+            return (
+                cur.kp.xy, cur.kp.desc, self._up(free1),
+                dev_or_up(cur.ur_dev, cur.u_right), dev_or_up(cur.depth_dev, cur.depth),
+                cur.kp.octave,
+                dstack(lambda c: c["nf"].kp.xy),
+                dstack(lambda c: c["nf"].kp.desc),
+                self._up(free2),
+                dstack(lambda c: dev_or_up(c["nf"].ur_dev, c["nf"].u_right)),
+                dstack(lambda c: dev_or_up(c["nf"].depth_dev, c["nf"].depth)),
+                dstack(lambda c: c["nf"].kp.octave),
+                self._up(np.stack([c["F12"] for c in rows]).astype(f32s)),
+                self._up(np.stack([c["epipole2"] for c in rows]).astype(f32s)),
+                self._up(np.full(nb_cap, is_mono)),
+                self._up(np.asarray(T1, f32s)),
+                self._up(np.stack([c["T2"] for c in rows]).astype(f32s)),
+                self._sf, *self._cam,
+            )
+
+        chunks = [cand[i:i + nb_cap] for i in range(0, len(cand), nb_cap)]
+        all_rows = []
+        for ci, chunk in enumerate(chunks):
+            flat = tri.triangulate_event_compact(*build_args(chunk)).cpu().numpy()
+            rows = flat[:-2].reshape(tri.T_CAP, 6)
+            n_good, n_matched = int(flat[-2]), int(flat[-1])
+            if n_matched > tri.T_CAP:
+                self.overflows["triangulate"] += 1
+                log.warning("triangulate_event: %d epipolar matches > cap %d; extras "
+                            "dropped this event", n_matched, tri.T_CAP)
+            rows = rows[: min(n_good, tri.T_CAP)].copy()
+            rows = rows[rows[:, 0] < len(chunk)]   # range guard on padded slots
+            rows[:, 0] += ci * nb_cap              # chunk-local -> global index
+            all_rows.append(rows)
+        rows = np.concatenate(all_rows) if all_rows else np.zeros((0, 6), f32s)
+
+        new_pids = []
+        for nb_i, f1, f2, x, y, z in rows:
+            c = cand[int(nb_i)]
+            nf = c["nf"]
+            f1, f2 = int(f1), int(f2)
+            if cur.map_pt[f1] >= 0 or nf.map_pt[f2] >= 0:
+                continue
+            pid = m.add_point(np.array([x, y, z], np.float32), kf_id)
+            m.add_observation(pid, kf_id, f1)
+            m.add_observation(pid, c["nb"], f2)
+            cur.map_pt[f1] = pid
+            nf.map_pt[f2] = pid
+            new_pids.append(pid)
+            self.recent_points[pid] = kf_id
+        m.compute_distinctive_descriptor_batch(new_pids)
+        m.update_normal_and_depth_batch(new_pids)
+
+    def _median_scene_depth(self, kf_id: int) -> float:
+        """KeyFrame::ComputeSceneMedianDepth: median z of the keyframe's map
+        points in its camera frame."""
+        m = self.map
+        frame = m.kf_frames[kf_id]
+        T = m.kf_pose[kf_id]
+        pids = frame.map_pt[frame.map_pt >= 0]
+        pids = pids[m.pt_alive[pids]]
+        if len(pids) == 0:
+            return -1.0
+        z = (m.pt_pos[pids] @ T[:3, :3].T + T[:3, 3])[:, 2]
+        return float(np.median(z))
+
+    # --------------------------------------------------------------- fuse
+
+    def _search_in_neighbors(self, kf_id: int):
+        """LocalMapping::SearchInNeighbors (527-607): fuse the current
+        keyframe's points into its 2-hop covisible keyframes and theirs into
+        it; the host applies the returned (target, point, feature) triples
+        in order, revalidating liveness."""
+        m = self.map
+        if self.dmap is not None:
+            # the indexed fuse gathers from the mirror: bring this event's
+            # triangulated points into it first
+            self.dmap.sync(m)
+        results = []
+        for fn, args, targets, pid_arr in self._assemble_fuse(kf_id):
+            results.append((targets, pid_arr, fn(*args).cpu().numpy()))
+        for targets, pid_arr, flat in results:
+            triples = flat[:-1].reshape(match_ops.F_CAP, 3)
+            count = int(flat[-1])
+            if count > match_ops.F_CAP:
+                self.overflows["fuse"] += 1
+                log.warning("fuse: %d matches > cap %d; extras dropped this event",
+                            count, match_ops.F_CAP)
+            triples = triples[: min(count, match_ops.F_CAP)].astype(np.int64)
+            triples = triples[triples[:, 0] < len(targets)]
+            self._apply_fuse_triples(kf_id, targets, pid_arr, triples)
+
+    def _assemble_fuse(self, kf_id: int):
+        """The fuse calls: FORWARD chunks (<= FUSE_CHUNK covisible targets x
+        the current keyframe's points), then the REVERSE call (the current
+        keyframe as the single target x the union of the targets' points).
+        Returns [(fn, args, targets, pid_arr), ...]."""
+        m = self.map
+        targets = []
+        for nb, _w in m.covisible_keyframes(kf_id)[:10]:
+            targets.append(nb)
+            for nb2, _w2 in m.covisible_keyframes(nb)[:5]:
+                if nb2 != kf_id and nb2 not in targets:
+                    targets.append(nb2)
+        cur = m.kf_frames[kf_id]
+        mp = cur.map_pt[cur.map_pt >= 0]
+        cur_pts = mp[m.pt_alive[mp]]          # feature order
+        if targets:
+            all_nb = np.concatenate([m.kf_frames[nb].map_pt for nb in targets])
+            all_nb = all_nb[all_nb >= 0]
+            fuse_pts = np.unique(all_nb[m.pt_alive[all_nb]])
+        else:
+            fuse_pts = np.zeros(0, np.int64)
+        targets = targets[:64]
+        if not targets:
+            return []
+        calls = []
+        if len(cur_pts):
+            for i in range(0, len(targets), self.FUSE_CHUNK):
+                calls.append(self._fuse_args(targets[i:i + self.FUSE_CHUNK], cur_pts,
+                                             fwd_p_cap=2048))
+        if len(fuse_pts):
+            calls.append(self._fuse_args([kf_id], fuse_pts))
+        return calls
+
+    def _fuse_args(self, targets, pts, fwd_p_cap=None):
+        m = self.map
+        if fwd_p_cap is not None:
+            p_cap = fwd_p_cap          # frame capacity bounds cur_pts
+            pts = pts[:p_cap]
+        else:
+            pts = pts[: self.P_CAP]
+            p_cap = 4096
+            while p_cap < len(pts):
+                p_cap *= 2
+            p_cap = min(p_cap, self.P_CAP)
+        pid_arr = np.asarray(pts, np.int64)
+        # target-axis rungs {1, 16, 64}: 1 is the reverse side's shape
+        nb_cap = 1 if len(targets) == 1 else (16 if len(targets) <= 16 else 64)
+        frames = [m.kf_frames[nb] for nb in targets]
+        rows = frames + [frames[0]] * (nb_cap - len(targets))
+        kf_args = (
+            torch.stack([f.kp.xy for f in rows]),
+            torch.stack([f.kp.octave for f in rows]),
+            torch.stack([f.kp.desc for f in rows]),
+            torch.stack([f.kp.valid for f in rows]),
+            torch.stack([f.ur_dev if f.ur_dev is not None
+                         else self._up(np.asarray(f.u_right, np.float32)) for f in rows]),
+            self._up(np.stack([m.kf_pose[nb] for nb in targets]
+                              + [m.kf_pose[targets[0]]] * (nb_cap - len(targets)))
+                     .astype(np.float32)),
+        )
+        tail = (self._sf, self._log_scale, *self._cam[:4], *self._wh, self._cam[4],
+                self._fuse_th)
+        dmap = self.dmap
+        if dmap is not None and pid_arr.size and pid_arr.max() < dmap.capacity:
+            # indexed path: candidate tables gathered from the synced mirror
+            pid_idx = np.full(p_cap, dmap.capacity, np.int32)
+            pid_idx[: len(pts)] = pid_arr
+            kf_ok = np.zeros(nb_cap, bool)
+            kf_ok[: len(targets)] = True
+            args = (*kf_args, self._up(kf_ok), *dmap.full_views(), self._up(pid_idx),
+                    *tail)
+            return match_ops.fuse_into_keyframes_compact_indexed, args, targets, pid_arr
+
+        # no device mirror (classic tracking): upload the candidate tables
+        mask = np.zeros((nb_cap, p_cap), bool)
+        mask[: len(targets), : len(pts)] = True
+        pos = np.zeros((p_cap, 3), np.float32)
+        desc = np.zeros((p_cap, 32), np.uint8)
+        normal = np.zeros((p_cap, 3), np.float32)
+        mind = np.ones(p_cap, np.float32)
+        maxd = np.ones(p_cap, np.float32)
+        pos[: len(pts)] = m.pt_pos[pid_arr]
+        desc[: len(pts)] = m.pt_desc[pid_arr]
+        normal[: len(pts)] = m.pt_normal[pid_arr]
+        mind[: len(pts)] = m.pt_min_dist[pid_arr]
+        maxd[: len(pts)] = m.pt_max_dist[pid_arr]
+        args = (*kf_args, *(self._up(a) for a in (pos, desc, normal, mind, maxd, mask)),
+                *tail)
+        return match_ops.fuse_into_keyframes_compact, args, targets, pid_arr
+
+    def _apply_fuse_triples(self, kf_id, all_targets, pid_arr, triples):
+        """Apply the compacted (target, point, feature) fuse matches in
+        order."""
+        m = self.map
+        touched = set()
+        for t, i, feat in triples:
+            nb = all_targets[int(t)]
+            frame = m.kf_frames[nb]
+            pid = int(pid_arr[i])
+            if not m.pt_alive[pid] or nb in m.pt_obs[pid]:
+                continue
+            feat = int(feat)
+            existing = int(frame.map_pt[feat])
+            if existing >= 0 and m.pt_alive[existing]:
+                # keep the better-observed point (MapPoint::Replace)
+                if m.n_observations(existing) >= m.n_observations(pid):
+                    keep, drop = existing, pid
+                else:
+                    keep, drop = pid, existing
+                for okf, ofeat in list(m.pt_obs[drop].items()):
+                    of = m.kf_frames[okf]
+                    if okf not in m.pt_obs[keep]:
+                        m.add_observation(keep, okf, ofeat)
+                        of.map_pt[ofeat] = keep
+                    else:
+                        of.map_pt[ofeat] = -1
+                m.retire_point(drop)
+                touched.add(keep)
+            else:
+                m.add_observation(pid, nb, feat)
+                frame.map_pt[feat] = pid
+                touched.add(pid)
+        alive = [p for p in touched if m.pt_alive[p]]
+        m.compute_distinctive_descriptor_batch(alive)
+        m.update_normal_and_depth_batch(alive)
+
+    # ------------------------------------------------------------- culling
+
+    def _cull_map_points(self, kf_id: int):
+        """MapPointCulling (LocalMapping.cc:236-271): recently created points
+        must prove themselves (found/visible ratio, observations). Threshold:
+        3 observations for stereo."""
+        th_obs = 2 if self.cfg.system.sensor == "mono" else 3
+        for pid in list(self.recent_points):
+            first_kf = self.recent_points[pid]
+            if not self.map.pt_alive[pid]:
+                del self.recent_points[pid]
+                continue
+            age = kf_id - first_kf
+            if self.map.found_ratio(pid) < 0.25:
+                self.map.kill_point(pid)
+                del self.recent_points[pid]
+            elif age >= 2 and self.map.n_observations(pid) <= th_obs:
+                self.map.kill_point(pid)
+                del self.recent_points[pid]
+            elif age >= 3:
+                del self.recent_points[pid]
+
+    def _cull_keyframes(self, kf_id: int):
+        """KeyFrameCulling (LocalMapping.cc:705-780): a local keyframe is
+        redundant if >= 90% of its points are seen by >= 3 other keyframes
+        at the same or finer scale."""
+        for cand, _w in self.map.covisible_keyframes(kf_id):
+            if cand == self.map.origin_kf or not self.map.kf_alive[cand]:
+                continue
+            frame = self.map.kf_frames[cand]
+            n_pts = 0
+            n_redundant = 0
+            for i in np.nonzero(frame.map_pt >= 0)[0]:
+                pid = int(frame.map_pt[i])
+                if not self.map.pt_alive[pid]:
+                    continue
+                # stereo: only close points (LocalMapping.cc:728-732)
+                if frame.depth[i] > self.cfg.camera.depth_threshold or frame.depth[i] < 0:
+                    continue
+                n_pts += 1
+                if self.map.n_observations(pid) <= 3:
+                    continue
+                scale_level = frame.octave[i]
+                n_obs_finer = 0
+                for okf, ofeat in self.map.pt_obs[pid].items():
+                    if okf == cand:
+                        continue
+                    if self.map.kf_frames[okf].octave[ofeat] <= scale_level + 1:
+                        n_obs_finer += 1
+                        if n_obs_finer >= 3:
+                            break
+                if n_obs_finer >= 3:
+                    n_redundant += 1
+            if n_pts > 0 and n_redundant > 0.9 * n_pts:
+                self._erase_keyframe(cand)
+
+    def _erase_keyframe(self, kf_id: int):
+        frame = self.map.kf_frames[kf_id]
+        for i in np.nonzero(frame.map_pt >= 0)[0]:
+            pid = int(frame.map_pt[i])
+            if self.map.pt_alive[pid]:
+                self.map.erase_observation(pid, kf_id)
+        self.map.kf_alive[kf_id] = False
+
+    # ----------------------------------------------------------------- BA
+
+    def _run_local_ba(self, kf_id: int):
+        self.ba_rungs.append(
+            local_ba.local_bundle_adjustment(self.cfg, self.map, kf_id, self.device))

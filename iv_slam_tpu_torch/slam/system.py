@@ -1,0 +1,129 @@
+"""System facade (src/System.cc re-designed for one host process).
+
+Port of ``iv_slam_tpu/slam/system.py``: TrackStereo, Reset, Shutdown,
+SaveTrajectoryKITTI/TUM, SaveKeyFrameTrajectoryTUM, the failure log and the
+map's save/load, with local mapping run inline after each keyframe (the
+reference's single-threaded mode, System.cc:177-189).
+
+``System(cfg, height, width)`` runs on CUDA and raises without it;
+``device="cpu"`` runs the plain PyTorch path (the tests). Not ported yet,
+and raising NotImplementedError: mono and RGB-D tracking (ROADMAP A9), the
+vocabulary (A8), training-data generation (A12), and the config switches
+that ``tracking.check_config`` names.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import numpy as np
+
+from ..config import Config
+from ..io import trajectory
+from .map_store import MapStore
+from .tracking import State, Tracking
+
+
+class System:
+    def __init__(self, cfg: Config, height: int, width: int, device=None):
+        self.cfg = cfg
+        self.tracking = Tracking(cfg, height, width, device=device)
+
+    # --- tracking entry points (System.h:76-118) ---------------------------
+
+    def track_stereo(
+        self,
+        img_left: np.ndarray,
+        img_right: np.ndarray,
+        timestamp: float,
+        gt_pose: Optional[np.ndarray] = None,
+        gt_cov: Optional[np.ndarray] = None,
+        img_name: str = "",
+        cost_map: Optional[np.ndarray] = None,
+        frontend_handle=None,
+        gt_depth_map: Optional[np.ndarray] = None,
+    ) -> Optional[np.ndarray]:
+        """Returns the camera pose Tcw, or None while not initialized."""
+        return self.tracking.track_stereo(
+            img_left, img_right, timestamp, cost_map=cost_map, gt_pose=gt_pose,
+            gt_cov=gt_cov, img_name=img_name, frontend_handle=frontend_handle,
+            gt_depth_map=gt_depth_map)
+
+    def submit_frontend(self, img_left, img_right, cost_map=None):
+        """Queue the next frame's frontend, so its device work overlaps the
+        host tracking of the current frame."""
+        return self.tracking.submit_frontend(img_left, img_right, cost_map)
+
+    def track_mono(self, *args, **kwargs):
+        raise NotImplementedError("mono tracking is not ported yet (ROADMAP A9)")
+
+    def track_rgbd(self, *args, **kwargs):
+        raise NotImplementedError("RGB-D tracking is not ported yet (ROADMAP A9)")
+
+    def attach_vocabulary(self, voc):
+        raise NotImplementedError("BoW and relocalization are not ported yet (ROADMAP A8)")
+
+    def enable_datagen(self, out_path=None):
+        raise NotImplementedError("training-data generation is not ported yet (ROADMAP A12)")
+
+    # --- map persistence ---------------------------------------------------
+
+    def save_map(self, path: str):
+        self.tracking.map.save(path)
+
+    def load_map(self, path: str):
+        tr = self.tracking
+        tr.map = MapStore.load(path, n_levels=self.cfg.orb.n_levels,
+                               scale_factor=self.cfg.orb.scale_factor)
+        for fr in tr.map.kf_frames[: tr.map.n_keyframes]:
+            if fr is not None:   # the keyframes' keypoints onto the tracker's device
+                fr.kp = type(fr.kp)(*(t.to(tr.device) for t in fr.kp))
+        tr.local_mapping.map = tr.map
+        tr.mark_map_dirty()
+
+    # --- state -------------------------------------------------------------
+
+    @property
+    def state(self) -> State:
+        return self.tracking.state
+
+    @property
+    def failure_count(self) -> int:
+        return self.tracking.failure_count
+
+    def reset(self):
+        self.tracking._reset()
+
+    def shutdown(self):
+        """Local mapping runs inline, so nothing is left to join or stop."""
+
+    # --- output (System.h:148-163) ------------------------------------------
+
+    def trajectory_twc(self):
+        return self.tracking.trajectory_poses()
+
+    def save_trajectory_kitti(self, path: str):
+        trajectory.save_kitti(path, self.trajectory_twc())
+        trajectory.save_times(os.path.splitext(path)[0] + "_times.txt",
+                              self.tracking.frame_times)
+
+    def save_trajectory_tum(self, path: str):
+        trajectory.save_tum(path, self.tracking.frame_times, self.trajectory_twc())
+
+    def save_keyframe_trajectory_tum(self, path: str):
+        """SaveKeyFrameTrajectoryTUM (System.cc:614-676): keyframe poses
+        only, by id, timestamp + Twc quaternion per line."""
+        m = self.tracking.map
+        times, poses = [], []
+        for k in range(m.n_keyframes):
+            if not m.kf_alive[k]:
+                continue
+            times.append(float(m.kf_timestamp[k]))
+            poses.append(np.linalg.inv(m.kf_pose[k]))
+        trajectory.save_tum(path, times, poses)
+
+    def save_failure_log(self, path: str):
+        with open(path, "w") as f:
+            for t in self.tracking.failure_timestamps:
+                f.write(f"{t:.6f}\n")

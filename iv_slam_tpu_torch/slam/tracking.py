@@ -1,0 +1,689 @@
+"""The per-frame tracking state machine (src/Tracking.cc re-designed).
+
+Port of the stereo path of ``iv_slam_tpu/slam/tracking.py``, unchained and
+single-threaded (the reference's bSingleThreaded path, System.cc:177-189):
+
+  NOT_INITIALIZED -> StereoInitialization (Tracking.cc:882)
+  OK   -> the fused step (slam/fused_track.py) when
+          cfg.system.fused_tracking, else or on its failure
+          TrackWithMotionModel (1303) | TrackReferenceKeyFrame (1154)
+          -> TrackLocalMap (1509)
+       -> NeedNewKeyFrame (1694) / CreateNewKeyFrame -> LocalMapping.LoopOnce
+  LOST -> failure accounting + reset (829-854) and re-initialization
+
+Extraction, stereo matching, the projection searches, the pose LM and the
+keyframe event's device work run on one device (``device``: CUDA unless
+the caller asks for the CPU, as the tests do); this module is the host
+orchestrator that owns the map store.
+
+Not ported yet, and refused by ``check_config`` or the entry point: the
+LocalMapping worker, async local BA, chained tracking and prewarm (ROADMAP
+A7), BoW relocalization (A8), mono and RGB-D tracking (A9), loop closing
+(A10), cost maps (A11), training-data generation and GT depth maps (A12),
+and the localization-only mode.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import enum
+import logging
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..geometry import camera
+from ..ops import match as match_ops
+from ..solvers import pose_opt
+from . import resolve_device
+from .device_map import DeviceMap
+from .frame import Frame, StereoFrontend
+from .fused_track import LOCAL_CAP, FusedTracker
+from .local_mapping import LocalMapping
+from .map_store import MapStore
+
+log = logging.getLogger(__name__)
+
+
+class State(enum.Enum):
+    NO_IMAGES_YET = 0
+    NOT_INITIALIZED = 1
+    OK = 2
+    LOST = 3
+
+
+def check_config(cfg: Config) -> None:
+    """Raise NotImplementedError for a switch this port does not run yet."""
+    s = cfg.system
+    todo = [
+        (s.threaded_local_mapping, "threaded_local_mapping", "A7"),
+        (s.async_local_ba, "async_local_ba", "A7"),
+        (s.chained_tracking, "chained_tracking", "A7"),
+        (s.prewarm, "prewarm", "A7"),
+        (s.use_bow, "use_bow", "A8"),
+        (s.sensor != "stereo", f"sensor={s.sensor!r}", "A9"),
+        (s.enable_loop_closing, "enable_loop_closing", "A10"),
+        (cfg.iv.ba_mode != "standard", f"iv.ba_mode={cfg.iv.ba_mode!r}", "A11/A12"),
+        # the port always runs the chunked shape family, the reference's
+        # choice on a low-RTT link, and probes no link
+        (s.link_rtt_ms is not None, "link_rtt_ms (a pinned link profile)", "A7"),
+    ]
+    for on, name, item in todo:
+        if on:
+            raise NotImplementedError(f"{name} is not ported yet (ROADMAP {item})")
+
+
+class Tracking:
+    def __init__(self, cfg: Config, height: int, width: int, device=None):
+        check_config(cfg)
+        self.cfg = cfg
+        self.height = height
+        self.width = width
+        self.device = dev = resolve_device(device, "Tracking")
+        self.frontend = StereoFrontend(cfg, height, width, device=dev)
+        self.map = MapStore(n_levels=cfg.orb.n_levels, scale_factor=cfg.orb.scale_factor)
+        self.local_mapping = LocalMapping(cfg, self.map, dev)
+        self.K = camera.Intrinsics.from_config(cfg.camera, dev)
+        self.state = State.NO_IMAGES_YET
+        self.last_frame: Optional[Frame] = None
+        self.current: Optional[Frame] = None
+        self.velocity: Optional[np.ndarray] = None  # Tcl: cur <- last
+        self.ref_kf: int = -1
+        self.last_kf_frame_id: int = -1
+        self.local_kfs: List[int] = []
+        self.local_pts: np.ndarray = np.zeros(0, np.int64)
+        self.n_inliers = 0
+        self.min_frames = 0
+        self.max_frames = int(cfg.camera.fps)
+        # the fused step and its device map mirror, built at first use
+        self._fused: Optional[FusedTracker] = None
+        self._dmap: Optional[DeviceMap] = None
+        self._dmap_dirty = True  # the mirror needs a (re)sync
+
+        sf = cfg.orb.scale_factors()
+        self.inv_level_sigma2 = (1.0 / (sf * sf)).astype(np.float32)
+        self.scale_factors_t = torch.as_tensor(sf, dtype=torch.float32, device=dev)
+        self.log_scale = float(np.log(cfg.orb.scale_factor))
+
+        # trajectory bookkeeping (Tracking.h:180-183)
+        self.rel_poses: List[np.ndarray] = []   # Tcr per frame
+        self.rel_refs: List[int] = []           # reference kf per frame
+        self.frame_times: List[float] = []
+        self.lost_flags: List[bool] = []
+        self.failure_timestamps: List[float] = []
+        self.failure_count = 0
+        self._finalized_twc: List[np.ndarray] = []  # frames of closed sub-sessions
+        self._session_start = 0
+        # optional per-stage timer: an object whose time(name) is a context
+        self.stage_timer = None
+
+    def _stage(self, name: str):
+        if self.stage_timer is None:
+            return contextlib.nullcontext()
+        return self.stage_timer.time(name)
+
+    def _f32(self, v) -> torch.Tensor:
+        return torch.tensor(v, dtype=torch.float32, device=self.device)
+
+    def _up(self, a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cuda":
+            t = t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    # ------------------------------------------------------------------ API
+
+    def track_stereo(
+        self,
+        img_left: np.ndarray,
+        img_right: np.ndarray,
+        timestamp: float,
+        cost_map: Optional[np.ndarray] = None,
+        gt_pose: Optional[np.ndarray] = None,
+        gt_cov: Optional[np.ndarray] = None,
+        img_name: str = "",
+        frontend_handle=None,
+        gt_depth_map: Optional[np.ndarray] = None,
+    ) -> Optional[np.ndarray]:
+        """Track one stereo pair; returns Tcw or None. Pass `frontend_handle`
+        from `submit_frontend` (called while the previous frame was tracking)
+        to overlap the frontend's device work with host-side tracking."""
+        if gt_depth_map is not None:
+            raise NotImplementedError("GT depth maps are not ported yet (ROADMAP A12)")
+        # the fused step reads the frame's device tensors, so the frontend's
+        # host views can wait for the step's single download
+        defer = (
+            self.cfg.system.fused_tracking
+            and self.state == State.OK
+            and self.velocity is not None
+            and self.last_frame is not None
+            and self.last_frame.pose is not None
+        )
+        with self._stage("frontend"):
+            if frontend_handle is not None:
+                frame = self.frontend.collect(frontend_handle, timestamp, gt_pose, gt_cov,
+                                              img_name, defer=defer)
+            else:
+                frame = self.frontend.process(img_left, img_right, timestamp, cost_map,
+                                              gt_pose, gt_cov, img_name, defer=defer)
+        self.current = frame
+        with self._stage("track"):
+            self._track()
+        return frame.pose
+
+    def submit_frontend(self, img_left, img_right, cost_map=None):
+        handle = self.frontend.submit(img_left, img_right, cost_map)
+        # the classic path downloads the host pack in collect(): start the
+        # copy now; the fused step reads it with its own result instead
+        if not self.cfg.system.fused_tracking:
+            self.frontend.prefetch_host(handle)
+        return handle
+
+    # ----------------------------------------------------------- state flow
+
+    def _track(self):
+        frame = self.current
+        if frame.defer and not (self.cfg.system.fused_tracking and self.state == State.OK
+                                and self.velocity is not None):
+            frame.materialize()  # only the fused path defers
+        if self.state in (State.NO_IMAGES_YET, State.NOT_INITIALIZED):
+            self.state = State.NOT_INITIALIZED
+            self._stereo_initialization()
+            self._record_trajectory(lost=self.state != State.OK)
+            self.last_frame = frame
+            return
+        self._track_after_init()
+
+    def _track_after_init(self):
+        frame = self.current
+        ok = False
+        fused_done = False
+        if self.state == State.OK:
+            if self.cfg.system.fused_tracking and self.velocity is not None:
+                ok = self._track_fused()
+                fused_done = ok  # the fused step ran the local-map stage
+            if not ok and self.velocity is not None:
+                ok = self._track_with_motion_model()
+            if not ok and not fused_done:
+                ok = self._track_reference_keyframe()
+        if ok and not fused_done:
+            ok = self._track_local_map()
+        if ok:
+            self.state = State.OK
+            if self.last_frame is not None and self.last_frame.pose is not None:
+                self.velocity = frame.pose @ np.linalg.inv(self.last_frame.pose)
+            out = frame.outlier & (frame.map_pt >= 0)
+            frame.map_pt[out] = -1
+            frame.outlier[:] = False
+            if self._need_new_keyframe():
+                with self._stage("keyframe_event"):
+                    self._create_new_keyframe()
+            self._record_trajectory(lost=False)
+        else:
+            self.state = State.LOST
+            self._record_trajectory(lost=True)
+            self._handle_lost(frame.timestamp)
+        self.last_frame = frame
+
+    # ------------------------------------------------------- initialization
+
+    def _stereo_initialization(self):
+        frame = self.current
+        if frame.n_valid <= 500:
+            return
+        frame.set_pose(np.eye(4, dtype=np.float32))
+        kf_id = self.map.add_keyframe(frame)
+        cam = self.cfg.camera
+        n_created = 0
+        for i in np.nonzero(frame.valid & (frame.depth > 0))[0]:
+            pos = frame.unproject_stereo(i, cam.fx, cam.fy, cam.cx, cam.cy)
+            qual = frame.qual_score[i] if self.cfg.iv.propagate_keyptqual else 1.0
+            pid = self.map.add_point(pos, kf_id, qual)
+            self.map.add_observation(pid, kf_id, int(i))
+            frame.map_pt[i] = pid
+            self.map.compute_distinctive_descriptor(pid)
+            self.map.update_normal_and_depth(pid)
+            n_created += 1
+        if n_created == 0:
+            return
+        self.local_mapping.insert_keyframe(kf_id)
+        self.local_mapping.loop_once(run_ba=False)
+        self.ref_kf = kf_id
+        frame.ref_kf = kf_id
+        self.last_kf_frame_id = frame.frame_id
+        self.local_kfs = [kf_id]
+        self.local_pts = np.nonzero(self.map.pt_alive[: self.map.n_points])[0]
+        self.state = State.OK
+
+    # ------------------------------------------------------------- tracking
+
+    def _pose_optimize(self, frame: Frame) -> int:
+        """The pose LM over the frame's associations, written back as pose
+        and outliers (Optimizer::PoseOptimization); one download."""
+        has_pt = frame.map_pt >= 0
+        if has_pt.sum() < 3:
+            return 0
+        pids = np.where(has_pt, frame.map_pt, 0)
+        obs = np.stack([frame.xy[:, 0], frame.xy[:, 1], frame.u_right], axis=1)
+        if self.cfg.iv.propagate_keyptqual:
+            qual = self.map.pt_quality[pids].astype(np.float32)
+        else:
+            qual = frame.qual_score
+        res = pose_opt.pose_optimization(
+            self._up(frame.pose), self._up(self.map.pt_pos[pids]),
+            self._up(obs.astype(np.float32)),
+            self._up(self.inv_level_sigma2[frame.octave]),
+            self._up(np.asarray(qual, np.float32)), self._up(has_pt), self.K,
+            n_rounds=self.cfg.iv.optimizer_pose_opt_iter_count)
+        out = torch.cat([res.T.reshape(16), res.inlier.to(torch.float32)]).cpu().numpy()
+        frame.set_pose(out[:16].reshape(4, 4))
+        inlier = out[16:] != 0.0
+        frame.outlier = has_pt & ~inlier
+        return int(inlier.sum())
+
+    def _track_fused(self) -> bool:
+        """The fused step (slam/fused_track.py): motion search + pose LM +
+        full-map local search + pose LM against the device map, one
+        download. Falls back to the classic path on failure."""
+        frame = self.current
+        last = self.last_frame
+        if last is None or last.pose is None:
+            frame.materialize()  # the classic fallback needs the host views
+            return False
+        if self._fused is None:
+            self._fused = FusedTracker(self.cfg, self.height, self.width, device=self.device)
+            self._dmap = DeviceMap(device=self.device)
+            self.local_mapping.dmap = self._dmap
+        if self._dmap_dirty:
+            self._dmap_dirty = False
+            with self._stage("dmap_sync"):
+                self._dmap.sync(self.map)
+        self._update_last_frame()
+        T_pred = self.velocity @ last.pose
+        with self._stage("fused_dispatch"):
+            _res, flat = self._fused.track(frame, last, last.map_pt, T_pred, self._dmap)
+        # one download for the step's results and the deferred frame views
+        with self._stage("fused_readback"):
+            out = flat.cpu().numpy()
+        n = frame.map_pt.shape[0]
+        pack = out[: 10 * n].reshape(n, 10)
+        small = out[10 * n:]
+        if frame.xy is None:  # deferred frontend views
+            frame.xy = np.ascontiguousarray(pack[:, 0:2])
+            frame.octave = pack[:, 2].astype(np.int32)
+            frame.valid = pack[:, 3] != 0.0
+            frame.u_right = np.ascontiguousarray(pack[:, 4])
+            frame.depth = np.ascontiguousarray(pack[:, 5])
+            frame.qual_score = np.ascontiguousarray(pack[:, 6])
+        assign = pack[:, 7].astype(np.int32)
+        T = small[:16].reshape(4, 4).astype(np.float32)
+        n_motion = int(small[16])
+        # compaction overflows (never silent): local-search candidates over
+        # LOCAL_CAP, pose-LM edges over the compact table
+        if small[18] > LOCAL_CAP:
+            log.warning("fused local search: %d frustum-gated points > cap %d; "
+                        "extras not searched this frame", int(small[18]), LOCAL_CAP)
+        if small[19] > 0:
+            log.warning("fused pose LM: %d active edges dropped from the compact "
+                        "table this frame", int(small[19]))
+        if n_motion < 20:
+            self._last_fail = (frame.frame_id, "n_motion", n_motion, self.map.n_points)
+            return False
+        frame.set_pose(T)
+        frame.map_pt[:] = assign
+        frame.outlier[:] = False
+        good = assign >= 0
+        self.map.increase_found(assign[good])
+        self.n_inliers = int(np.count_nonzero(self.map.pt_n_obs[assign[good]] > 0))
+        if self.n_inliers < 30:
+            # roll back associations; the classic path retries
+            self._last_fail = (frame.frame_id, "n_inliers", self.n_inliers,
+                               self.map.n_points)
+            frame.map_pt[:] = -1
+            return False
+        # reference keyframe: the most-voted observer of the matches
+        counter = {}
+        for pid in assign[good]:
+            for kf_id in self.map.pt_obs[pid]:
+                counter[kf_id] = counter.get(kf_id, 0) + 1
+        if counter:
+            self.ref_kf = max(counter, key=counter.get)
+            frame.ref_kf = self.ref_kf
+        return True
+
+    def mark_map_dirty(self):
+        self._mark_mirror_stale()
+
+    def _mark_mirror_stale(self):
+        """A map event landed: resync the device mirror before the next
+        fused step."""
+        self._dmap_dirty = True
+
+    def _update_last_frame(self):
+        """Tracking::UpdateLastFrame: refresh the last frame's pose from its
+        reference keyframe."""
+        last = self.last_frame
+        if last.ref_kf >= 0 and self.rel_poses:
+            last.set_pose(self.rel_poses[-1] @ self.map.kf_pose[last.ref_kf])
+
+    def _track_with_motion_model(self) -> bool:
+        frame = self.current
+        last = self.last_frame
+        self._update_last_frame()
+        frame.set_pose(self.velocity @ last.pose)
+        frame.map_pt[:] = -1
+
+        th = 7.0  # stereo (Tracking.cc:1323-1327)
+        swm = self.cfg.matcher.search_window_multiplier
+        n = self._search_last_frame(th * swm)
+        if n < 20:
+            frame.map_pt[:] = -1
+            n = self._search_last_frame(2 * th * swm)
+        if n < 20:
+            return False
+        self._pose_optimize(frame)
+        # discard outlier associations, count map matches (Tracking.cc:1466+)
+        return self._discard_outliers(frame) >= 10
+
+    def _search_last_frame(self, th: float) -> int:
+        frame = self.current
+        last = self.last_frame
+        has_pt = (last.map_pt >= 0) & ~last.outlier
+        pids = np.where(has_pt, last.map_pt, 0)
+        alive = self.map.pt_alive[pids] & has_pt
+        cam = self.cfg.camera
+        f = self._f32
+        assign, n = match_ops.search_by_projection_last_frame(
+            frame.kp.xy, frame.kp.octave, frame.kp.angle, frame.kp.desc,
+            self._up(np.asarray(frame.u_right, np.float32)), frame.kp.valid,
+            self._up(self.map.pt_pos[pids]), self._up(self.map.pt_desc[pids]),
+            last.kp.octave, last.kp.angle, self._up(alive),
+            self._up(frame.pose), self._up(last.pose),
+            f(cam.fx), f(cam.fy), f(cam.cx), f(cam.cy), f(cam.bf), f(cam.baseline),
+            f(self.width), f(self.height), self.scale_factors_t, f(th))
+        out = torch.cat([assign, n[None]]).cpu().numpy()
+        assign, n = out[:-1], int(out[-1])
+        matched = assign >= 0
+        frame.map_pt[:] = np.where(matched, pids[np.maximum(assign, 0)], -1)
+        if self.cfg.iv.propagate_keyptqual:
+            self._update_quality_scores(frame)
+        return n
+
+    def _update_quality_scores(self, frame: Frame):
+        """ORBmatcher::UpdateQualityScores (1108-1146): min-propagate quality
+        between matched keypoints and their map points."""
+        idx = np.nonzero(frame.map_pt >= 0)[0]
+        pids = frame.map_pt[idx]
+        mpt_q = self.map.pt_quality[pids]
+        updated = np.minimum(mpt_q, frame.qual_score[idx])
+        changed = np.abs(updated - mpt_q) > 0.01
+        self.map.pt_quality[pids[changed]] = updated[changed]
+        self.map.mark_dirty(pids[changed])
+        frame.qual_score[idx] = updated
+
+    def _track_reference_keyframe(self) -> bool:
+        """Tracking::TrackReferenceKeyFrame (1154-1240), the use_BoW=false
+        projection variant: a th=5 window search from the last pose."""
+        frame = self.current
+        frame.set_pose(self.last_frame.pose)
+        frame.map_pt[:] = -1
+        swm = self.cfg.matcher.search_window_multiplier
+        n = self._search_local_points(th=5.0 * swm,
+                                      nn_ratio=0.7 * self.cfg.matcher.nn_ratio_multiplier)
+        if n < 15:
+            return False
+        self._pose_optimize(frame)
+        return self._discard_outliers(frame) >= 10
+
+    def _discard_outliers(self, frame: Frame) -> int:
+        out = frame.outlier & (frame.map_pt >= 0)
+        frame.map_pt[out] = -1
+        frame.outlier[out] = False
+        good = frame.map_pt >= 0
+        # matches to points with observations (in the map)
+        return int(np.count_nonzero(self.map.pt_n_obs[frame.map_pt[good]] > 0))
+
+    def _track_local_map(self) -> bool:
+        frame = self.current
+        self._update_local_map()
+        self._search_local_map_points()
+        self._pose_optimize(frame)
+        # statistics + strip stereo outliers (Tracking.cc:1655-1684)
+        good = (frame.map_pt >= 0) & ~frame.outlier
+        self.map.increase_found(frame.map_pt[good])
+        self.n_inliers = int(np.count_nonzero(self.map.pt_n_obs[frame.map_pt[good]] > 0))
+        bad = (frame.map_pt >= 0) & frame.outlier
+        frame.map_pt[bad] = -1
+        frame.outlier[bad] = False
+        return self.n_inliers >= 30
+
+    def _update_local_map(self):
+        """UpdateLocalKeyFrames + UpdateLocalPoints (Tracking.cc:2134-2270)."""
+        frame = self.current
+        counter = {}
+        for pid in frame.map_pt[frame.map_pt >= 0]:
+            if not self.map.pt_alive[pid]:
+                continue
+            for kf_id in self.map.pt_obs[pid]:
+                counter[kf_id] = counter.get(kf_id, 0) + 1
+        if not counter:
+            return
+        local = sorted(counter, key=counter.get, reverse=True)
+        seen = set(local)
+        for kf_id in list(local):
+            if len(local) > 80:
+                break
+            for nb, _w in self.map.covisible_keyframes(kf_id)[:10]:
+                if nb not in seen:
+                    local.append(nb)
+                    seen.add(nb)
+                    break
+        self.local_kfs = local
+        best_kf = max(counter, key=counter.get)
+        self.ref_kf = best_kf
+        frame.ref_kf = best_kf
+        pts = set()
+        for kf_id in local:
+            kf_frame = self.map.kf_frames[kf_id]
+            if kf_frame is None:
+                continue
+            for pid in kf_frame.map_pt[kf_frame.map_pt >= 0]:
+                if self.map.pt_alive[pid]:
+                    pts.add(int(pid))
+        self.local_pts = np.fromiter(pts, np.int64, len(pts))
+
+    def _search_local_map_points(self):
+        """SearchLocalPoints (Tracking.cc:2088-2132)."""
+        frame = self.current
+        self.map.increase_visible(frame.map_pt[frame.map_pt >= 0])
+        th = 5.0 if frame.frame_id < 2 else 1.0
+        self._search_local_points(th=th * self.cfg.matcher.search_window_multiplier,
+                                  nn_ratio=0.8 * self.cfg.matcher.nn_ratio_multiplier,
+                                  exclude_current=True)
+
+    def _search_local_points(self, th: float, nn_ratio: float,
+                             exclude_current: bool = False) -> int:
+        frame = self.current
+        pts = self.local_pts
+        if pts.size == 0:
+            return 0
+        cam = self.cfg.camera
+        cur_in_frame = set(frame.map_pt[frame.map_pt >= 0].tolist())
+        pt_valid = self.map.pt_alive[pts].copy()
+        if exclude_current and cur_in_frame:
+            pt_valid &= ~np.isin(pts, list(cur_in_frame))
+        # the point axis padded to a x4 ladder from 1024 (the reference's
+        # bounded set of shapes)
+        cap = 1024
+        while cap < len(pts):
+            cap *= 4
+        if cap != len(pts):
+            pad = cap - len(pts)
+            pts = np.concatenate([pts, np.zeros(pad, pts.dtype)])
+            pt_valid = np.concatenate([pt_valid, np.zeros(pad, bool)])
+        f = self._f32
+        assign, _n = match_ops.search_by_projection_local_map(
+            frame.kp.xy, frame.kp.octave, frame.kp.desc,
+            self._up(np.asarray(frame.u_right, np.float32)), frame.kp.valid,
+            self._up(frame.map_pt >= 0),
+            self._up(self.map.pt_pos[pts]), self._up(self.map.pt_desc[pts]),
+            self._up(self.map.pt_normal[pts]), self._up(self.map.pt_min_dist[pts]),
+            self._up(self.map.pt_max_dist[pts]), self._up(pt_valid),
+            self._up(frame.pose),
+            f(cam.fx), f(cam.fy), f(cam.cx), f(cam.cy), f(cam.bf),
+            f(self.width), f(self.height), self.scale_factors_t, f(self.log_scale),
+            f(th), f(nn_ratio))
+        assign = assign.cpu().numpy()
+        newly = (assign >= 0) & (frame.map_pt < 0)
+        frame.map_pt[newly] = pts[assign[newly]]
+        return int((frame.map_pt >= 0).sum())
+
+    # ------------------------------------------------------------ keyframes
+
+    def _need_new_keyframe(self) -> bool:
+        """Tracking.cc:1694-1772."""
+        frame = self.current
+        n_kfs = self.map.n_keyframes
+        n_min_obs = 3 if n_kfs > 2 else 2
+        ref_frame = self.map.kf_frames[self.ref_kf]
+        n_ref_matches = 0
+        if ref_frame is not None:
+            pids = ref_frame.map_pt[ref_frame.map_pt >= 0]
+            n_ref_matches = int(np.count_nonzero(
+                self.map.pt_alive[pids] & (self.map.pt_n_obs[pids] >= n_min_obs)))
+        close = (frame.depth > 0) & (frame.depth < self.cfg.camera.depth_threshold)
+        tracked = (frame.map_pt >= 0) & ~frame.outlier
+        n_tracked_close = int((close & tracked).sum())
+        n_nontracked_close = int((close & ~tracked).sum())
+        need_close = (n_tracked_close < 100) and (n_nontracked_close > 70)
+        th_ref = 0.75 if n_kfs >= 2 else 0.4
+        c1a = frame.frame_id >= self.last_kf_frame_id + self.max_frames
+        c1b = frame.frame_id >= self.last_kf_frame_id + self.min_frames
+        c1c = (self.n_inliers < n_ref_matches * 0.25) or need_close
+        c2 = ((self.n_inliers < n_ref_matches * th_ref) or need_close) and self.n_inliers > 15
+        return (c1a or c1b or c1c) and c2
+
+    def _create_new_keyframe(self):
+        """Tracking.cc:1774-1860: promote the frame to a keyframe, create its
+        close stereo points, then run local mapping inline (LoopOnce)."""
+        frame = self.current
+        self._create_new_keyframe_locked(frame)
+        run_ba = frame.frame_id % max(self.cfg.iv.tracking_ba_rate, 1) == 0
+        self.local_mapping.loop_once(run_ba=run_ba)
+
+    def _create_new_keyframe_locked(self, frame):
+        kf_id = self.map.add_keyframe(frame)
+        self.ref_kf = kf_id
+        frame.ref_kf = kf_id
+        cam = self.cfg.camera
+        depth_order = np.argsort(np.where(frame.depth > 0, frame.depth, np.inf))
+        # reference loop semantics (Tracking.cc:1795-1850): walk close to
+        # far, create points for unassociated features, stop at the first
+        # entry past ThDepth once > 100 points are registered; sorted order
+        # makes the cutoff computable up front
+        z_sorted = frame.depth[depth_order]
+        n_pos = int(np.count_nonzero(z_sorted > 0))
+        n_close = int(np.count_nonzero((z_sorted > 0) & (z_sorted <= cam.depth_threshold)))
+        # the reference processes the first past-ThDepth entry too before its
+        # (z > th && n > 100) break fires, hence the +1
+        k = min(n_close + 1, n_pos) if n_close > 100 else min(101, n_pos)
+        idx = depth_order[:k]
+        pids = frame.map_pt[idx]
+        create = (pids < 0) | (self.map.pt_n_obs[np.maximum(pids, 0)] == 0)
+        ci = idx[create]
+        touched = []
+        if len(ci):
+            Twc = np.linalg.inv(frame.pose)
+            z = frame.depth[ci]
+            pc = np.stack([(frame.xy[ci, 0] - cam.cx) * z / cam.fx,
+                           (frame.xy[ci, 1] - cam.cy) * z / cam.fy, z], axis=1)
+            pw = pc @ Twc[:3, :3].T + Twc[:3, 3]
+            quals = (frame.qual_score[ci].astype(np.float32)
+                     if self.cfg.iv.propagate_keyptqual else 1.0)
+            new_pids = self.map.add_points_batch(pw.astype(np.float32), kf_id, quals)
+            # fresh points have no prior observations: seed the dicts
+            # directly (stereo features weigh 2, mono 1)
+            w = np.where(frame.u_right[ci] >= 0, 2, 1)
+            obs = self.map.pt_obs
+            n_obs = self.map.pt_n_obs
+            for pid, i, wi in zip(new_pids, ci, w):
+                obs[pid][kf_id] = int(i)
+                n_obs[pid] = wi
+            frame.map_pt[ci] = new_pids
+            touched.extend(new_pids.tolist())
+        # register observations of existing tracked points
+        for i in np.nonzero(frame.map_pt >= 0)[0]:
+            pid = int(frame.map_pt[i])
+            if self.map.pt_alive[pid] and kf_id not in self.map.pt_obs[pid]:
+                self.map.add_observation(pid, kf_id, int(i))
+                touched.append(pid)
+        self.map.compute_distinctive_descriptor_batch(touched)
+        self.map.update_normal_and_depth_batch(touched)
+        self.last_kf_frame_id = frame.frame_id
+        self._mark_mirror_stale()
+        self.local_mapping.insert_keyframe(kf_id)
+
+    # -------------------------------------------------------------- failure
+
+    def _handle_lost(self, timestamp: float):
+        """Tracking.cc:829-854: reset; count failures once initialized maps
+        had > 3 keyframes."""
+        if self.map.n_keyframes > 3:
+            self.failure_count += 1
+            self.failure_timestamps.append(timestamp)
+            log.warning("tracking LOST at t=%.2f (kfs=%d pts=%d last_fail=%s)",
+                        timestamp, self.map.n_keyframes, self.map.n_points,
+                        getattr(self, "_last_fail", None))
+        self._reset()
+
+    def _reset(self):
+        # bake out this sub-session's absolute poses before dropping the map
+        # (the reference saves per-sub-session trajectories on each failure,
+        # Tracking.cc:2433-2504)
+        self._finalized_twc.extend(self._compose_session())
+        self._session_start = len(self.rel_poses)
+        self.map = MapStore(n_levels=self.cfg.orb.n_levels,
+                            scale_factor=self.cfg.orb.scale_factor)
+        self.local_mapping = LocalMapping(self.cfg, self.map, self.device)
+        # the mirror carries over, resynced from the new map
+        self.local_mapping.dmap = self._dmap
+        self.state = State.NOT_INITIALIZED
+        self.velocity = None
+        self.ref_kf = -1
+        self.local_kfs = []
+        self.local_pts = np.zeros(0, np.int64)
+        self._mark_mirror_stale()
+
+    # ----------------------------------------------------------- trajectory
+
+    def _record_trajectory(self, lost: bool):
+        frame = self.current
+        self.frame_times.append(frame.timestamp)
+        self.lost_flags.append(lost)
+        if lost or frame.pose is None or self.ref_kf < 0:
+            self.rel_poses.append(self.rel_poses[-1] if self.rel_poses
+                                  else np.eye(4, dtype=np.float32))
+            self.rel_refs.append(self.rel_refs[-1] if self.rel_refs else -1)
+        else:
+            Tcr = frame.pose @ np.linalg.inv(self.map.kf_pose[self.ref_kf])
+            self.rel_poses.append(Tcr.astype(np.float32))
+            self.rel_refs.append(self.ref_kf)
+
+    def _compose_session(self) -> List[np.ndarray]:
+        out = []
+        for Tcr, ref in zip(self.rel_poses[self._session_start:],
+                            self.rel_refs[self._session_start:]):
+            if ref < 0:
+                out.append(np.eye(4, dtype=np.float32))
+            else:
+                Tcw = Tcr @ self.map.kf_pose[ref]
+                out.append(np.linalg.inv(Tcw).astype(np.float32))
+        return out
+
+    def trajectory_poses(self) -> List[np.ndarray]:
+        """Absolute Twc per frame, composed like SaveTrajectoryKITTI
+        (System.cc:709-772): Tcw = Tcr * Trw with the current keyframe
+        poses."""
+        return self._finalized_twc + self._compose_session()

@@ -1,0 +1,241 @@
+"""Bundle-adjustment window assembly (Optimizer.cc:505-871 local BA).
+
+Port of the synchronous local-BA path of ``iv_slam_tpu/solvers/local_ba.py``:
+the host gathers a keyframe/point window, packs padded edge arrays at one
+of three rung sizes, runs the Schur LM (ba_core.py) on the map's device
+with one upload of the problem and one download of the result, and writes
+the result back into the map store, erasing the observations that end as
+outliers as the reference's joint erase pass does (Optimizer.cc:820-850).
+The host bookkeeping is numpy, order for order the reference's: it decides
+which points survive.
+
+Not ported yet: the async local BA (``local_bundle_adjustment_async``,
+``apply_local_ba``, ROADMAP A7), the vis and constrained variants (A11,
+A12) and the global BA (A10).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..geometry import camera
+from .ba_core import BAProblem, ba_solve
+
+
+# Local BA runs at every keyframe event on one of three padded sizes
+# (small / medium / full). Windows beyond the last rung are trimmed
+# (weakest-covisibility keyframes, least-observed points, strided edge
+# subsample): a deliberate deviation from the reference, which lets local
+# BA grow without bound (Optimizer.cc:505-544).
+LBA_RUNGS = (
+    # (n_kf, n_pt, n_e)
+    (32, 2048, 4096),
+    (64, 8192, 16384),
+    (64, 16384, 32768),
+)
+
+
+def _pick_rung(table, n_kf: int, n_pt: int, n_e: int):
+    """Smallest rung that fits (n_kf, n_pt, n_e); None if none fits."""
+    for rung in table:
+        if n_kf <= rung[0] and n_pt <= rung[1] and n_e <= rung[2]:
+            return rung
+    return None
+
+
+def _lba_rung(n_kf: int, n_pt: int, n_e: int):
+    """Smallest rung that fits (n_kf, n_pt, n_e); the last rung if none."""
+    r = _pick_rung(LBA_RUNGS, n_kf, n_pt, n_e)
+    return r if r is not None else LBA_RUNGS[-1]
+
+
+def _assemble(cfg, m, local_kfs, fixed_kfs, pts):
+    """Pack a keyframe/point window into a host (numpy) BAProblem padded to
+    its LBA_RUNGS size. Returns (prob, all_kfs, e_feat, E) or None when the
+    window is degenerate."""
+    all_kfs = list(local_kfs) + list(fixed_kfs)
+    kf_slot = {k: i for i, k in enumerate(all_kfs)}
+    if len(pts) == 0 or len(all_kfs) < 2:
+        return None
+
+    # edges per keyframe: each window frame's map_pt array IS its
+    # observation list (kept in lockstep with pt_obs by the map store)
+    pt_lookup = np.full(m.n_points, -1, np.int32)
+    pt_lookup[np.asarray(pts)] = np.arange(len(pts), dtype=np.int32)
+    inv_sigma2 = 1.0 / (m.scale_factors ** 2)
+    cols_kf, cols_pt, cols_obs, cols_inv, cols_qual = [], [], [], [], []
+    e_feat = []
+    for k in all_kfs:
+        frame = m.kf_frames[k]
+        feats = np.nonzero(frame.map_pt >= 0)[0]
+        pids = frame.map_pt[feats]
+        sl = pt_lookup[pids]
+        keep = sl >= 0
+        # only edges the observation dicts confirm
+        if keep.any():
+            idx = np.nonzero(keep)[0]
+            confirm = np.fromiter(
+                (m.pt_obs[int(pids[i])].get(k) == int(feats[i]) for i in idx),
+                bool, len(idx))
+            keep[idx] = confirm
+        feats, pids, sl = feats[keep], pids[keep], sl[keep]
+        if len(feats) == 0:
+            continue
+        cols_kf.append(np.full(len(feats), kf_slot[k], np.int32))
+        cols_pt.append(sl.astype(np.int32))
+        cols_obs.append(np.stack(
+            [frame.xy[feats, 0], frame.xy[feats, 1], frame.u_right[feats]],
+            axis=1).astype(np.float32))
+        cols_inv.append(inv_sigma2[frame.octave[feats]].astype(np.float32))
+        if cfg.iv.propagate_keyptqual:
+            cols_qual.append(m.pt_quality[pids].astype(np.float32))
+        else:
+            cols_qual.append(frame.qual_score[feats].astype(np.float32))
+        e_feat.extend((int(p), k, int(f)) for p, f in zip(pids, feats))
+    if not cols_kf:
+        return None
+    e_kf = np.concatenate(cols_kf)
+    e_pt = np.concatenate(cols_pt)
+    e_obs = np.concatenate(cols_obs)
+    e_inv = np.concatenate(cols_inv)
+    e_qual = np.concatenate(cols_qual)
+    if len(e_kf) < 10:
+        return None
+
+    n_kf, n_pt, n_e = _lba_rung(len(all_kfs), len(pts), len(e_kf))
+    if len(e_kf) > n_e:
+        # strided subsample keeps per-keyframe proportions roughly
+        # intact (edges are concatenated per keyframe in order)
+        keep = np.linspace(0, len(e_kf) - 1, n_e).astype(np.int64)
+        e_kf, e_pt, e_obs = e_kf[keep], e_pt[keep], e_obs[keep]
+        e_inv, e_qual = e_inv[keep], e_qual[keep]
+        e_feat = [e_feat[i] for i in keep]
+
+    kf_pose = np.zeros((n_kf, 4, 4), np.float32)
+    kf_pose[:, range(4), range(4)] = 1.0
+    kf_pose[: len(all_kfs)] = m.kf_pose[all_kfs]
+    kf_fixed = np.ones(n_kf, bool)
+    for i, k in enumerate(all_kfs):
+        # the origin keyframe stays fixed even when local (Optimizer.cc:545)
+        kf_fixed[i] = (i >= len(local_kfs)) or (k == m.origin_kf)
+
+    pt_pos = np.zeros((n_pt, 3), np.float32)
+    pt_pos[: len(pts)] = m.pt_pos[pts]
+    pt_valid = np.zeros(n_pt, bool)
+    pt_valid[: len(pts)] = True
+
+    E = len(e_kf)
+    prob = BAProblem(
+        kf_pose=kf_pose,
+        kf_fixed=kf_fixed,
+        pt_pos=pt_pos,
+        pt_valid=pt_valid,
+        e_kf=np.pad(np.array(e_kf, np.int32), (0, n_e - E)),
+        e_pt=np.pad(np.array(e_pt, np.int32), (0, n_e - E)),
+        e_obs=np.pad(np.array(e_obs, np.float32), ((0, n_e - E), (0, 0)),
+                     constant_values=-1.0),
+        e_inv_s2=np.pad(np.array(e_inv, np.float32), (0, n_e - E)),
+        e_qual=np.pad(np.array(e_qual, np.float32), (0, n_e - E), constant_values=1.0),
+        e_valid=np.pad(np.ones(E, bool), (0, n_e - E), constant_values=False),
+    )
+    return prob, all_kfs, e_feat, E
+
+
+def _trim_window(m, local_kfs, fixed_kfs, pts):
+    """Shrink an oversized local-BA window to the largest LBA rung:
+    weakest-covisibility local keyframes, then most-redundant fixed
+    keyframes, then least-observed points are dropped first. local_kfs is
+    ordered [kf_id, covisibles by weight desc]; fixed_kfs in
+    first-encountered order."""
+    max_kf, max_pt, _ = LBA_RUNGS[-1]
+    if len(local_kfs) > max_kf - 8:
+        local_kfs = local_kfs[: max_kf - 8]  # keep slots for anchors
+    if len(local_kfs) + len(fixed_kfs) > max_kf:
+        budget = max_kf - len(local_kfs)
+        # rank fixed keyframes by how many window points they anchor
+        in_window = set(pts)
+        scores = []
+        for k in fixed_kfs:
+            frame = m.kf_frames[k]
+            pids = frame.map_pt[frame.map_pt >= 0]
+            scores.append(sum(1 for p in pids if int(p) in in_window))
+        order = np.argsort(scores)[::-1][:budget]
+        fixed_kfs = [fixed_kfs[i] for i in sorted(order)]
+    if len(pts) > max_pt:
+        obs_counts = np.array([m.n_observations(p) for p in pts])
+        keep = np.argsort(obs_counts)[::-1][:max_pt]
+        kept = set(np.asarray(pts)[keep].tolist())
+        pts = [p for p in pts if p in kept]
+    return local_kfs, fixed_kfs, pts
+
+
+def _run_ba(cfg, m, local_kfs, fixed_kfs, pts, device):
+    """Trim the window to the largest rung, assemble, solve on `device`
+    (one upload, one download) and write back, erasing the observations
+    that end as outliers. Returns the rung (n_kf, n_pt, n_e) solved, or
+    None."""
+    local_kfs, fixed_kfs, pts = _trim_window(m, local_kfs, fixed_kfs, pts)
+    packed = _assemble(cfg, m, local_kfs, fixed_kfs, pts)
+    if packed is None:
+        return None
+    prob_np, all_kfs, e_feat, E = packed
+    prob = BAProblem(*(torch.as_tensor(a).to(device) for a in prob_np))
+    K = camera.Intrinsics.from_config(cfg.camera, device)
+    res = ba_solve(prob, K)
+    # one download for everything host-bound
+    flat = torch.cat([res.kf_pose.reshape(-1), res.pt_pos.reshape(-1),
+                      res.e_inlier.to(torch.float32)]).cpu().numpy()
+    n_kf, n_pt = prob_np.kf_pose.shape[0], prob_np.pt_pos.shape[0]
+    new_poses = flat[: n_kf * 16].reshape(n_kf, 4, 4)
+    new_pts = flat[n_kf * 16: n_kf * 16 + n_pt * 3].reshape(n_pt, 3)
+    inlier_all = flat[n_kf * 16 + n_pt * 3:] != 0.0
+
+    kf_fixed = prob_np.kf_fixed
+    for i, k in enumerate(all_kfs[: len(local_kfs)]):
+        if not kf_fixed[i]:
+            m.set_kf_pose(k, new_poses[i])
+    m.pt_pos[pts] = new_pts[: len(pts)]
+    m.mark_dirty(pts)
+
+    for idx in np.nonzero(~inlier_all[:E])[0]:
+        pid, k, feat = e_feat[idx]
+        if m.pt_alive[pid] and m.pt_obs[pid].get(k) == feat:
+            m.kf_frames[k].map_pt[feat] = -1
+            m.erase_observation(pid, k)
+    m.update_normal_and_depth_batch([p for p in pts if m.pt_alive[p]])
+    return n_kf, n_pt, prob_np.e_obs.shape[0]
+
+
+def _local_window(m, kf_id: int):
+    """(local_kfs, fixed_kfs, pts) for Optimizer::LocalBundleAdjustment."""
+    local_kfs = [kf_id] + [k for k, _ in m.covisible_keyframes(kf_id)]
+    local_kfs = [k for k in local_kfs if m.kf_alive[k]]
+    local_set = set(local_kfs)
+
+    pts = set()
+    for k in local_kfs:
+        frame = m.kf_frames[k]
+        for pid in frame.map_pt[frame.map_pt >= 0]:
+            if m.pt_alive[pid]:
+                pts.add(int(pid))
+    pts = sorted(pts)
+    if not pts or len(local_kfs) < 2:
+        return None
+
+    fixed_kfs = []
+    for pid in pts:
+        for k in m.pt_obs[pid]:
+            if k not in local_set and m.kf_alive[k] and k not in fixed_kfs:
+                fixed_kfs.append(k)
+    return local_kfs, fixed_kfs, pts
+
+
+def local_bundle_adjustment(cfg, m, kf_id: int, device):
+    """Covisibility-window BA (Optimizer::LocalBundleAdjustment) on
+    `device`. Returns the rung solved, or None."""
+    win = _local_window(m, kf_id)
+    if win is None:
+        return None
+    local_kfs, fixed_kfs, pts = win
+    return _run_ba(cfg, m, local_kfs, fixed_kfs, pts, device)

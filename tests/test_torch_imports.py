@@ -45,7 +45,12 @@ def test_port_files_exist():
                  "iv_slam_tpu_torch/slam/map_store.py",
                  "iv_slam_tpu_torch/slam/device_map.py",
                  "iv_slam_tpu_torch/slam/fused_track.py",
-                 "iv_slam_tpu_torch/io/trajectory.py", "iv_slam_tpu_torch/numerics.py"):
+                 "iv_slam_tpu_torch/io/trajectory.py", "iv_slam_tpu_torch/numerics.py",
+                 "iv_slam_tpu_torch/ops/triangulate.py",
+                 "iv_slam_tpu_torch/solvers/ba_core.py",
+                 "iv_slam_tpu_torch/solvers/local_ba.py",
+                 "iv_slam_tpu_torch/slam/local_mapping.py",
+                 "iv_slam_tpu_torch/slam/tracking.py", "iv_slam_tpu_torch/slam/system.py"):
         assert must in names, must
 
 

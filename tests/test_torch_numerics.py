@@ -2,9 +2,12 @@
 
 Each function must give the float32 result that a plain statement of its
 rounding gives in numpy: the correctly rounded value for one operation, a
-fixed left-to-right order for small matrix products. Those are the results
-the GPU gives too, so the tracking step makes the same choices on both
-devices (chip_smoke.py compares a step of the card with the CPU path).
+fixed left-to-right order for small matrix products; ``log`` gives
+XLA:CPU's float32 jnp.log bit for bit (run without FMA contraction in
+tests/torch_parity.py), which the reference's predicted pyramid levels
+rest on. Those are the results the GPU gives too, so the tracking step
+makes the same choices on both devices (chip_smoke.py compares a step of
+the card with the CPU path).
 """
 
 import numpy as np
@@ -12,6 +15,7 @@ import pytest
 import torch
 
 from iv_slam_tpu_torch import numerics
+from torch_parity import run_reference
 
 
 def f32(rng, lo, hi, n=1 << 16):
@@ -19,9 +23,16 @@ def f32(rng, lo, hi, n=1 << 16):
 
 
 @pytest.mark.parametrize("name", ["sqrt", "sin", "cos", "log"])
-def test_unary_functions_round_once(rng, name):
+def test_unary_functions_round_once(rng, name, tmp_path):
     x = f32(rng, 1e-3, 1e4)
-    want = getattr(np, name)(x.astype(np.float64)).astype(np.float32)
+    if name == "log":
+        # ratios of scale factors: the reference's predicted-level inputs
+        x = np.concatenate([x, np.float32(1.2) ** np.arange(8, dtype=np.float32),
+                            [1.44], np.exp(rng.uniform(-80, 80, 4096)),
+                            [0.0, np.inf, 1e-40]]).astype(np.float32)
+        want = run_reference("log", tmp_path, x=x)["log"]
+    else:
+        want = getattr(np, name)(x.astype(np.float64)).astype(np.float32)
     got = getattr(numerics, name)(torch.from_numpy(x))
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), want)

@@ -1,0 +1,183 @@
+"""Port: the stereo System (slam/system.py, slam/tracking.py, the inline
+keyframe event) end to end on tests/synth_world.py sequences at 240x320,
+on the CPU path.
+
+* tests/test_slam_e2e.py::test_stereo_slam_end_to_end's sequence and
+  gates: ATE < 0.05 m, RPE < 0.08, no failure;
+* tests/test_fused_tracking.py's test on the port: classic and fused
+  tracking, each within its gate and within 0.05 m of the other;
+* against the JAX package's System (no-FMA subprocess,
+  tests/torch_parity.py) on one sequence with a keyframe forced every
+  third frame (so that local mapping and BA run: tests/test_ba_variants.py's
+  loop), classic and fused: the same keyframes, map points and live
+  points, and every frame's pose within 2e-3 (translation in m, rotation
+  entries; 2.4e-4 and 6.6e-4 seen). The pose LM is held to JAX within
+  1e-5 on one problem (tests/test_torch_pose_opt.py), but its 10
+  iterations leave a direction the edges constrain weakly unsettled (a
+  turn and a shift over a plane 10 m away), so along a trajectory a
+  difference of 7e-7 in a start pose grows to ~1e-4 in the next frame's;
+* the switches and entry points this port does not run yet raise
+  NotImplementedError, and System needs CUDA unless given a device.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import synth_world
+from iv_slam_tpu_torch import config as tconfig
+from iv_slam_tpu_torch.io import trajectory
+from iv_slam_tpu_torch.slam.system import System
+from iv_slam_tpu_torch.slam.tracking import State
+from torch_parity import one_thread, run_reference  # noqa: F401 (fixture)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
+CAM = (400.0, 400.0, 160.0, 120.0, 200.0, 320, 240)
+
+
+def make_config(fused=False, ini_th_fast=12):
+    cfg = tconfig.Config()
+    cfg.camera = tconfig.CameraConfig(fx=400.0, fy=400.0, cx=160.0, cy=120.0, bf=200.0,
+                                      width=320, height=240, th_depth=35.0, fps=10.0)
+    cfg.orb = tconfig.ORBConfig(n_features=800, n_levels=4, ini_th_fast=ini_th_fast,
+                                min_th_fast=7)
+    cfg.system.fused_tracking = fused
+    return cfg
+
+
+def run(cfg, frames, kf_every=0):
+    s = System(cfg, 240, 320, device="cpu")
+    tr = s.tracking
+    for i, (left, right) in enumerate(frames):
+        s.track_stereo(left, right, timestamp=i * 0.1)
+        if kf_every and i % kf_every == kf_every - 1 \
+                and tr.current.frame_id != tr.last_kf_frame_id:
+            tr._create_new_keyframe()
+    return s
+
+
+@pytest.fixture(scope="module")
+def sequence():
+    return synth_world.make_sequence(np.random.default_rng(5), n_frames=16, step=0.08)
+
+
+def test_stereo_slam_end_to_end(sequence, tmp_path):
+    world, frames, gt = sequence
+    s = run(make_config(), frames)
+    assert s.state == State.OK
+    assert s.failure_count == 0
+    est = s.trajectory_twc()
+    assert len(est) == len(gt)
+    ate = trajectory.ate_rmse(est, gt)
+    assert ate < 0.05, ate
+    rpe1 = trajectory.rpe(est, gt, 1)
+    assert rpe1 < 0.08, rpe1
+    # the reference's output files
+    kitti, tum = str(tmp_path / "traj.txt"), str(tmp_path / "traj_tum.txt")
+    s.save_trajectory_kitti(kitti)
+    s.save_trajectory_tum(tum)
+    s.save_keyframe_trajectory_tum(str(tmp_path / "kf.txt"))
+    s.save_failure_log(str(tmp_path / "fail.txt"))
+    assert trajectory.ate_rmse(trajectory.load_kitti(kitti), est) < 1e-6
+    assert len(np.loadtxt(tum)) == len(gt)
+    assert len(np.loadtxt(str(tmp_path / "traj_times.txt"))) == len(gt)
+    assert os.path.getsize(str(tmp_path / "fail.txt")) == 0
+    # the map round-trips through save_map / load_map
+    s.save_map(str(tmp_path / "map.npz"))
+    s2 = System(make_config(), 240, 320, device="cpu")
+    s2.load_map(str(tmp_path / "map.npz"))
+    m, m2 = s.tracking.map, s2.tracking.map
+    assert (m2.n_points, m2.n_keyframes) == (m.n_points, m.n_keyframes)
+    np.testing.assert_array_equal(m2.pt_pos[:m.n_points], m.pt_pos[:m.n_points])
+    assert m2.pt_obs[:m.n_points] == m.pt_obs[:m.n_points]
+    assert s2.tracking.local_mapping.map is m2
+
+
+def test_fused_tracking_matches_classic(rng):
+    world, frames, gt = synth_world.make_sequence(rng, n_frames=12, step=0.08)
+
+    def one(fused):
+        s = System(make_config(fused, ini_th_fast=20), 240, 320, device="cpu")
+        for i, (left, right) in enumerate(frames):
+            s.track_stereo(left, right, timestamp=i * 0.1)
+            if fused:
+                s.tracking.mark_map_dirty()
+        assert s.state == State.OK
+        assert s.failure_count == 0
+        return s.trajectory_twc()
+
+    est_classic, est_fused = one(False), one(True)
+    ate_classic = trajectory.ate_rmse(est_classic, gt)
+    ate_fused = trajectory.ate_rmse(est_fused, gt)
+    assert ate_classic < 0.05, ate_classic
+    assert ate_fused < 0.06, ate_fused
+    cross = trajectory.ate_rmse(est_fused, est_classic)
+    assert cross < 0.05, cross
+
+
+@pytest.fixture(scope="module")
+def jax_systems(sequence, tmp_path_factory):
+    return run_reference("system", tmp_path_factory.mktemp("system"), seed=5, n_frames=16,
+                         kf_every=3, cam=np.array(CAM), n_features=800, n_levels=4)
+
+
+@pytest.mark.parametrize("mode", ["classic", "fused"])
+def test_trajectory_matches_jax_system(sequence, jax_systems, mode):
+    world, frames, gt = sequence
+    s = run(make_config(mode == "fused"), frames, kf_every=3)
+    ref = {k[len(mode) + 1:]: v for k, v in jax_systems.items() if k.startswith(mode)}
+    m = s.tracking.map
+    assert s.failure_count == 0 == int(ref["failures"])
+    assert (m.n_keyframes, m.n_points) == (int(ref["n_keyframes"]), int(ref["n_points"]))
+    assert int(m.pt_alive[:m.n_points].sum()) == int(ref["n_alive"])
+    assert m.n_keyframes >= 5 and len(s.tracking.local_mapping.ba_rungs) >= 3
+    est = np.stack(s.trajectory_twc())
+    np.testing.assert_allclose(est[:, :3, 3], ref["twc"][:, :3, 3], rtol=0, atol=2e-3)
+    np.testing.assert_allclose(est[:, :3, :3], ref["twc"][:, :3, :3], rtol=0, atol=2e-3)
+    assert trajectory.ate_rmse(list(est), gt) < 0.05
+
+
+def test_system_needs_cuda_without_a_device():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        System(make_config(), 240, 320)
+
+
+SWITCHES = {
+    "threaded_local_mapping": lambda c: setattr(c.system, "threaded_local_mapping", True),
+    "async_local_ba": lambda c: setattr(c.system, "async_local_ba", True),
+    "chained_tracking": lambda c: setattr(c.system, "chained_tracking", True),
+    "prewarm": lambda c: setattr(c.system, "prewarm", True),
+    "use_bow": lambda c: setattr(c.system, "use_bow", True),
+    "sensor mono": lambda c: setattr(c.system, "sensor", "mono"),
+    "enable_loop_closing": lambda c: setattr(c.system, "enable_loop_closing", True),
+    "ba_mode vis": lambda c: setattr(c.iv, "ba_mode", "vis"),
+    "ba_mode constrained": lambda c: setattr(c.iv, "ba_mode", "constrained"),
+    "link_rtt_ms": lambda c: setattr(c.system, "link_rtt_ms", 58.0),
+}
+
+
+@pytest.mark.parametrize("name", list(SWITCHES))
+def test_unported_switch_raises(name):
+    cfg = make_config()
+    SWITCHES[name](cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+        System(cfg, 240, 320, device="cpu")
+
+
+@pytest.mark.parametrize("call", ["track_mono", "track_rgbd", "attach_vocabulary",
+                                  "enable_datagen", "cost_map", "gt_depth_map"])
+def test_unported_entry_point_raises(call):
+    s = System(make_config(), 240, 320, device="cpu")
+    img = np.zeros((240, 320), np.uint8)
+    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+        if call == "cost_map":
+            s.track_stereo(img, img, 0.0, cost_map=np.zeros((240, 320), np.float32))
+        elif call == "gt_depth_map":
+            s.track_stereo(img, img, 0.0, gt_depth_map=np.ones((240, 320), np.float32))
+        else:
+            getattr(s, call)(None)

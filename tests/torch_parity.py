@@ -22,6 +22,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 NO_FMA_FLAG = "--xla_cpu_max_isa=AVX"
@@ -44,6 +45,20 @@ def run_reference(task: str, tmp_path, timeout: float = 240.0, **inputs) -> dict
         raise RuntimeError(f"JAX reference '{task}' failed:\n{proc.stderr[-4000:]}")
     with np.load(dst) as z:
         return {k: z[k] for k in z.files}
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """torch on one CPU thread for a test module. The port's CPU path is
+    thousands of small ops a frame; with several test workers on the
+    machine, every op's parallel region waits on threads that have no core
+    (a 2 s test took 329 s in a 6-worker run)."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 # ---- tasks (run in the subprocess) ----------------------------------------
@@ -227,6 +242,183 @@ def _task_fused_slice(left0, right0, left1, right1, cam, n_features, n_levels):
                **{"map_" + f: np.asarray(v) for f, v in zip(
                    ("pos", "desc", "normal", "mind", "maxd", "qual", "valid"),
                    dmap.live_views())})
+    return out
+
+
+
+# ---- keyframe event (ROADMAP A5-A6) ----------------------------------------
+
+def _task_log(x):
+    """jnp.log (jitted) in float32."""
+    import jax
+    import jax.numpy as jnp
+
+    return {"log": np.asarray(jax.jit(jnp.log)(jnp.asarray(x)))}
+
+
+FUSE_KF = ("kf_xy", "kf_oct", "kf_desc", "kf_valid", "kf_ur", "kf_T")
+FUSE_PT = ("pt_pos", "pt_desc", "pt_normal", "pt_mind", "pt_maxd", "pt_mask_nb")
+FUSE_MAP = ("map_pos", "map_desc", "map_normal", "map_mind", "map_maxd", "map_valid")
+FUSE_TAIL = ("sf", "log_scale", "fx", "fy", "cx", "cy", "width", "height", "bf",
+             "radius_th")
+
+
+def _task_fuse(n_cases, **a):
+    """fuse_into_keyframes (dense), _compact and _compact_indexed (jitted) on
+    each case c: its arrays are the inputs named c<c>_<name>, and
+    c<c>_scw the static flag."""
+    import jax.numpy as jnp
+
+    from iv_slam_tpu.ops import match
+
+    out = {}
+    for c in range(int(n_cases)):
+        j = {k[len(f"c{c}_"):]: jnp.asarray(v) for k, v in a.items()
+             if k.startswith(f"c{c}_")}
+        kf = tuple(j[k] for k in FUSE_KF)
+        tail = tuple(j[k] for k in FUSE_TAIL)
+        scw = bool(j["scw"])
+        out[f"c{c}_dense"] = np.asarray(match.fuse_into_keyframes(
+            *kf, *(j[k] for k in FUSE_PT), *tail, scw=scw))
+        out[f"c{c}_compact"] = np.asarray(match.fuse_into_keyframes_compact(
+            *kf, *(j[k] for k in FUSE_PT), *tail, scw=scw))
+        out[f"c{c}_indexed"] = np.asarray(match.fuse_into_keyframes_compact_indexed(
+            *kf, j["kf_ok"], *(j[k] for k in FUSE_MAP), j["pid_idx"], *tail, scw=scw))
+    return out
+
+
+TRI_EVENT_INPUTS = ("xy1", "desc1", "free1", "ur1", "depth1", "oct1", "xy2_nb", "desc2_nb",
+                    "free2_nb", "ur2_nb", "depth2_nb", "oct2_nb", "F12_nb", "epipole2_nb",
+                    "ex_check_nb", "T1w", "T2w_nb", "sf", "fx", "fy", "cx", "cy", "bf")
+TRI_PAIR_INPUTS = ("xy1", "xy2", "ur1", "depth1", "ur2", "depth2", "sigma2_1", "sigma2_2",
+                   "scale1", "scale2", "valid", "T1w", "T2w", "fx", "fy", "cx", "cy", "bf")
+
+
+def _task_triangulate(**a):
+    """triangulate_checked (jitted) on the pair inputs, and
+    triangulate_event_compact (jitted) on each stacked event case."""
+    import jax.numpy as jnp
+
+    from iv_slam_tpu.ops import triangulate as tri
+
+    X, good = tri.triangulate_checked(*(jnp.asarray(a["pair_" + k]) for k in TRI_PAIR_INPUTS))
+    events = [np.asarray(tri.triangulate_event_compact(
+        *(jnp.asarray(a["ev_" + k][i]) for k in TRI_EVENT_INPUTS)))
+        for i in range(len(a["ev_T1w"]))]
+    return {"X": np.asarray(X), "good": np.asarray(good),
+            "events": np.stack(events)}
+
+
+BA_FIELDS = ("kf_pose", "kf_fixed", "pt_pos", "pt_valid", "e_kf", "e_pt", "e_obs",
+             "e_inv_s2", "e_qual", "e_valid")
+
+
+def _task_ba(K, n_iters1, n_iters2, **a):
+    """ba_solve (jitted) on each stacked problem (one shape: one compile)."""
+    import jax.numpy as jnp
+
+    from iv_slam_tpu.geometry import camera
+    from iv_slam_tpu.solvers.ba_core import BAProblem, ba_solve
+
+    Kj = camera.Intrinsics(*(jnp.float32(v) for v in K))
+    outs = []
+    for i in range(len(a["kf_pose"])):
+        prob = BAProblem(*(jnp.asarray(a[f][i]) for f in BA_FIELDS))
+        res = ba_solve(prob, Kj, n_iters1=int(n_iters1), n_iters2=int(n_iters2))
+        outs.append({f: np.asarray(getattr(res, f)) for f in res._fields})
+    return {k: np.stack([o[k] for o in outs]) for k in outs[0]}
+
+
+def dump_map(m, recent_points=None):
+    """A MapStore (the JAX package's or the port's) as flat numpy arrays:
+    point and keyframe tables, the observation dicts in insertion order and
+    the keyframes' frames; recent_points likewise. Copies, never views of
+    the live tables."""
+    n, k = m.n_points, m.n_keyframes
+    out = {f: np.array(getattr(m, f)[:n]) for f in (
+        "pt_pos", "pt_desc", "pt_normal", "pt_min_dist", "pt_max_dist", "pt_alive",
+        "pt_quality", "pt_visible", "pt_found", "pt_first_kf", "pt_ref_kf", "pt_n_obs")}
+    out.update({f: np.array(getattr(m, f)[:k]) for f in (
+        "kf_pose", "kf_alive", "kf_frame_id", "kf_timestamp")})
+    obs = [(p, kf, f) for p in range(n) for kf, f in m.pt_obs[p].items()]
+    out["obs"] = np.array(obs, np.int64).reshape(-1, 3)
+    out["origin_kf"] = np.int64(m.origin_kf)
+    frames = [m.kf_frames[i] for i in range(k)]
+    for f in ("xy", "octave", "angle", "desc", "valid", "u_right", "depth", "qual_score",
+              "map_pt"):
+        out["fr_" + f] = np.stack([np.asarray(getattr(fr, f)) for fr in frames])
+    if recent_points is not None:
+        out["recent"] = np.array(list(recent_points.items()), np.int64).reshape(-1, 2)
+    return out
+
+
+def _task_keyframe_event(seed, n_frames, event, kf_every, cam, n_features, n_levels):
+    """The JAX package's System over a synth_world sequence with a keyframe
+    forced every kf_every frames (tests/test_ba_variants.py's loop); the map
+    just before and just after LocalMapping._process_one of event number
+    `event` (0 = the initialization's)."""
+    import synth_world
+
+    from iv_slam_tpu.slam import local_mapping
+    from iv_slam_tpu.slam.system import System
+
+    cfg = _tracking_config(cam, n_features, n_levels)
+    world, frames, gt = synth_world.make_sequence(np.random.default_rng(int(seed)),
+                                                  n_frames=int(n_frames), step=0.08)
+    orig = local_mapping.LocalMapping._process_one
+    seen, out = [], {}
+
+    def process(self, kf_id, run_ba=True):
+        if len(seen) == int(event):
+            out.update({"before_" + k: v for k, v in
+                        dump_map(self.map, self.recent_points).items()})
+            out.update(kf_id=np.int64(kf_id), run_ba=np.bool_(run_ba))
+        orig(self, kf_id, run_ba)
+        if len(seen) == int(event):
+            out.update({"after_" + k: v for k, v in
+                        dump_map(self.map, self.recent_points).items()})
+        seen.append(kf_id)
+
+    local_mapping.LocalMapping._process_one = process
+    s = System(cfg, cfg.camera.height, cfg.camera.width)
+    tr = s.tracking
+    for i, (left, right) in enumerate(frames):
+        s.track_stereo(left, right, timestamp=i * 0.1)
+        if i % int(kf_every) == int(kf_every) - 1 and tr.current.frame_id != tr.last_kf_frame_id:
+            tr._create_new_keyframe()
+        if "after_obs" in out:
+            break
+    assert "after_obs" in out, f"only {len(seen)} keyframe events"
+    return out
+
+
+def _task_system(seed, n_frames, kf_every, cam, n_features, n_levels):
+    """The JAX package's System over a synth_world sequence, a keyframe
+    forced every kf_every frames (0: none), classic then fused tracking:
+    each run's trajectory and map size, prefixed classic_ / fused_."""
+    import synth_world
+
+    from iv_slam_tpu.slam.system import System
+
+    world, frames, gt = synth_world.make_sequence(np.random.default_rng(int(seed)),
+                                                  n_frames=int(n_frames), step=0.08)
+    out = {}
+    for name in ("classic", "fused"):
+        cfg = _tracking_config(cam, n_features, n_levels)
+        cfg.system.fused_tracking = name == "fused"
+        s = System(cfg, cfg.camera.height, cfg.camera.width)
+        tr = s.tracking
+        k = int(kf_every)
+        for i, (left, right) in enumerate(frames):
+            s.track_stereo(left, right, timestamp=i * 0.1)
+            if k and i % k == k - 1 and tr.current.frame_id != tr.last_kf_frame_id:
+                tr._create_new_keyframe()
+        m = tr.map
+        out.update({f"{name}_twc": np.stack(s.trajectory_twc()),
+                    f"{name}_failures": np.int64(s.failure_count),
+                    f"{name}_n_keyframes": np.int64(m.n_keyframes),
+                    f"{name}_n_points": np.int64(m.n_points),
+                    f"{name}_n_alive": np.int64(m.pt_alive[:m.n_points].sum())})
     return out
 
 
