@@ -41,12 +41,27 @@ It drives the port only (no JAX, nothing of ``iv_slam_tpu``):
      the ATE and per-stage host medians; then one recorded triangulation,
      fuse and local-BA call of the run again on the CPU path (compared) and
      the BA again on the card (bit-equal);
-  6. from torch.profiler, after every phase that times the host: each
+  6. introspection, at full width: the FCN (MobileNetV2-dilated +
+     C1-DeepSup, net input 512x512) with seeded weights from an explicit
+     torch.Generator, its head centred on the loop's first image so that
+     the uint8 cost map spans the range; (a) the cost map of the 376x1241
+     left image: its quantiles (fails if one value covers more than 90% of
+     the pixels), the card against the CPU path (prediction max error,
+     uint8 map within 1), two card runs bit-equal; (b) the frontend with
+     that cost map: every Frame field of the card equal to the CPU path's,
+     the attached FCN equal to the explicit cost map, K1-K3 once a frame on
+     the quality path, no host sync inside a frame; (c) bench.py's
+     120-frame loop through System with the FCN attached (fails on a lost
+     frame, an ATE above 0.5 m or a cap overflow), beside phase 5's ATE;
+  7. from torch.profiler, after every phase that times the host: each
      kernel's device time, the tracking step's device time and kernel
-     launches, a profile of whole frames, and one keyframe event (device
-     ms, launches, host syncs);
-  7. prints one {"tracking": {...}} line, one {"full_loop": {...}} line, one
-     {"kernels": [...]} line and, last, the status line.
+     launches, a profile of whole frames, one keyframe event (device ms,
+     launches, host syncs), and the FCN's and a weighted frame's device
+     time and launches;
+  8. prints one {"tracking": {...}} line, one {"full_loop": {...}} line, one
+     {"introspection": {...}} line, one {"kernels": [...]} line (with each
+     kernel's launches on the introspection loop too) and, last, the
+     status line.
 
 A phase that fails is reported and the script exits 1 without a result.
 With no CUDA device, or run outside a checkout, it exits 2 at once.
@@ -84,6 +99,13 @@ STEP_PROFILE_ITERS = 2
 N_LOOP, RAMP = 120, 15
 RECORD_CALL = 5         # the 5th call of each keyframe-event function is recorded
 TRI_MAX_ULP = 4         # card vs CPU limit on a triangulated coordinate
+
+# introspection: the FCN's input size (the reference's net_hw,
+# iv_slam_tpu/slam/frame.py:282), its weights' seed, frames counted on the
+# quality path of (b)
+NET_HW = (512, 512)
+FCN_SEED = 6
+N_INTRO_FRAMES = 10
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, and the float32
 # rate outside the tensor cores, used for these kernels' 32-bit scalar ops
@@ -208,6 +230,28 @@ def loop_path(n):
     return out
 
 
+def seeded_fcn(torch, models, seed):
+    """An IntrospectionNet with weights drawn from torch.Generator(seed):
+    convolutions He-normal, BatchNorm affine terms and running statistics
+    near the identity."""
+    g = torch.Generator().manual_seed(seed)
+    net = models.IntrospectionNet()
+    rnd = lambda t: torch.randn(t.shape, generator=g)  # noqa: E731
+    with torch.no_grad():
+        for mod in net.modules():
+            if isinstance(mod, torch.nn.Conv2d):
+                fan_in = mod.weight[0].numel()
+                mod.weight.copy_(rnd(mod.weight) * (2.0 / fan_in) ** 0.5)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, torch.nn.BatchNorm2d):
+                mod.weight.copy_(1.0 + 0.1 * rnd(mod.weight))
+                mod.bias.copy_(0.1 * rnd(mod.bias))
+                mod.running_mean.copy_(0.1 * rnd(mod.running_mean))
+                mod.running_var.copy_(0.5 + torch.rand(mod.running_var.shape, generator=g))
+    return net
+
+
 class StageTimer:
     """Host milliseconds of each named stage (the stage_timer of Tracking and
     LocalMapping)."""
@@ -254,6 +298,7 @@ class Smoke:
         self.kernels = {}
         self.fps = {}
         self.trk = None
+        self.intro = None
 
     def phase(self, name, fn, *args):
         t0 = time.perf_counter()
@@ -940,7 +985,7 @@ class Smoke:
             fused_steps=len(fused), ba_rungs=[list(r) if r else None for r in lm.ba_rungs],
             cap_overflows=dict(lm.overflows), recorded=sorted(rec))
         t.loop = out
-        t.loop_sys, t.loop_rec, t.loop_gt = s, rec, gt
+        t.loop_sys, t.loop_rec, t.loop_gt, t.loop_pairs = s, rec, gt, pairs
         print(f"full loop: {N_LOOP} frames over {path_m:.1f} m through System on the card: "
               f"{out['keyframes']} keyframes ({out['keyframes_alive']} alive), "
               f"{out['map_points']} map points ({out['map_points_alive']} alive), "
@@ -1069,6 +1114,227 @@ class Smoke:
                                                 host_syncs=len(syncs), ba_device_ms=ba_ms,
                                                 ba_kernel_launches=ba_launches)
 
+    # ---- phase 6: introspection ---------------------------------------------
+    def intro_setup(self):
+        """Seeded FCN weights on the card, the head (conv_last) scaled and
+        shifted so that the raw prediction on the loop's first left image
+        has median 0.5 and a 10-90% spread of 0.3: sigmoid(20 (x - 0.5))
+        then spans the uint8 range (a random head sends it to one end)."""
+        torch, models, t = self.torch, self.port["models"], self.trk
+        net = seeded_fcn(torch, models, FCN_SEED).cuda()
+        left, right = t.loop_pairs[0]
+        rgb = torch.from_numpy(np.ascontiguousarray(np.stack([left] * 3, axis=-1))).cuda()
+        pred = models.predict(net, rgb[None], NET_HW).double().cpu().flatten()
+        q10, q50, q90 = (float(v) for v in torch.quantile(
+            pred, torch.tensor([0.1, 0.5, 0.9], dtype=torch.float64)))
+        a = 0.3 / max(q90 - q10, 1e-6)
+        head = net.decoder.conv_last
+        with torch.no_grad():
+            head.weight.mul_(a)
+            head.bias.copy_(0.5 + (head.bias - q50) * a)
+        self.intro = SimpleNamespace(net=net, left=left, right=right, rgb=rgb, out={})
+        print(f"introspection: FCN of {sum(p.numel() for p in net.parameters())} parameters, "
+              f"seed {FCN_SEED}, net input {NET_HW}; raw prediction quantiles 10/50/90 "
+              f"{q10:.4g}/{q50:.4g}/{q90:.4g} before the head was centred (x{a:.4g})")
+
+    def intro_fcn(self):
+        """(a) the cost map of the 376x1241 left image: non-degenerate, the
+        card against the CPU path, and repeatable on the card."""
+        torch, models, it = self.torch, self.port["models"], self.intro
+        cost = models.inference_cost_map(it.net, it.rgb, (H, W), NET_HW)
+        pred = models.predict(it.net, it.rgb[None], NET_HW)
+        cost2 = models.inference_cost_map(it.net, it.rgb, (H, W), NET_HW)
+        pred2 = models.predict(it.net, it.rgb[None], NET_HW)
+        net_cpu = copy.deepcopy(it.net).cpu()
+        t0 = time.perf_counter()
+        cost_cpu = models.inference_cost_map(net_cpu, it.rgb.cpu(), (H, W), NET_HW)
+        cpu_s = time.perf_counter() - t0
+        pred_cpu = models.predict(net_cpu, it.rgb.cpu()[None], NET_HW)
+        c = cost.cpu().numpy()
+        qs = np.percentile(c, [0, 10, 25, 50, 75, 90, 100]).tolist()
+        top = float(np.bincount(c.ravel(), minlength=256).max() / c.size)
+        d = np.abs(c.astype(int) - cost_cpu.numpy().astype(int))
+        perr = float((pred.cpu() - pred_cpu).abs().max())
+        repeat = bool(torch.equal(cost, cost2) and torch.equal(pred, pred2))
+        print(f"introspection (a): cost map {tuple(c.shape)} quantiles 0/10/25/50/75/90/100 "
+              f"{qs}, most common value on {top:.2%} of the pixels; card vs CPU path "
+              f"(CPU {cpu_s:.1f} s): prediction max abs err {perr:.3g}, cost map max |d| "
+              f"{int(d.max())} on {float((d > 0).mean()):.3%} of the pixels; two card runs "
+              f"bit-equal {repeat}")
+        it.cost = cost
+        it.out.update(cost_quantiles=qs, cost_top_value_share=top, pred_max_abs_err=perr,
+                      cost_max_abs_diff=int(d.max()), cost_diff_share=float((d > 0).mean()),
+                      card_repeatable=repeat)
+        require(top <= 0.9, f"degenerate cost map: one value on {top:.2%} of the pixels")
+        require(int(d.max()) <= 1, f"card and CPU cost maps differ by {int(d.max())}")
+        require(repeat, "the card's cost map is not repeatable")
+
+    def intro_frontend(self):
+        """(b) the frontend with the cost map, card against the CPU path,
+        the attached FCN against the explicit cost map, K1-K3 counted on the
+        quality path, host syncs inside a frame."""
+        import warnings
+
+        torch, port, it, t = self.torch, self.port, self.intro, self.trk
+        StereoFrontend = port["frame"].StereoFrontend
+        cfg = t.cfg
+
+        def fields(fr, h):
+            out = {f: getattr(fr.kp, f).cpu().numpy() for f in fr.kp._fields}
+            out.update(u_right=fr.u_right, depth=fr.depth, qual_score=fr.qual_score,
+                       xy_host=fr.xy, valid_host=fr.valid, host_pack=h.host_pack.cpu().numpy())
+            return out
+
+        def run(fe, cost):
+            h = fe.submit(it.left, it.right, cost)
+            return fields(fe.collect(h, 0.0), h)
+
+        card = run(StereoFrontend(cfg, H, W), it.cost)
+        t0 = time.perf_counter()
+        cpu = run(StereoFrontend(cfg, H, W, device="cpu"), it.cost.cpu())
+        cpu_s = time.perf_counter() - t0
+        fe = StereoFrontend(cfg, H, W)
+        fe.attach_introspection(it.net, NET_HW)
+        att = run(fe, None)
+        bad = {f: int(np.sum(card[f] != cpu[f])) for f in cpu
+               if not np.array_equal(card[f], cpu[f])}
+        bad_att = [f for f in card if not np.array_equal(card[f], att[f])]
+        valid = card["valid_host"]
+        q = card["qual_score"][valid]
+        print(f"introspection (b): frontend {H}x{W} with the cost map, card vs CPU path (CPU "
+              f"{cpu_s:.1f} s): {int(valid.sum())} keypoints, quality {q.min():.4f}-"
+              f"{q.max():.4f} (mean {q.mean():.4f}), {int((card['u_right'] >= 0).sum())} "
+              f"stereo matches; mismatching elements: {bad or 'none'}; attached FCN vs "
+              f"explicit cost map: mismatching fields {bad_att or 'none'}")
+        require(not bad, f"card and CPU path differ: {bad}")
+        require(not bad_att, f"attached FCN differs from the explicit cost map: {bad_att}")
+        require(valid.sum() >= 0.9 * fe.extractor.capacity, "slots not filled")
+
+        mods = self.counters()
+        for m in mods.values():
+            m.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(N_INTRO_FRAMES):
+            fe.collect(fe.submit(it.left, it.right), float(i))
+        torch.cuda.synchronize()
+        fps_fcn = N_INTRO_FRAMES / (time.perf_counter() - t0)
+        launches = {k: m.launches for k, m in mods.items()}
+        want = {k: N_INTRO_FRAMES for k in launches}
+        # the same frames without introspection, in the same process
+        plain = StereoFrontend(cfg, H, W)
+        plain.collect(plain.submit(it.left, it.right), 0.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(N_INTRO_FRAMES):
+            plain.collect(plain.submit(it.left, it.right), float(i))
+        torch.cuda.synchronize()
+        fps_plain = N_INTRO_FRAMES / (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                h = fe.submit(it.left, it.right)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = [f"{w.filename}:{w.lineno}" for w in caught
+                 if "called a synchronizing CUDA operation" in str(w.message)]
+        fe.collect(h, 0.0)
+        print(f"introspection (b): K1-K3 launches over {N_INTRO_FRAMES} weighted frames "
+              f"{launches}; {len(syncs)} host syncs inside a frame (submit with the FCN); "
+              f"submit+collect {fps_fcn:.2f} frames/s with the FCN attached, {fps_plain:.2f} "
+              f"without introspection")
+        it.fe = fe
+        it.out.update(frontend_card_vs_cpu_equal=not bad, attached_equal_explicit=not bad_att,
+                      quality_path_launches=launches, host_syncs_in_frame=len(syncs),
+                      keypoint_quality_mean=float(q.mean()), frontend_fps_fcn=fps_fcn,
+                      frontend_fps_plain=fps_plain)
+        require(launches == want, f"launch counts {launches} != {want}")
+        require(not syncs, f"host syncs inside a frame, at: {sorted(set(syncs))}")
+
+    def intro_loop(self):
+        """(c) bench.py's 120-frame loop through System with the FCN
+        attached: every frame's cost map from the FCN on the card."""
+        torch, port, it, t = self.torch, self.port, self.intro, self.trk
+        cfg = copy.deepcopy(t.cfg)
+        cfg.system.fused_tracking = True
+        s = port["system"].System(cfg, H, W)
+        s.tracking.frontend.attach_introspection(it.net, NET_HW)
+        timer = StageTimer()
+        s.tracking.stage_timer = s.tracking.local_mapping.stage_timer = timer
+        pairs, gt = t.loop_pairs, t.loop_gt
+        submit_ms = []
+        for m in self.counters().values():
+            m.launches = 0
+        quals = []
+        handle = s.submit_frontend(*pairs[0])
+        torch.cuda.synchronize()
+        for i in range(N_LOOP):
+            cur = handle
+            if i + 1 < N_LOOP:
+                t0 = time.perf_counter()
+                handle = s.submit_frontend(*pairs[i + 1])
+                submit_ms.append((time.perf_counter() - t0) * 1e3)
+            s.track_stereo(*pairs[i], timestamp=0.1 * i, frontend_handle=cur)
+            if i == RAMP - 1:
+                torch.cuda.synchronize()
+                t_start = time.perf_counter()
+            fr = s.tracking.current
+            if fr.xy is not None:
+                quals.append(float(fr.qual_score[fr.valid].mean()))
+        torch.cuda.synchronize()
+        fps = (N_LOOP - RAMP) / (time.perf_counter() - t_start)
+        launches = {k: m.launches for k, m in self.counters().items()}
+        ate = port["trajectory"].ate_rmse(s.trajectory_twc(), gt)
+        lm, m = s.tracking.local_mapping, s.tracking.map
+        plain_ate = t.loop["full_loop_ate_m"]
+        fused = [a + b for a, b in zip(timer.ms.get("fused_dispatch", []),
+                                       timer.ms.get("fused_readback", []))]
+        host = dict(submit=float(np.median(submit_ms)),
+                    fused_step=float(np.median(fused)) if fused else None,
+                    keyframe_event=timer.median("keyframe_event"))
+        out = dict(frames=N_LOOP, failures=int(s.failure_count), state=s.state.name,
+                   host_ms_median=host, keyframe_events=len(timer.ms.get("keyframe_event", [])),
+                   fps=fps, ate_m=ate, ate_m_without_introspection=plain_ate,
+                   keyframes=int(m.n_keyframes), map_points=int(m.n_points),
+                   map_points_alive=int(m.pt_alive[:m.n_points].sum()),
+                   keypoint_quality_mean=float(np.mean(quals)) if quals else None,
+                   frontend_launches=launches, cap_overflows=dict(lm.overflows))
+        it.out["loop"] = out
+        for k, v in launches.items():
+            self.kernels[k]["launches_introspection"] = v
+        print(f"introspection (c): {N_LOOP} frames through System with the FCN attached: "
+              f"{out['failures']} failures, state {out['state']}, {out['keyframes']} "
+              f"keyframes, {out['map_points']} map points ({out['map_points_alive']} alive); "
+              f"ATE {ate:.4f} m (without introspection, phase 5: {plain_ate:.4f} m); "
+              f"{fps:.3f} frames/s over frames 15-120; mean keypoint quality "
+              f"{out['keypoint_quality_mean']}; K1-K3 launches {launches}; host ms "
+              f"(median) {json.dumps(host)} (without introspection, phase 5: "
+              f"{json.dumps({k: t.loop['host_ms_median'][k] for k in host})})")
+        want = {k: N_LOOP for k in launches}
+        require(launches == want, f"launch counts {launches} != {want}")
+        require(s.failure_count == 0 and s.state.name == "OK",
+                f"{s.failure_count} failures, state {s.state.name}")
+        require(ate < 0.5, f"ATE {ate} m")
+        require(not any(lm.overflows.values()), f"cap overflow: {lm.overflows}")
+
+    def intro_profile(self):
+        """The FCN's and one weighted frame's device ms and launches."""
+        torch, models, it = self.torch, self.port["models"], self.intro
+        fcn_ms, fcn_n = device_ms(
+            torch, lambda: models.inference_cost_map(it.net, it.rgb, (H, W), NET_HW), iters=10)
+        frame_ms, frame_n = device_ms(
+            torch, lambda: it.fe.collect(it.fe.submit(it.left, it.right), 0.0), iters=5)
+        loop = it.out["loop"]
+        share = fcn_ms / (1e3 / loop["fps"])
+        print(f"introspection: FCN {fcn_ms:.3f} ms device, {fcn_n:.0f} kernel launches a "
+              f"frame; a weighted frontend frame {frame_ms:.3f} ms device, {frame_n:.0f} "
+              f"launches; the FCN's device time is {share:.2%} of the loop's "
+              f"{1e3 / loop['fps']:.1f} ms frame")
+        it.out.update(fcn_device_ms=fcn_ms, fcn_launches=fcn_n, frame_device_ms=frame_ms,
+                      frame_launches=frame_n, fcn_share_of_loop_frame=share)
+
 
 def main() -> int:
     try:
@@ -1084,7 +1350,7 @@ def main() -> int:
               "(iv_slam_tpu_torch/ not found beside it)", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from iv_slam_tpu_torch import _kernels, config
+    from iv_slam_tpu_torch import _kernels, config, models
     from iv_slam_tpu_torch.io import trajectory
     from iv_slam_tpu_torch.ops import (brief, fast, fast_cuda, finish_cuda, orient,
                                        stereo_cuda)
@@ -1097,7 +1363,8 @@ def main() -> int:
     port = {"kernels": _kernels, "config": config, "frame": frame, "ops": ops,
             "fused": fused_track, "map_store": map_store, "device_map": device_map,
             "trajectory": trajectory, "system": system, "match": match,
-            "triangulate": triangulate, "local_ba": local_ba, "ba_core": ba_core}
+            "triangulate": triangulate, "local_ba": local_ba, "ba_core": ba_core,
+            "models": models}
 
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -1146,6 +1413,17 @@ def main() -> int:
         else:
             smoke.phase(name, fn)
     loop_ok = len(smoke.failures) == n_fail
+    # introspection, also before any profiling
+    n_fail = len(smoke.failures)
+    for name, fn in (("introspection setup", smoke.intro_setup),
+                     ("introspection (a) FCN", smoke.intro_fcn),
+                     ("introspection (b) weighted frontend", smoke.intro_frontend),
+                     ("introspection (c) loop with the FCN", smoke.intro_loop)):
+        if not loop_ok or len(smoke.failures) > n_fail:
+            smoke.failures.append(f"{name}: skipped, an earlier phase failed")
+        else:
+            smoke.phase(name, fn)
+    intro_ok = loop_ok and len(smoke.failures) == n_fail
     if len(smoke.kernels) == 3:
         smoke.phase("kernel device times", smoke.device_times)
     if smoke.trk is not None and smoke.trk.record is not None:
@@ -1155,6 +1433,8 @@ def main() -> int:
     smoke.phase("profile", smoke.profile, fe, left, right)
     if loop_ok:
         smoke.phase("keyframe event profile", smoke.keyframe_event_profile)
+    if intro_ok:
+        smoke.phase("introspection profile", smoke.intro_profile)
 
     if smoke.failures:
         print("\n".join(["FAILED"] + smoke.failures))
@@ -1163,15 +1443,18 @@ def main() -> int:
         print(f"{k['name']}: max abs err {k['max_abs_err']}, {k['launches']} launches, "
               f"device {k['ms']:.4f} ms/frame (events {k['event_ms']:.4f}), plain "
               f"{k['plain_ms']:.4f} ms/frame (events {k['plain_event_ms']:.4f}), bound "
-              f"{k['bound_ms']:.4f} ms ({k['bound_by']}), on {card}")
+              f"{k['bound_ms']:.4f} ms ({k['bound_by']}), {k['launches_introspection']} "
+              f"launches on the introspection loop, on {card}")
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-             "plain_ms", "bound_ms", "bound_by", "library_ms", "event_ms", "plain_event_ms")
+             "plain_ms", "bound_ms", "bound_by", "library_ms", "event_ms", "plain_event_ms",
+             "launches_introspection")
     kernels = [{k: smoke.kernels[n][k] for k in order}
                for n in ("fast_score", "orient_brief", "sad_windows")]
     print(json.dumps({"frontend": smoke.fps,
                       "card": card}))
     print(json.dumps({"tracking": dict(smoke.trk.out, card=card)}))
     print(json.dumps({"full_loop": dict(smoke.trk.loop, card=card)}))
+    print(json.dumps({"introspection": dict(smoke.intro.out, card=card)}))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

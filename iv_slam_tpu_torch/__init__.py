@@ -18,6 +18,8 @@ Layout (mirrors the JAX package):
   solvers/       pose LM, bundle adjustment (Schur LM + local BA window)
   slam/          Frame + StereoFrontend, MapStore, DeviceMap, the fused
                  tracking step, LocalMapping, Tracking, System
+  models/        the introspection FCN (MobileNetV2-dilated + C1-DeepSup)
+                 for cost-map inference, and its weight loaders
   io/            trajectory writers and metrics
 
 Device rule: functions follow the device of the tensors they are given. A

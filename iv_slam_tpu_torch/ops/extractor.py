@@ -1,23 +1,29 @@
-"""ORB feature extraction pipeline (ComputeKeyPointsOld), histogram path.
+"""ORB feature extraction pipeline (ComputeKeyPointsOld).
 
-Port of ``iv_slam_tpu/ops/extractor.py`` for its default selection path
-(``ORBConfig.select_path == "hist"``, no quality map). Reproduces the
-reference's active extraction path (ORBextractor.cc:880-1296):
+Port of ``iv_slam_tpu/ops/extractor.py``. Reproduces the reference's
+active extraction path (ORBextractor.cc:880-1296):
 
   pyramid -> FAST on all levels (kernel 1, ops/fast_cuda.py) -> cell-local NMS
-  and the iniTh/minTh per-cell choice -> one budget-redistribution pass ->
-  per-cell and per-level retain-best by integer-threshold search -> IC
-  orientation + 7x7/sigma2 Gaussian blur + rBRIEF over the flattened
-  pyramid canvas (kernel 2, ops/finish_cuda.py) -> level-0 coordinates.
+  and the iniTh/minTh per-cell choice -> per-cell budgets, weighted by the
+  introspection cost map when one is given -> one budget-redistribution
+  pass -> per-cell and per-level retain-best -> IC orientation + 7x7/sigma2
+  Gaussian blur + rBRIEF over the flattened pyramid canvas (kernel 2,
+  ops/finish_cuda.py) -> level-0 coordinates.
+
+Two selection paths give the same keypoints on unweighted responses: the
+histogram path (``select_path="hist"``, integer-threshold searches) and the
+top-k path (``select_path="topk"``, stable descending sorts that keep the
+lower index first on ties, as ``lax.top_k`` does). A quality map (uint8
+cost, 255 = worst) scales each response by its pixel's quality, so scores
+are no longer integers, and it always takes the top-k path.
 
 Everything is static-shaped: each level emits exactly
 ``features_per_level[l]`` slots with a validity mask, and no step reads a
 device value on the host, so a frame's work is queued without a sync.
 The left/right pair is an explicit batch dimension B.
 
-Not ported in this slice (they raise NotImplementedError): the top_k and
-quality-weighted selection (``_select_level_keypoints``,
-``select_path="topk"``, a non-None ``qlevels``) and ``extract_octtree``.
+Not ported yet (raises NotImplementedError): ``extract_octtree`` (ROADMAP
+A14).
 """
 
 from __future__ import annotations
@@ -30,14 +36,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import numerics
 from ..config import ORBConfig
 from . import fast_cuda, finish_cuda, image, pyramid
 from .stereo import flatten_pyramid
 
 EDGE_THRESHOLD = 19
-
-_TOPK_TODO = ("top_k / quality-weighted keypoint selection is not ported yet "
-              "(ROADMAP A11); use select_path='hist' without a quality map")
 
 
 class Keypoints(NamedTuple):
@@ -83,6 +87,10 @@ class LevelLayout:
         return self.h - EDGE_THRESHOLD
 
     @property
+    def top_k(self) -> int:
+        return min(self.cell_w * self.cell_h, max(self.n_desired, 1))
+
+    @property
     def active(self) -> bool:
         return (
             self.n_desired > 0
@@ -110,6 +118,56 @@ def make_layouts(cfg: ORBConfig, height: int, width: int) -> List[LevelLayout]:
             LevelLayout(h, w, nd, level_cols, level_rows, cell_w, cell_h)
         )
     return layouts
+
+
+def _cell_windows(lay: LevelLayout):
+    """Static FAST cell windows (iniY, iniX, hY, hX) per cell, row-major
+    (ORBextractor.cc:986-1020): origin minBorder-3, size cell+6, last
+    row/col clipped to maxBorder+3."""
+    iniY = EDGE_THRESHOLD + np.arange(lay.level_rows) * lay.cell_h - 3
+    iniX = EDGE_THRESHOLD + np.arange(lay.level_cols) * lay.cell_w - 3
+    hY = np.full(lay.level_rows, lay.cell_h + 6)
+    hX = np.full(lay.level_cols, lay.cell_w + 6)
+    hY[-1] = lay.max_border_y + 3 - iniY[-1]
+    hX[-1] = lay.max_border_x + 3 - iniX[-1]
+    yy, xx = np.meshgrid(np.arange(lay.level_rows), np.arange(lay.level_cols),
+                         indexing="ij")
+    return (iniY[yy.ravel()], iniX[xx.ravel()], hY[yy.ravel()], hX[xx.ravel()])
+
+
+def _cell_window_table(lay: LevelLayout) -> np.ndarray:
+    """(5, n_cells) int64: the corners y0, x0, y1, x1 of each cell window in
+    the padded summed-area table, and the window's area."""
+    iy, ix, hy, hx = _cell_windows(lay)
+    return np.stack([iy, ix, iy + hy, ix + hx, hy * hx]).astype(np.int64)
+
+
+def _cell_quality_weights(qual: torch.Tensor, win: torch.Tensor) -> torch.Tensor:
+    """Mean cost per FAST window -> normalized quality in [0, 1]
+    (ORBextractor.cc:946-985): qual = 2/(1 + mean_cost/255) - 1.
+
+    qual: (B, h, w) uint8 cost; win: ``_cell_window_table`` on qual's
+    device. Returns (B, n_cells) float32. The summed-area table, its
+    corner sums and the mean round as jitted XLA:CPU rounds them
+    (numerics.py): the level-0 table passes 2^24, where a scan in another
+    order gives other values."""
+    q = qual.to(torch.float32)
+    sat = F.pad(numerics.xla_cumsum(numerics.xla_cumsum(q, 1), 2), (1, 0, 1, 0))
+    y0, x0, y1, x1, area = win
+    sums = sat[:, y1, x1] - sat[:, y0, x1] - sat[:, y1, x0] + sat[:, y0, x0]
+    inv_area = 1.0 / area.to(torch.float32)    # XLA's division by a constant
+    return numerics.quality(sums * inv_area, 255.0)
+
+
+def _cell_quality_budgets(qual: torch.Tensor, win: torch.Tensor,
+                          n_desired: int) -> torch.Tensor:
+    """Per-cell budgets max(1, ceil(n_desired * w / sum(w))) of the cells'
+    quality weights w (ORBextractor.cc:1058-1080): (B, n_cells) int32. The
+    sum is taken in XLA's order: one ulp of it moves a budget whose
+    quotient lies on an integer."""
+    w = _cell_quality_weights(qual, win)
+    b = torch.ceil(float(n_desired) * w / numerics.xla_sum(w)[:, None])
+    return torch.clamp(b, min=1.0).to(torch.int32)
 
 
 def _redistribute(n_total: torch.Tensor, budgets: torch.Tensor,
@@ -298,6 +356,61 @@ def _select_from_tiles_hist(t: torch.Tensor, n_retain: torch.Tensor,
     return y, x, resp, valid
 
 
+def _top(x: torch.Tensor, k: int):
+    """The k largest entries along the last axis, in descending order, the
+    lower index first among equal values (``lax.top_k``'s order): a stable
+    descending sort, never ``torch.topk``, whose ties are unordered."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _tile_values(v: torch.Tensor, lay: LevelLayout) -> torch.Tensor:
+    """(B, h, w) per-pixel values -> (B, n_cells, cellH * cellW) in the
+    cells' row-major order; pixels outside the level are zero."""
+    B = v.shape[0]
+    rows, cols, ch, cw = lay.level_rows, lay.level_cols, lay.cell_h, lay.cell_w
+    can_h, can_w = rows * ch, cols * cw
+    v = F.pad(v, (0, max(0, EDGE_THRESHOLD + can_w - lay.w),
+                  0, max(0, EDGE_THRESHOLD + can_h - lay.h)))
+    v = v[:, EDGE_THRESHOLD:EDGE_THRESHOLD + can_h, EDGE_THRESHOLD:EDGE_THRESHOLD + can_w]
+    return v.reshape(B, rows, ch, cols, cw).permute(0, 1, 3, 2, 4).reshape(
+        B, lay.n_cells, ch * cw)
+
+
+def _select_from_tiles_topk(t: torch.Tensor, n_retain: torch.Tensor,
+                            qnorm, lay: LevelLayout):
+    """Top-k selection for B images of one level (the reference's
+    ``_select_level_keypoints`` after its tile phase): per-cell retain-best
+    of the n_retain best responses, then per-level retain-best to
+    n_desired, each by ``_top``.
+
+    t: (B, rows, cellH, cols, cellW) int32 NMS'd scores (0 = not detected);
+    n_retain: (B, n_cells) per-cell budgets after redistribution; qnorm:
+    (B, h, w) float32 per-pixel quality that scales the responses, or None.
+    Returns (y, x, resp, valid), each (B, n_desired)."""
+    B = t.shape[0]
+    cols, ch, cw = lay.level_cols, lay.cell_h, lay.cell_w
+    tiles = t.permute(0, 1, 3, 2, 4).reshape(B, lay.n_cells, ch * cw)
+    resp = tiles.to(torch.float32)
+    if qnorm is not None:
+        resp = resp * _tile_values(qnorm, lay)
+    flat = torch.where(tiles > 0, resp, float("-inf"))
+    k = lay.top_k
+    vals, idxs = _top(flat, k)
+    ar = torch.arange(k, device=t.device)
+    keep = (ar < torch.clamp(n_retain, max=k)[..., None]) & torch.isfinite(vals)
+    gvals = torch.where(keep, vals, float("-inf")).reshape(B, -1)
+    top_vals, top_slots = _top(gvals, lay.n_desired)
+    valid = torch.isfinite(top_vals)
+    cell = top_slots // k
+    within = idxs.reshape(B, -1).gather(1, top_slots)
+    y = EDGE_THRESHOLD + (cell // cols) * ch + within // cw
+    x = EDGE_THRESHOLD + (cell % cols) * cw + within % cw
+    y = torch.where(valid, y, EDGE_THRESHOLD).to(torch.int32)
+    x = torch.where(valid, x, EDGE_THRESHOLD).to(torch.int32)
+    return y, x, top_vals, valid
+
+
 class OrbExtractor:
     """Extraction pipeline for a fixed image geometry + ORB config.
 
@@ -317,10 +430,13 @@ class OrbExtractor:
         self._consts: Dict[Tuple[torch.device, str], torch.Tensor] = {}
 
     def __call__(self, img: torch.Tensor, quality=None) -> Keypoints:
-        if quality is not None:
-            raise NotImplementedError(_TOPK_TODO)
+        """Keypoints of one (H, W) uint8 image; `quality` (an (H, W) uint8
+        cost map, 255 = worst) weights the extraction as
+        ORBextractor::operator() does given a mask (ORBextractor.cc:1224-1248)."""
         levels = pyramid.build_pyramid(img, self.shapes)
-        return self.extract_from_pyramid(levels)
+        qlevels = (pyramid.build_pyramid(quality, self.shapes)
+                   if quality is not None else None)
+        return self.extract_from_pyramid(levels, qlevels)
 
     def extract_octtree(self, img) -> Keypoints:
         raise NotImplementedError(
@@ -335,14 +451,18 @@ class OrbExtractor:
             t = self._consts[(dev, name)] = torch.as_tensor(make(), device=dev)
         return t
 
-    def select(self, levels: List[torch.Tensor]):
-        """Histogram keypoint selection for B images: kernel 1's FAST scores
-        of every active level (one launch) -> phase A per level; one batched
-        redistribution for all (level, image) rows; phase B per level.
-        Returns a list of (level, yx (B, n_l, 2) int32, resp, valid, xy0)
-        per active level."""
-        if self.cfg.select_path != "hist":
-            raise NotImplementedError(_TOPK_TODO)
+    def select(self, levels: List[torch.Tensor], qlevels=None):
+        """Keypoint selection for B images: kernel 1's FAST scores of every
+        active level (one launch) -> cell-local NMS and the iniTh/minTh
+        choice per level; per-cell budgets (weighted by the quality levels
+        `qlevels`, (B, h_l, w_l) uint8 costs, when given); one batched
+        redistribution for all (level, image) rows; then per level the
+        histogram path, or the top-k path when `qlevels` is given or
+        ``select_path`` is "topk". Returns a list of (level, yx (B, n_l, 2)
+        int32, resp, valid, xy0) per active level."""
+        if self.cfg.select_path not in ("hist", "topk"):
+            raise ValueError(f"select_path {self.cfg.select_path!r}")
+        use_hist = qlevels is None and self.cfg.select_path == "hist"
         B = levels[0].shape[0]
         act = [lvl for lvl, lay in enumerate(self.layouts) if lay.active]
         scores = fast_cuda.fast_score_levels(
@@ -356,17 +476,35 @@ class OrbExtractor:
         ncmax = max(lay.n_cells for lay in active)
         tot_rows = torch.cat([F.pad(n_tot, (0, ncmax - lay.n_cells))
                               for _, lay, _, n_tot in stage_a])
-        bud_rows = self._const(tot_rows.device, f"budgets{B}", lambda: np.concatenate([
-            np.tile(np.pad(
-                np.full(lay.n_cells, math.ceil(lay.n_desired / lay.n_cells), np.int32),
-                (0, ncmax - lay.n_cells)), (B, 1))
-            for lay in active
-        ]))
+        dev = tot_rows.device
+        qnorms = {}
+        if qlevels is None:
+            bud_rows = self._const(dev, f"budgets{B}", lambda: np.concatenate([
+                np.tile(np.pad(
+                    np.full(lay.n_cells, math.ceil(lay.n_desired / lay.n_cells), np.int32),
+                    (0, ncmax - lay.n_cells)), (B, 1))
+                for lay in active
+            ]))
+        else:
+            # ORBextractor.cc:1058-1080: per-pixel quality scales the
+            # responses; the cells' mean quality sets their budgets
+            table = self._const(dev, "quality255", lambda: numerics.quality_table(255.0))
+            buds = []
+            for lvl, lay, _, _ in stage_a:
+                q = qlevels[lvl]
+                qnorms[lvl] = table[q.to(torch.int64)]
+                win = self._const(dev, f"cells{lvl}", lambda lay=lay: _cell_window_table(lay))
+                buds.append(F.pad(_cell_quality_budgets(q, win, lay.n_desired),
+                                  (0, ncmax - lay.n_cells)))
+            bud_rows = torch.cat(buds)
         ret_rows = _redistribute(tot_rows, bud_rows, ncmax)
         outs = []
         for i, (lvl, lay, t, _) in enumerate(stage_a):
             n_ret = ret_rows[i * B:(i + 1) * B, :lay.n_cells]
-            y, x, resp, valid = _select_from_tiles_hist(t, n_ret, lay)
+            if use_hist:
+                y, x, resp, valid = _select_from_tiles_hist(t, n_ret, lay)
+            else:
+                y, x, resp, valid = _select_from_tiles_topk(t, n_ret, qnorms.get(lvl), lay)
             scale = float(np.float32(self.scale_factors[lvl]))
             xy0 = torch.stack([x, y], dim=-1).to(torch.float32) * scale
             outs.append((lvl, torch.stack([y, x], dim=-1), resp, valid, xy0))
@@ -399,12 +537,11 @@ class OrbExtractor:
         all batch elements. Patches never cross level boundaries thanks to
         the 19 px EDGE_THRESHOLD margin.
 
-        return_canvas=True additionally returns the (B, sum_h, w0) raw
-        canvas so stereo matching can reuse it."""
-        if qlevels is not None:
-            raise NotImplementedError(_TOPK_TODO)
+        qlevels: None, or the levels of B uint8 cost maps (as `levels`)
+        that weight the selection. return_canvas=True additionally returns
+        the (B, sum_h, w0) raw canvas so stereo matching can reuse it."""
         B = levels[0].shape[0]
-        outs = self.select(levels)
+        outs = self.select(levels, qlevels)
         yx_level = torch.cat([o[1] for o in outs], dim=1)       # (B, N, 2)
         octave = torch.cat([torch.full(o[1].shape[:2], o[0], dtype=torch.int32,
                                        device=yx_level.device) for o in outs], dim=1)
@@ -428,7 +565,7 @@ class OrbExtractor:
     def extract_from_pyramid(self, levels, qlevels=None) -> Keypoints:
         """Extraction of one image from prebuilt pyramid levels (h_l, w_l):
         a B=1 view of the batched path."""
-        if qlevels is not None:
-            raise NotImplementedError(_TOPK_TODO)
-        kb = self.extract_from_pyramid_batched([l[None] for l in levels])
+        kb = self.extract_from_pyramid_batched(
+            [l[None] for l in levels],
+            [q[None] for q in qlevels] if qlevels is not None else None)
         return Keypoints(*(a[0] for a in kb))

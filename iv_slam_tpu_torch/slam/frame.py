@@ -2,18 +2,18 @@
 
 Port of ``iv_slam_tpu/slam/frame.py`` (``Frame`` and ``StereoFrontend``):
 the reference's Frame stereo constructor (Frame.cc:89-230) — ORB
-extraction on both images, stereo matching, quality-score seeding. Both
-images go through the extractor as one batch; the whole frame is queued on
-the device's current stream with no host synchronisation, so
-``submit`` returns at once and ``collect`` waits for one (N, 7) download.
+extraction on both images, weighted by an introspection cost map when one
+is given or an FCN is attached, stereo matching, quality-score seeding.
+Both images go through the extractor as one batch; the whole frame,
+the FCN included, is queued on the device's current stream with no host
+synchronisation, so ``submit`` returns at once and ``collect`` waits for
+one (N, 7) download.
 
 Host-side state (pose, map-point associations, outlier flags) lives in
 NumPy; the padded keypoint tensors stay on the device for the downstream
 matchers and optimizers.
 
-Not ported in this slice: a cost map (introspection-weighted extraction)
-and ``attach_introspection`` (ROADMAP A11), ``MonoFrontend`` and
-``RGBDFrontend`` (ROADMAP A9).
+Not ported yet: ``MonoFrontend`` and ``RGBDFrontend`` (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -24,13 +24,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import numerics
 from ..config import Config
+from ..models.introspection import inference_cost_map
 from ..ops import pyramid as pyr
 from ..ops import stereo
 from ..ops.extractor import Keypoints, OrbExtractor
 from . import resolve_device
-
-_COST_MAP_TODO = ("introspection cost maps are not ported yet (ROADMAP A11)")
 
 
 @dataclasses.dataclass
@@ -182,19 +182,54 @@ class StereoFrontend:
             np.array([s[1] for s in self.shapes], np.int32), device=dev)
         self.level_offsets = torch.as_tensor(
             self.extractor.level_offsets.astype(np.int32), device=dev)
+        # seeding quality 2/(1 + cost/256) - 1 of each uint8 cost
+        self._qual256 = numerics.quality_table(256.0).to(dev)
+        self._fcn = None
         self._frame_count = 0
 
-    def attach_introspection(self, model, variables, net_hw=(512, 512)):
-        raise NotImplementedError(_COST_MAP_TODO)
+    def attach_introspection(self, net, net_hw=(512, 512)):
+        """Run the introspection FCN (models.IntrospectionNet, in eval mode)
+        on every submitted left image and weight the extraction with its
+        cost map, as the reference hands the TorchScript model's byte map to
+        TrackStereo (stereo_kitti.cc:492-517). The network moves to the
+        frontend's device; its cost map stays there. A cost map passed to
+        submit takes precedence."""
+        self._fcn = (net.to(self.device), tuple(int(v) for v in net_hw))
 
-    def _step(self, pair: torch.Tensor) -> FrameHandle:
-        """(2, H, W) uint8 device pair -> queued frame work."""
+    def _cost_map(self, cost_map, pair: torch.Tensor):
+        """The frame's (H, W) uint8 cost map on the device: the caller's,
+        else the attached FCN's on the grayscale left image stacked to RGB,
+        else None."""
+        if cost_map is not None:
+            cost = torch.as_tensor(cost_map)
+            if cost.dtype != torch.uint8 or tuple(cost.shape) != tuple(pair.shape[1:]):
+                raise ValueError(f"cost_map: need an {tuple(pair.shape[1:])} uint8 map, got "
+                                 f"{tuple(cost.shape)} {cost.dtype}")
+            if cost.device != self.device:
+                if self.device.type == "cuda":
+                    cost = cost.pin_memory()
+                cost = cost.to(self.device, non_blocking=True)
+            return cost.contiguous()
+        if self._fcn is not None:
+            net, net_hw = self._fcn
+            rgb = pair[0][..., None].expand(-1, -1, 3)
+            return inference_cost_map(net, rgb, tuple(pair.shape[1:]), net_hw)
+        return None
+
+    def _step(self, pair: torch.Tensor, cost: Optional[torch.Tensor]) -> FrameHandle:
+        """(2, H, W) uint8 device pair (+ the left image's (H, W) uint8 cost
+        map, or None) -> queued frame work."""
         cam = self.cfg.camera
         # left/right as ONE batch axis (the reference's two extraction
-        # threads, Frame.cc:116-124)
+        # threads, Frame.cc:116-124); the right image gets a zero cost map,
+        # the exact unweighted semantics
         levels = pyr.build_pyramid(pair, self.shapes)
+        qlevels = None
+        if cost is not None:
+            qlevels = pyr.build_pyramid(torch.stack([cost, torch.zeros_like(cost)]),
+                                        self.shapes)
         kb, canvas = self.extractor.extract_from_pyramid_batched(
-            levels, return_canvas=True)
+            levels, qlevels, return_canvas=True)
         kl = Keypoints(*(a[0] for a in kb))
         kr = Keypoints(*(a[1] for a in kb))
         u_right, depth = stereo.match_stereo(
@@ -203,7 +238,15 @@ class StereoFrontend:
             canvas[0], canvas[1], self.level_offsets, self.level_widths,
             self.scale_factors, cam.bf, cam.baseline,
         )
-        qual = torch.ones(kl.xy.shape[0], dtype=torch.float32, device=pair.device)
+        if cost is not None:
+            # seed per-keypoint quality from the cost map at the keypoint
+            # pixel: 2/(1 + cost/256) - 1 (Frame.cc:130-143; /256 here, /255
+            # in the extractor's weighting, as in the reference)
+            xs = torch.clamp(torch.round(kl.xy[:, 0]).to(torch.int64), 0, cam.width - 1)
+            ys = torch.clamp(torch.round(kl.xy[:, 1]).to(torch.int64), 0, cam.height - 1)
+            qual = self._qual256[cost[ys, xs].to(torch.int64)]
+        else:
+            qual = torch.ones(kl.xy.shape[0], dtype=torch.float32, device=pair.device)
         # all host-bound per-frame fields as ONE tensor, so collect() is one
         # download; int/bool columns are exact in float32 (values << 2^24)
         host_pack = torch.stack(
@@ -212,26 +255,25 @@ class StereoFrontend:
         return FrameHandle(kl, kr, u_right, depth, qual, host_pack)
 
     def submit(self, img_left: np.ndarray, img_right: np.ndarray,
-               cost_map: Optional[np.ndarray] = None) -> FrameHandle:
+               cost_map=None) -> FrameHandle:
         """Queue the device work for one frame and return at once. The pair
-        is uploaded from pinned memory without a stream sync, so frame n+1
-        can be submitted while frame n computes."""
+        (and the left image's (H, W) uint8 cost map, when given: a numpy
+        array or a tensor) is uploaded from pinned memory without a stream
+        sync, so frame n+1 can be submitted while frame n computes."""
         pair = torch.from_numpy(np.ascontiguousarray(np.stack([img_left, img_right])))
         if self.device.type == "cuda":
             pair = pair.pin_memory().to(self.device, non_blocking=True)
         return self.submit_device(pair, cost_map)
 
-    def submit_device(self, pair: torch.Tensor,
-                      cost_map: Optional[np.ndarray] = None) -> FrameHandle:
+    def submit_device(self, pair: torch.Tensor, cost_map=None) -> FrameHandle:
         """submit() for a (2, H, W) uint8 stereo pair already on the device
         (the staged-replay path)."""
-        if cost_map is not None:
-            raise NotImplementedError(_COST_MAP_TODO)
         if pair.device != self.device or pair.dtype != torch.uint8 or pair.ndim != 3:
             raise ValueError(
                 f"submit_device: need a (2, H, W) uint8 tensor on {self.device}, "
                 f"got {tuple(pair.shape)} {pair.dtype} on {pair.device}")
-        return self._step(pair.contiguous())
+        pair = pair.contiguous()
+        return self._step(pair, self._cost_map(cost_map, pair))
 
     def prefetch_host(self, handle: FrameHandle) -> None:
         """Queue the device->host copy of the handle's host pack into pinned
@@ -288,7 +330,7 @@ class StereoFrontend:
         img_left: np.ndarray,
         img_right: np.ndarray,
         timestamp: float,
-        cost_map: Optional[np.ndarray] = None,
+        cost_map=None,
         gt_pose: Optional[np.ndarray] = None,
         gt_cov: Optional[np.ndarray] = None,
         img_name: str = "",

@@ -17,9 +17,12 @@ reference's: dict insertion order of the observation lists and of
 assembly. Each device call is read back before the host applies it, so an
 event waits for the device (a keyframe event is not held to zero syncs).
 
+The local BA is the standard one or, with ``cfg.iv.ba_mode == "vis"``, the
+one that also updates each window point's quality from its edges' chi2.
+
 Not ported yet: the worker thread (``start_worker``/``kick_async``, ROADMAP
 A7), the async local BA (A7), ``set_link_profile`` (the port always uses
-the chunked shapes), and the vis/constrained BA modes (A11/A12).
+the chunked shapes), and the constrained BA mode (A12).
 """
 
 from __future__ import annotations
@@ -49,9 +52,9 @@ class LocalMapping:
     P_CAP = 16384
 
     def __init__(self, cfg: Config, map_store, device=None):
-        if cfg.iv.ba_mode != "standard":
+        if cfg.iv.ba_mode not in ("standard", "vis"):
             raise NotImplementedError(
-                f"ba_mode {cfg.iv.ba_mode!r} is not ported yet (ROADMAP A11/A12)")
+                f"ba_mode {cfg.iv.ba_mode!r} is not ported yet (ROADMAP A12)")
         self.cfg = cfg
         self.map = map_store
         self.device = resolve_device(device, "LocalMapping")
@@ -470,5 +473,6 @@ class LocalMapping:
     # ----------------------------------------------------------------- BA
 
     def _run_local_ba(self, kf_id: int):
-        self.ba_rungs.append(
-            local_ba.local_bundle_adjustment(self.cfg, self.map, kf_id, self.device))
+        ba = (local_ba.local_bundle_adjustment_vis if self.cfg.iv.ba_mode == "vis"
+              else local_ba.local_bundle_adjustment)
+        self.ba_rungs.append(ba(self.cfg, self.map, kf_id, self.device))

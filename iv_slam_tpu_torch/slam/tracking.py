@@ -16,11 +16,16 @@ keyframe event's device work run on one device (``device``: CUDA unless
 the caller asks for the CPU, as the tests do); this module is the host
 orchestrator that owns the map store.
 
+A frame's introspection cost map (``track_stereo(..., cost_map=...)``, or
+an FCN attached to ``frontend``) weights its extraction and seeds its
+keypoints' quality, which scales the Huber deltas of the pose LM and of
+local BA; ``cfg.iv.ba_mode == "vis"`` also updates map-point quality in BA.
+
 Not ported yet, and refused by ``check_config`` or the entry point: the
 LocalMapping worker, async local BA, chained tracking and prewarm (ROADMAP
 A7), BoW relocalization (A8), mono and RGB-D tracking (A9), loop closing
-(A10), cost maps (A11), training-data generation and GT depth maps (A12),
-and the localization-only mode.
+(A10), training-data generation, GT depth maps and the constrained BA
+mode (A12), and the localization-only mode.
 """
 
 from __future__ import annotations
@@ -65,7 +70,7 @@ def check_config(cfg: Config) -> None:
         (s.use_bow, "use_bow", "A8"),
         (s.sensor != "stereo", f"sensor={s.sensor!r}", "A9"),
         (s.enable_loop_closing, "enable_loop_closing", "A10"),
-        (cfg.iv.ba_mode != "standard", f"iv.ba_mode={cfg.iv.ba_mode!r}", "A11/A12"),
+        (cfg.iv.ba_mode not in ("standard", "vis"), f"iv.ba_mode={cfg.iv.ba_mode!r}", "A12"),
         # the port always runs the chunked shape family, the reference's
         # choice on a low-RTT link, and probes no link
         (s.link_rtt_ms is not None, "link_rtt_ms (a pinned link profile)", "A7"),

@@ -9,9 +9,12 @@ outliers as the reference's joint erase pass does (Optimizer.cc:820-850).
 The host bookkeeping is numpy, order for order the reference's: it decides
 which points survive.
 
+``local_bundle_adjustment_vis`` adds the reference's per-point quality
+update from the final chi2 of each point's edges (Optimizer.cc:873-1293).
+
 Not ported yet: the async local BA (``local_bundle_adjustment_async``,
-``apply_local_ba``, ROADMAP A7), the vis and constrained variants (A11,
-A12) and the global BA (A10).
+``apply_local_ba``, ROADMAP A7), the constrained variant (A12) and the
+global BA (A10).
 """
 
 from __future__ import annotations
@@ -170,11 +173,12 @@ def _trim_window(m, local_kfs, fixed_kfs, pts):
     return local_kfs, fixed_kfs, pts
 
 
-def _run_ba(cfg, m, local_kfs, fixed_kfs, pts, device):
+def _run_ba(cfg, m, local_kfs, fixed_kfs, pts, device, return_edges=False):
     """Trim the window to the largest rung, assemble, solve on `device`
     (one upload, one download) and write back, erasing the observations
     that end as outliers. Returns the rung (n_kf, n_pt, n_e) solved, or
-    None."""
+    None; with return_edges, (rung, (pts, e_feat, chi2, inlier)) with each
+    edge's (point, keyframe, feature), final chi2 and inlier flag."""
     local_kfs, fixed_kfs, pts = _trim_window(m, local_kfs, fixed_kfs, pts)
     packed = _assemble(cfg, m, local_kfs, fixed_kfs, pts)
     if packed is None:
@@ -184,12 +188,16 @@ def _run_ba(cfg, m, local_kfs, fixed_kfs, pts, device):
     K = camera.Intrinsics.from_config(cfg.camera, device)
     res = ba_solve(prob, K)
     # one download for everything host-bound
-    flat = torch.cat([res.kf_pose.reshape(-1), res.pt_pos.reshape(-1),
-                      res.e_inlier.to(torch.float32)]).cpu().numpy()
+    parts = [res.kf_pose.reshape(-1), res.pt_pos.reshape(-1), res.e_inlier.to(torch.float32)]
+    if return_edges:
+        parts.append(res.e_chi2)
+    flat = torch.cat(parts).cpu().numpy()
     n_kf, n_pt = prob_np.kf_pose.shape[0], prob_np.pt_pos.shape[0]
+    n_e = prob_np.e_obs.shape[0]
     new_poses = flat[: n_kf * 16].reshape(n_kf, 4, 4)
-    new_pts = flat[n_kf * 16: n_kf * 16 + n_pt * 3].reshape(n_pt, 3)
-    inlier_all = flat[n_kf * 16 + n_pt * 3:] != 0.0
+    at = n_kf * 16 + n_pt * 3
+    new_pts = flat[n_kf * 16: at].reshape(n_pt, 3)
+    inlier_all = flat[at: at + n_e] != 0.0
 
     kf_fixed = prob_np.kf_fixed
     for i, k in enumerate(all_kfs[: len(local_kfs)]):
@@ -204,7 +212,10 @@ def _run_ba(cfg, m, local_kfs, fixed_kfs, pts, device):
             m.kf_frames[k].map_pt[feat] = -1
             m.erase_observation(pid, k)
     m.update_normal_and_depth_batch([p for p in pts if m.pt_alive[p]])
-    return n_kf, n_pt, prob_np.e_obs.shape[0]
+    rung = (n_kf, n_pt, n_e)
+    if return_edges:
+        return rung, (pts, e_feat, flat[at + n_e: at + n_e + E], inlier_all[:E])
+    return rung
 
 
 def _local_window(m, kf_id: int):
@@ -231,11 +242,41 @@ def _local_window(m, kf_id: int):
     return local_kfs, fixed_kfs, pts
 
 
-def local_bundle_adjustment(cfg, m, kf_id: int, device):
+def local_bundle_adjustment(cfg, m, kf_id: int, device, return_edges=False):
     """Covisibility-window BA (Optimizer::LocalBundleAdjustment) on
-    `device`. Returns the rung solved, or None."""
+    `device`. Returns the rung solved, or None (with return_edges, what
+    ``_run_ba`` returns)."""
     win = _local_window(m, kf_id)
     if win is None:
         return None
     local_kfs, fixed_kfs, pts = win
-    return _run_ba(cfg, m, local_kfs, fixed_kfs, pts, device)
+    return _run_ba(cfg, m, local_kfs, fixed_kfs, pts, device, return_edges)
+
+
+def local_bundle_adjustment_vis(cfg, m, kf_id: int, device):
+    """Optimizer::LocalBundleAdjustmentVis (Optimizer.cc:873-1293): local
+    BA, then each window point's quality from the summed chi2 of its edges
+    against the chi-square quantile window [50%, 95%] at the point's total
+    degrees of freedom (3 a stereo observation, 2 a monocular one).
+    Returns the rung solved, or None."""
+    from scipy.stats import chi2 as chi2_dist
+
+    out = local_bundle_adjustment(cfg, m, kf_id, device, return_edges=True)
+    if out is None:
+        return None
+    rung, (_, e_feat, chi2_vals, _) = out
+    acc = {}
+    for (pid, k, feat), c2 in zip(e_feat, chi2_vals):
+        dof = 3 if m.kf_frames[k].u_right[feat] >= 0 else 2
+        tot = acc.setdefault(pid, [0.0, 0])
+        tot[0] += float(c2)
+        tot[1] += dof
+    for pid, (chi2_sum, dof) in acc.items():
+        if dof < 1 or not m.pt_alive[pid]:
+            continue
+        th_max = chi2_dist.ppf(0.95, dof)
+        th_min = chi2_dist.ppf(0.5, dof)
+        scaled = np.clip((chi2_sum - th_min) / (th_max - th_min), 0.0, 1.0)
+        m.pt_quality[pid] = 2.0 * (1.0 / (1.0 + scaled)) - 1.0
+        m.mark_dirty(pid)
+    return rung

@@ -68,13 +68,81 @@ def test_stereo_frontend_matches_jax(world_frame, tmp_path):
     assert [fr.frame_id, fr2.frame_id, fr3.frame_id] == [0, 1, 2]
 
 
+def _cost_map(h, w, seed=9):
+    """A uint8 cost map: smooth waves with noise over the whole range."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:h, :w]
+    m = 128 + 127 * np.sin(xx / 29.0 + 1.0) * np.cos(yy / 19.0) + rng.normal(0, 15, (h, w))
+    return np.clip(m, 0, 255).astype(np.uint8)
+
+
+def test_stereo_frontend_with_cost_map_matches_jax(world_frame, tmp_path):
+    """The cost map weights the left image's extraction (the right image
+    gets a zero map) and seeds each keypoint's quality at rint(xy): every
+    Frame field and the host pack exact."""
+    cfg, cam, left, right = world_frame
+    cost = _cost_map(*left.shape)
+    ref = run_reference("frontend", tmp_path, left=left, right=right, cam=cam,
+                        n_features=400, n_levels=4, max_keypoints=1024, cost_map=cost)
+    fe = StereoFrontend(cfg, left.shape[0], left.shape[1], device="cpu")
+    fr = fe.process(left, right, 0.0, cost_map=cost)
+    for f in KP_FIELDS:
+        np.testing.assert_array_equal(getattr(fr.kp, f).numpy(), ref[f], err_msg=f)
+    for f in ("u_right", "depth", "qual_score"):
+        np.testing.assert_array_equal(getattr(fr, f), ref[f], err_msg=f)
+    for f in ("xy", "octave", "valid"):
+        np.testing.assert_array_equal(getattr(fr, f), ref["fr_" + f], err_msg=f)
+    np.testing.assert_array_equal(fr.desc, ref["desc"])
+    q = fr.qual_score[fr.valid]
+    assert len(np.unique(q)) > 50 and q.min() >= 0.0 and q.max() <= 1.0
+    assert (fr.depth > 0).sum() > 50
+    h = fe.submit(left, right, torch.from_numpy(cost))
+    np.testing.assert_array_equal(h.host_pack.numpy(), ref["host_pack"])
+
+
+def test_attached_fcn_equals_explicit_cost_map(world_frame):
+    """tests/test_fcn.py::test_frontend_fused_fcn on the port: the frontend
+    with an FCN attached gives the Frame that the FCN's own cost map, passed
+    explicitly, gives; quality is seeded in [-1, 1]."""
+    from iv_slam_tpu_torch.models import IntrospectionNet, inference_cost_map
+
+    cfg, _, left, right = world_frame
+    torch.manual_seed(0)
+    net = IntrospectionNet()
+    fe = StereoFrontend(cfg, left.shape[0], left.shape[1], device="cpu")
+    fe.attach_introspection(net, net_hw=(64, 64))
+    fr = fe.process(left, right, 0.0)
+    cost = inference_cost_map(net, torch.from_numpy(np.stack([left] * 3, axis=-1)),
+                              left.shape, (64, 64))
+    fr2 = StereoFrontend(cfg, left.shape[0], left.shape[1], device="cpu").process(
+        left, right, 0.0, cost_map=cost)
+    q = fr.qual_score[fr.valid]
+    assert len(q) > 50 and (q >= -1.0).all() and (q <= 1.0).all()
+    for f in ("xy", "octave", "valid", "u_right", "depth", "qual_score"):
+        np.testing.assert_array_equal(getattr(fr, f), getattr(fr2, f), err_msg=f)
+    np.testing.assert_array_equal(fr.desc, fr2.desc)
+    # an explicit cost map takes precedence over the attached FCN
+    fr3 = fe.process(left, right, 1.0, cost_map=np.zeros_like(left))
+    fr4 = StereoFrontend(cfg, left.shape[0], left.shape[1], device="cpu").process(
+        left, right, 1.0, cost_map=np.zeros_like(left))
+    np.testing.assert_array_equal(fr3.xy, fr4.xy)
+
+
 def test_unported_frontend_paths_raise(world_frame):
+    """What stays refused around the frontend: a cost map that is not an
+    (H, W) uint8 map, and the constrained local BA (ROADMAP A12)."""
+    from iv_slam_tpu_torch.slam.local_mapping import LocalMapping
+    from iv_slam_tpu_torch.slam.map_store import MapStore
+
     cfg, _, left, right = world_frame
     fe = StereoFrontend(cfg, left.shape[0], left.shape[1], device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        fe.process(left, right, 0.0, cost_map=np.zeros_like(left))
-    with pytest.raises(NotImplementedError, match="A11"):
-        fe.attach_introspection(None, None)
+    with pytest.raises(ValueError, match="uint8"):
+        fe.process(left, right, 0.0, cost_map=np.zeros(left.shape, np.float32))
+    with pytest.raises(ValueError, match="uint8"):
+        fe.process(left, right, 0.0, cost_map=np.zeros((8, 8), np.uint8))
+    c = dataclasses.replace(cfg, iv=dataclasses.replace(cfg.iv, ba_mode="constrained"))
+    with pytest.raises(NotImplementedError, match="A12"):
+        LocalMapping(c, MapStore(n_levels=4, scale_factor=1.2), "cpu")
 
 
 def test_default_device_needs_cuda(world_frame, monkeypatch):

@@ -50,7 +50,11 @@ def test_port_files_exist():
                  "iv_slam_tpu_torch/solvers/ba_core.py",
                  "iv_slam_tpu_torch/solvers/local_ba.py",
                  "iv_slam_tpu_torch/slam/local_mapping.py",
-                 "iv_slam_tpu_torch/slam/tracking.py", "iv_slam_tpu_torch/slam/system.py"):
+                 "iv_slam_tpu_torch/slam/tracking.py", "iv_slam_tpu_torch/slam/system.py",
+                 "iv_slam_tpu_torch/models/__init__.py",
+                 "iv_slam_tpu_torch/models/mobilenet.py",
+                 "iv_slam_tpu_torch/models/introspection.py",
+                 "iv_slam_tpu_torch/models/convert.py"):
         assert must in names, must
 
 

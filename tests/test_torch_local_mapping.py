@@ -16,6 +16,15 @@ feature, in which dict order; which keyframes are alive; every frame's
 map_pt. Within stated tolerances, after the local BA: keyframe poses 1e-5
 (3.4e-6 seen) and point positions 1e-4 m (2.1e-5 seen), their normals and
 scale ranges 1e-5 relative.
+
+The vis local BA (``ba_mode="vis"``) runs once on the map after that event
+at the same keyframe, with every keyframe's keypoints moved by 1.5 px of
+seeded noise, so that its residuals reach the chi-square window: which points it updates and
+which observations it erases exact, each point's quality within 1e-3 (its
+summed chi2 carries the BA's small differences through the quantile
+window's slope), keyframe poses and point positions within 1e-4 and 2e-4 m
+(the noisy problem is less well conditioned than the clean one; points
+sit ~10 m away, and 1.1e-4 m, 1.1e-5 relative, was seen).
 """
 
 import numpy as np
@@ -27,6 +36,7 @@ from iv_slam_tpu_torch.slam.device_map import DeviceMap
 from iv_slam_tpu_torch.slam.frame import Frame
 from iv_slam_tpu_torch.slam.local_mapping import LocalMapping
 from iv_slam_tpu_torch.slam.map_store import MapStore
+from iv_slam_tpu_torch.solvers import local_ba
 from test_torch_fused_track import port_config
 from torch_parity import dump_map, one_thread, run_reference  # noqa: F401 (fixture)
 
@@ -63,12 +73,20 @@ def build_map(d, n_levels):
 
 
 @pytest.fixture(scope="module")
-def event(tmp_path_factory):
-    ref = run_reference("keyframe_event", tmp_path_factory.mktemp("kfev"), seed=7,
-                        n_frames=15, event=EVENT, kf_every=3, cam=np.array(CAM),
-                        n_features=800, n_levels=4)
-    split = lambda pre: {k[len(pre):]: v for k, v in ref.items() if k.startswith(pre)}  # noqa: E731
-    return split("before_"), split("after_"), int(ref["kf_id"]), bool(ref["run_ba"])
+def reference(tmp_path_factory):
+    return run_reference("keyframe_event", tmp_path_factory.mktemp("kfev"), seed=7,
+                         n_frames=15, event=EVENT, kf_every=3, cam=np.array(CAM),
+                         n_features=800, n_levels=4, vis_ba_px=1.5)
+
+
+def _split(ref, pre):
+    return {k[len(pre):]: v for k, v in ref.items() if k.startswith(pre)}
+
+
+@pytest.fixture(scope="module")
+def event(reference):
+    return (_split(reference, "before_"), _split(reference, "after_"),
+            int(reference["kf_id"]), bool(reference["run_ba"]))
 
 
 @pytest.mark.parametrize("mirror", [False, True], ids=["uploaded tables", "device map"])
@@ -102,3 +120,32 @@ def test_keyframe_event_matches_jax(event, mirror):
     for f in ("pt_normal", "pt_min_dist", "pt_max_dist"):
         np.testing.assert_allclose(got[f][alive], after[f][alive], rtol=1e-5, atol=1e-6,
                                    err_msg=f)
+
+
+@pytest.fixture(scope="module")
+def vis_event(reference):
+    return (_split(reference, "vis_before_"), _split(reference, "vis_after_"),
+            int(reference["kf_id"]))
+
+
+def test_vis_local_ba_matches_jax(vis_event):
+    before, after, kf_id = vis_event
+    cfg = port_config(CAM, 800, 4)
+    cfg.iv.ba_mode = "vis"
+    m = build_map(before, 4)
+    LocalMapping(cfg, m, "cpu")          # the vis mode is accepted
+    assert local_ba.local_bundle_adjustment_vis(cfg, m, kf_id, "cpu") == (32, 2048, 4096)
+    got = dump_map(m)
+    want_upd = np.nonzero(after["pt_quality"] != before["pt_quality"])[0]
+    got_upd = np.nonzero(got["pt_quality"] != before["pt_quality"])[0]
+    assert len(want_upd) > 50, len(want_upd)
+    np.testing.assert_array_equal(got_upd, want_upd)
+    assert got["obs"].tolist() == after["obs"].tolist()
+    np.testing.assert_array_equal(got["fr_map_pt"], after["fr_map_pt"])
+    np.testing.assert_allclose(got["pt_quality"], after["pt_quality"], rtol=0, atol=1e-3)
+    assert (after["pt_quality"] < 0.5).sum() > 10     # the window's far side is reached
+    dq = np.abs(got["pt_quality"] - after["pt_quality"])
+    print(f"vis BA: {len(want_upd)} points updated, quality max |diff| {dq.max():.3g}")
+    np.testing.assert_allclose(got["kf_pose"], after["kf_pose"], rtol=0, atol=1e-4)
+    alive = after["pt_alive"]
+    np.testing.assert_allclose(got["pt_pos"][alive], after["pt_pos"][alive], rtol=0, atol=2e-4)

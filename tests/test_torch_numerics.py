@@ -84,3 +84,45 @@ def test_tree_sum_is_a_fixed_pairwise_tree(rng, n):
     got = numerics.tree_sum(torch.from_numpy(x))
     assert got.dtype == torch.float32 and got.shape == (5,)
     np.testing.assert_array_equal(got.numpy(), want[0])
+
+
+# ---- the roundings of introspection-weighted extraction -------------------
+
+@pytest.fixture(scope="module")
+def iv_reference(tmp_path_factory):
+    """jitted JAX (no FMA) on a 376x1241 random cost map and a smooth one,
+    and on 200 draws of each cell count at KITTI-00 geometry."""
+    rng = np.random.default_rng(11)
+    yy, xx = np.mgrid[:376, :1241]
+    smooth = 127.5 + 127.5 * np.sin(xx / 50.0) * np.cos(yy / 30.0)
+    quals = np.stack([rng.integers(0, 256, (376, 1241)), smooth.astype(np.uint8)])
+    quals = quals.astype(np.float32)
+    sums = {f"sum_{n}": rng.uniform(0, 1, (200, n)).astype(np.float32)
+            for n in (12, 27, 52, 80)}
+    ref = run_reference("iv_numerics", tmp_path_factory.mktemp("ivnum"), quals=quals, **sums)
+    return quals, sums, ref
+
+
+@pytest.mark.parametrize("den", [255, 256])
+def test_quality_table_matches_jax(iv_reference, den):
+    np.testing.assert_array_equal(numerics.quality_table(float(den)).numpy(),
+                                  iv_reference[2][f"qual{den}"])
+
+
+def test_xla_cumsum_matches_jnp_cumsum(iv_reference):
+    """The level-0 summed-area table of a cost map passes 2^24: a
+    left-to-right or a pairwise scan gives other values there."""
+    quals, _, ref = iv_reference
+    got = numerics.xla_cumsum(numerics.xla_cumsum(torch.from_numpy(quals), 1), 2).numpy()
+    assert (ref["cumsum"] > 2 ** 24).any()
+    np.testing.assert_array_equal(got, ref["cumsum"])
+    seq = np.cumsum(np.cumsum(quals, 1, dtype=np.float32), 2, dtype=np.float32)
+    assert (seq != ref["cumsum"]).mean() > 0.1
+
+
+@pytest.mark.parametrize("n", [12, 27, 52, 80])
+def test_xla_sum_matches_jnp_sum(iv_reference, n):
+    _, sums, ref = iv_reference
+    x = sums[f"sum_{n}"]
+    np.testing.assert_array_equal(numerics.xla_sum(torch.from_numpy(x)).numpy(),
+                                  ref[f"sum_{n}"])

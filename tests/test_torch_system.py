@@ -16,6 +16,14 @@ on the CPU path.
   iterations leave a direction the edges constrain weakly unsettled (a
   turn and a shift over a plane 10 m away), so along a trajectory a
   difference of 7e-7 in a start pose grows to ~1e-4 in the next frame's;
+* the same with introspection, fused: every frame weighted by one uint8
+  cost map (smooth waves over the whole range, so keypoint quality and
+  with it the Huber deltas of the pose LM and BA vary), local BA in the
+  vis mode: the same keyframes and points, poses within 2e-3, and the
+  map-point qualities within 1e-3 (the clean synthetic residuals stay
+  below the chi-square median, so the vis BA keeps every quality at 1
+  here; tests/test_torch_local_mapping.py holds its writes on noisy
+  observations);
 * the switches and entry points this port does not run yet raise
   NotImplementedError, and System needs CUDA unless given a device.
 """
@@ -48,11 +56,11 @@ def make_config(fused=False, ini_th_fast=12):
     return cfg
 
 
-def run(cfg, frames, kf_every=0):
+def run(cfg, frames, kf_every=0, cost_map=None):
     s = System(cfg, 240, 320, device="cpu")
     tr = s.tracking
     for i, (left, right) in enumerate(frames):
-        s.track_stereo(left, right, timestamp=i * 0.1)
+        s.track_stereo(left, right, timestamp=i * 0.1, cost_map=cost_map)
         if kf_every and i % kf_every == kf_every - 1 \
                 and tr.current.frame_id != tr.last_kf_frame_id:
             tr._create_new_keyframe()
@@ -118,10 +126,19 @@ def test_fused_tracking_matches_classic(rng):
     assert cross < 0.05, cross
 
 
+def cost_map(h=240, w=320, seed=2):
+    """A uint8 cost map of smooth waves with noise over the whole range."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:h, :w]
+    m = 128 + 127 * np.sin(xx / 31.0) * np.cos(yy / 23.0 + 0.5) + rng.normal(0, 15, (h, w))
+    return np.clip(m, 0, 255).astype(np.uint8)
+
+
 @pytest.fixture(scope="module")
 def jax_systems(sequence, tmp_path_factory):
     return run_reference("system", tmp_path_factory.mktemp("system"), seed=5, n_frames=16,
-                         kf_every=3, cam=np.array(CAM), n_features=800, n_levels=4)
+                         kf_every=3, cam=np.array(CAM), n_features=800, n_levels=4,
+                         cost_map=cost_map())
 
 
 @pytest.mark.parametrize("mode", ["classic", "fused"])
@@ -140,6 +157,26 @@ def test_trajectory_matches_jax_system(sequence, jax_systems, mode):
     assert trajectory.ate_rmse(list(est), gt) < 0.05
 
 
+def test_trajectory_with_cost_map_matches_jax_system(sequence, jax_systems):
+    world, frames, gt = sequence
+    cfg = make_config(fused=True)
+    cfg.iv.ba_mode = "vis"
+    s = run(cfg, frames, kf_every=3, cost_map=cost_map())
+    ref = {k[len("iv_"):]: v for k, v in jax_systems.items() if k.startswith("iv_")}
+    m = s.tracking.map
+    assert s.failure_count == 0 == int(ref["failures"])
+    assert (m.n_keyframes, m.n_points) == (int(ref["n_keyframes"]), int(ref["n_points"]))
+    assert int(m.pt_alive[:m.n_points].sum()) == int(ref["n_alive"])
+    assert m.n_keyframes >= 5 and len(s.tracking.local_mapping.ba_rungs) >= 3
+    est = np.stack(s.trajectory_twc())
+    np.testing.assert_allclose(est[:, :3, 3], ref["twc"][:, :3, 3], rtol=0, atol=2e-3)
+    np.testing.assert_allclose(est[:, :3, :3], ref["twc"][:, :3, :3], rtol=0, atol=2e-3)
+    assert trajectory.ate_rmse(list(est), gt) < 0.05
+    np.testing.assert_allclose(m.pt_quality[:m.n_points], ref["pt_quality"], rtol=0, atol=1e-3)
+    qual = s.tracking.current.qual_score[s.tracking.current.valid]
+    assert len(np.unique(qual)) > 50     # the cost map seeded keypoint quality
+
+
 def test_system_needs_cuda_without_a_device():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -155,7 +192,6 @@ SWITCHES = {
     "use_bow": lambda c: setattr(c.system, "use_bow", True),
     "sensor mono": lambda c: setattr(c.system, "sensor", "mono"),
     "enable_loop_closing": lambda c: setattr(c.system, "enable_loop_closing", True),
-    "ba_mode vis": lambda c: setattr(c.iv, "ba_mode", "vis"),
     "ba_mode constrained": lambda c: setattr(c.iv, "ba_mode", "constrained"),
     "link_rtt_ms": lambda c: setattr(c.system, "link_rtt_ms", 58.0),
 }
@@ -170,14 +206,12 @@ def test_unported_switch_raises(name):
 
 
 @pytest.mark.parametrize("call", ["track_mono", "track_rgbd", "attach_vocabulary",
-                                  "enable_datagen", "cost_map", "gt_depth_map"])
+                                  "enable_datagen", "gt_depth_map"])
 def test_unported_entry_point_raises(call):
     s = System(make_config(), 240, 320, device="cpu")
     img = np.zeros((240, 320), np.uint8)
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        if call == "cost_map":
-            s.track_stereo(img, img, 0.0, cost_map=np.zeros((240, 320), np.float32))
-        elif call == "gt_depth_map":
+        if call == "gt_depth_map":
             s.track_stereo(img, img, 0.0, gt_depth_map=np.ones((240, 320), np.float32))
         else:
             getattr(s, call)(None)

@@ -66,16 +66,20 @@ def one_thread():
 KP_FIELDS = ("xy", "response", "octave", "angle", "desc", "valid", "yx_level")
 
 
-def _task_extract(img, n_features, n_levels, ini, min_):
-    """OrbExtractor.__call__ (jitted) on one image."""
+def _task_extract(img, n_features, n_levels, ini, min_, quality=None,
+                  select_path="hist"):
+    """OrbExtractor.__call__ (jitted) on one image, weighted by the uint8
+    cost map `quality` when given."""
     import jax.numpy as jnp
 
     from iv_slam_tpu.config import ORBConfig
     from iv_slam_tpu.ops import extractor
 
     cfg = ORBConfig(n_features=int(n_features), n_levels=int(n_levels),
-                    ini_th_fast=int(ini), min_th_fast=int(min_))
-    kp = extractor.OrbExtractor(cfg, *img.shape)(jnp.asarray(img))
+                    ini_th_fast=int(ini), min_th_fast=int(min_),
+                    select_path=str(select_path))
+    ext = extractor.OrbExtractor(cfg, *img.shape)
+    kp = ext(jnp.asarray(img), None if quality is None else jnp.asarray(quality))
     return {f: np.asarray(getattr(kp, f)) for f in KP_FIELDS}
 
 
@@ -101,6 +105,86 @@ def _task_extract_pair(imgs, n_features, n_levels, ini, min_):
     return out
 
 
+def _task_iv_numerics(quals, **sums):
+    """The roundings introspection rests on, jitted: the quality formula of
+    every uint8 cost at /255 and /256, jnp.cumsum over rows then columns of
+    each map in `quals`, and jnp.sum of each row of every `sum_<n>` array."""
+    import jax
+    import jax.numpy as jnp
+
+    q = jnp.arange(256, dtype=jnp.uint8)
+    out = {f"qual{d}": np.asarray(jax.jit(
+        lambda q, d=d: 2.0 * (1.0 / (1.0 + q.astype(jnp.float32) / float(d))) - 1.0)(q))
+        for d in (255, 256)}
+    out["cumsum"] = np.asarray(jax.jit(
+        lambda m: jnp.cumsum(jnp.cumsum(m, axis=1), axis=2))(jnp.asarray(quals, jnp.float32)))
+    for k, v in sums.items():
+        out[k] = np.asarray(jax.jit(jax.vmap(jnp.sum))(jnp.asarray(v)))
+    return out
+
+
+def _task_cell_budgets(quals, n_features, n_levels):
+    """Per level of each cost map's pyramid: the level, the reference's
+    _cell_quality_weights and the budgets _select_level_keypoints draws
+    from them, vmapped over the maps and jitted."""
+    import jax
+    import jax.numpy as jnp
+
+    from iv_slam_tpu.config import ORBConfig
+    from iv_slam_tpu.ops import extractor, pyramid
+
+    cfg = ORBConfig(n_features=int(n_features), n_levels=int(n_levels))
+    lays = extractor.make_layouts(cfg, *quals.shape[1:])
+    out = {}
+    levels = jax.jit(lambda q: pyramid.build_pyramid(q, [(l.h, l.w) for l in lays]))(
+        jnp.asarray(quals))
+    for i, (lay, q) in enumerate(zip(lays, levels)):
+        out[f"q{i}"] = np.asarray(q)
+        if not lay.active:
+            continue
+
+        def one(ql, lay=lay):
+            w = extractor._cell_quality_weights(ql, lay)
+            b = jnp.maximum(1.0, jnp.ceil(lay.n_desired * w / jnp.sum(w))).astype(jnp.int32)
+            return w, b
+
+        w, b = jax.jit(jax.vmap(one))(q)
+        out[f"w{i}"], out[f"b{i}"] = np.asarray(w), np.asarray(b)
+    return out
+
+
+def _task_select(imgs, quals, n_features, n_levels, ini, min_):
+    """The reference's _select_level_keypoints on the FAST map of every
+    level of each image's pyramid, vmapped and jitted, with the cost map's
+    pyramid level (q_ keys) and without one (n_ keys): y, x, response and
+    valid per level."""
+    import jax
+    import jax.numpy as jnp
+
+    from iv_slam_tpu.config import ORBConfig
+    from iv_slam_tpu.ops import extractor, fast, pyramid
+
+    cfg = ORBConfig(n_features=int(n_features), n_levels=int(n_levels))
+    lays = extractor.make_layouts(cfg, *imgs.shape[1:])
+    shapes = [(l.h, l.w) for l in lays]
+    out = {}
+    for i, lay in enumerate(lays):
+        if not lay.active:
+            continue
+
+        def run(im, q, lay=lay, i=i):
+            s = fast.fast_score(pyramid.build_pyramid(im, shapes)[i], int(min_))
+            ql = pyramid.build_pyramid(q, shapes)[i]
+            return (extractor._select_level_keypoints(s, ql, lay, int(ini)),
+                    extractor._select_level_keypoints(s, None, lay, int(ini)))
+
+        wq, nq = jax.jit(jax.vmap(run))(jnp.asarray(imgs), jnp.asarray(quals))
+        for pre, res in (("q_", wq), ("n_", nq)):
+            for name, v in zip(("y", "x", "resp", "valid"), res):
+                out[f"{pre}{name}{i}"] = np.asarray(v)
+    return out
+
+
 def _task_match_stereo(xyL, octL, descL, validL, xyR, octR, descR, validR,
                        canvasL, canvasR, offsets, widths, scales, bf, min_z):
     """ops/stereo.py match_stereo (jitted), XLA SAD branch."""
@@ -115,9 +199,9 @@ def _task_match_stereo(xyL, octL, descL, validL, xyR, octR, descR, validR,
     return {"u_right": np.asarray(u), "depth": np.asarray(d)}
 
 
-def _task_frontend(left, right, cam, n_features, n_levels, max_keypoints):
-    """StereoFrontend.process on one pair, plus the (N, 7) host pack of
-    its jitted frame step."""
+def _task_frontend(left, right, cam, n_features, n_levels, max_keypoints, cost_map=None):
+    """StereoFrontend.process on one pair (weighted by the uint8 cost map
+    when given), plus the (N, 7) host pack of its jitted frame step."""
     import jax.numpy as jnp
 
     from iv_slam_tpu.config import CameraConfig, Config, ORBConfig
@@ -130,11 +214,14 @@ def _task_frontend(left, right, cam, n_features, n_levels, max_keypoints):
     cfg.orb = ORBConfig(n_features=int(n_features), n_levels=int(n_levels),
                         max_keypoints=int(max_keypoints))
     fe = StereoFrontend(cfg, int(h), int(w))
-    fr = fe.process(left, right, 0.0)
+    fr = fe.process(left, right, 0.0, cost_map=cost_map)
     out = {f: np.asarray(getattr(fr.kp, f)) for f in KP_FIELDS}
     out.update(u_right=fr.u_right, depth=fr.depth, qual_score=fr.qual_score,
                fr_xy=fr.xy, fr_octave=fr.octave, fr_valid=fr.valid)
-    handle = fe._jit_plain(jnp.asarray(left), jnp.asarray(right))
+    if cost_map is not None:
+        handle = fe._jit_qual(jnp.asarray(left), jnp.asarray(right), jnp.asarray(cost_map))
+    else:
+        handle = fe._jit_plain(jnp.asarray(left), jnp.asarray(right))
     out["host_pack"] = np.asarray(handle[-1])
     return out
 
@@ -352,20 +439,27 @@ def dump_map(m, recent_points=None):
     return out
 
 
-def _task_keyframe_event(seed, n_frames, event, kf_every, cam, n_features, n_levels):
+def _task_keyframe_event(seed, n_frames, event, kf_every, cam, n_features, n_levels,
+                         vis_ba_px=0.0):
     """The JAX package's System over a synth_world sequence with a keyframe
     forced every kf_every frames (tests/test_ba_variants.py's loop); the map
     just before and just after LocalMapping._process_one of event number
-    `event` (0 = the initialization's)."""
+    `event` (0 = the initialization's). With vis_ba_px > 0, then the map
+    with every keyframe's keypoint positions (the BA's observations) moved
+    by seeded Gaussian noise of that many pixels, before and after one
+    local_bundle_adjustment_vis at the same keyframe (vis_ keys); the run
+    stops there."""
     import synth_world
 
     from iv_slam_tpu.slam import local_mapping
     from iv_slam_tpu.slam.system import System
+    from iv_slam_tpu.solvers import local_ba
 
     cfg = _tracking_config(cam, n_features, n_levels)
     world, frames, gt = synth_world.make_sequence(np.random.default_rng(int(seed)),
                                                   n_frames=int(n_frames), step=0.08)
     orig = local_mapping.LocalMapping._process_one
+    px = float(vis_ba_px)
     seen, out = [], {}
 
     def process(self, kf_id, run_ba=True):
@@ -377,6 +471,15 @@ def _task_keyframe_event(seed, n_frames, event, kf_every, cam, n_features, n_lev
         if len(seen) == int(event):
             out.update({"after_" + k: v for k, v in
                         dump_map(self.map, self.recent_points).items()})
+            if px > 0:
+                m = self.map
+                r = np.random.default_rng(0)
+                for k in range(m.n_keyframes):
+                    fr = m.kf_frames[k]
+                    fr.xy = (fr.xy + r.normal(0, px, fr.xy.shape)).astype(np.float32)
+                out.update({"vis_before_" + k: v for k, v in dump_map(m).items()})
+                local_ba.local_bundle_adjustment_vis(self.cfg, m, kf_id)
+                out.update({"vis_after_" + k: v for k, v in dump_map(m).items()})
         seen.append(kf_id)
 
     local_mapping.LocalMapping._process_one = process
@@ -392,10 +495,12 @@ def _task_keyframe_event(seed, n_frames, event, kf_every, cam, n_features, n_lev
     return out
 
 
-def _task_system(seed, n_frames, kf_every, cam, n_features, n_levels):
+def _task_system(seed, n_frames, kf_every, cam, n_features, n_levels, cost_map=None):
     """The JAX package's System over a synth_world sequence, a keyframe
-    forced every kf_every frames (0: none), classic then fused tracking:
-    each run's trajectory and map size, prefixed classic_ / fused_."""
+    forced every kf_every frames (0: none), classic then fused tracking,
+    then (with `cost_map`) fused tracking with every frame weighted by the
+    cost map and local BA in the vis mode: each run's trajectory, map size
+    and point qualities, prefixed classic_ / fused_ / iv_."""
     import synth_world
 
     from iv_slam_tpu.slam.system import System
@@ -403,14 +508,17 @@ def _task_system(seed, n_frames, kf_every, cam, n_features, n_levels):
     world, frames, gt = synth_world.make_sequence(np.random.default_rng(int(seed)),
                                                   n_frames=int(n_frames), step=0.08)
     out = {}
-    for name in ("classic", "fused"):
+    for name in ("classic", "fused") + (("iv",) if cost_map is not None else ()):
         cfg = _tracking_config(cam, n_features, n_levels)
-        cfg.system.fused_tracking = name == "fused"
+        cfg.system.fused_tracking = name != "classic"
+        cost = cost_map if name == "iv" else None
+        if name == "iv":
+            cfg.iv.ba_mode = "vis"
         s = System(cfg, cfg.camera.height, cfg.camera.width)
         tr = s.tracking
         k = int(kf_every)
         for i, (left, right) in enumerate(frames):
-            s.track_stereo(left, right, timestamp=i * 0.1)
+            s.track_stereo(left, right, timestamp=i * 0.1, cost_map=cost)
             if k and i % k == k - 1 and tr.current.frame_id != tr.last_kf_frame_id:
                 tr._create_new_keyframe()
         m = tr.map
@@ -418,7 +526,8 @@ def _task_system(seed, n_frames, kf_every, cam, n_features, n_levels):
                     f"{name}_failures": np.int64(s.failure_count),
                     f"{name}_n_keyframes": np.int64(m.n_keyframes),
                     f"{name}_n_points": np.int64(m.n_points),
-                    f"{name}_n_alive": np.int64(m.pt_alive[:m.n_points].sum())})
+                    f"{name}_n_alive": np.int64(m.pt_alive[:m.n_points].sum()),
+                    f"{name}_pt_quality": np.array(m.pt_quality[:m.n_points])})
     return out
 
 
