@@ -53,15 +53,31 @@ It drives the port only (no JAX, nothing of ``iv_slam_tpu``):
      the quality path, no host sync inside a frame; (c) bench.py's
      120-frame loop through System with the FCN attached (fails on a lost
      frame, an ATE above 0.5 m or a cap overflow), beside phase 5's ATE;
-  7. from torch.profiler, after every phase that times the host: each
+  7. loop closing, at bench.py's LC world and configuration
+     (tests/synth_world.py DistinctTerrainWorld, seed 3, 320x240, 1.45 laps
+     of a 6 m circle; 800 features, 8 levels, fused tracking, unchained,
+     single-threaded, synchronous local BA): a vocabulary trained by the
+     port (k=10, L=6, seed 0) on the descriptors of every third frame;
+     K1-K3 held bit for bit against their plain versions on the inputs of
+     LC-world frames 0 and 120 (320x240, levels down to 89x67) and FAST on
+     noise at 320x240, before the runs; (a) 240 frames without a vocabulary, the control, and (b) 240 frames with
+     it attached and use_bow and loop closing on, each failing on a lost
+     frame, an ATE above 0.5 m or a cap overflow, K1-K3 counted; the first
+     60 frames of (b) again on the CPU path (the same keyframes, points,
+     observations, keyframe database and loop-closing state, poses within
+     2e-3); the correction path (Sim3 RANSAC and LM, loop fuse, essential
+     graph, deferred global BA) on a manufactured revisit, card against
+     CPU path; the 1M-leaf synthesized vocabulary's device descent against
+     the host descent;
+  8. from torch.profiler, after every phase that times the host: each
      kernel's device time, the tracking step's device time and kernel
      launches, a profile of whole frames, one keyframe event (device ms,
      launches, host syncs), and the FCN's and a weighted frame's device
      time and launches;
-  8. prints one {"tracking": {...}} line, one {"full_loop": {...}} line, one
-     {"introspection": {...}} line, one {"kernels": [...]} line (with each
-     kernel's launches on the introspection loop too) and, last, the
-     status line.
+  9. prints one {"tracking": {...}} line, one {"full_loop": {...}} line, one
+     {"introspection": {...}} line, one {"loop_closing": {...}} line, one
+     {"kernels": [...]} line (with each kernel's launches on the
+     introspection and loop-closing loops too) and, last, the status line.
 
 A phase that fails is reported and the script exits 1 without a result.
 With no CUDA device, or run outside a checkout, it exits 2 at once.
@@ -71,6 +87,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import hashlib
 import json
 import os
 import subprocess
@@ -106,6 +123,12 @@ TRI_MAX_ULP = 4         # card vs CPU limit on a triangulated coordinate
 NET_HW = (512, 512)
 FCN_SEED = 6
 N_INTRO_FRAMES = 10
+
+# loop closing: bench.py's LC world (bench.py:378-413) and configuration
+# (bench.py:463-471), frames of each run, frames held card against CPU
+N_LC, N_LC_CPU = 240, 60
+LC_H, LC_W = 240, 320
+LC_POSE_ATOL = 2e-3     # card vs CPU path over N_LC_CPU frames (translation m, rotation)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, and the float32
 # rate outside the tensor cores, used for these kernels' 32-bit scalar ops
@@ -299,6 +322,7 @@ class Smoke:
         self.fps = {}
         self.trk = None
         self.intro = None
+        self.lc = None
 
     def phase(self, name, fn, *args):
         t0 = time.perf_counter()
@@ -366,12 +390,16 @@ class Smoke:
                 {k: len(v) for k, v in rec.items()})
         return rec
 
-    def check_fast(self, rec):
+    # Each check holds a kernel bit-equal to its plain version on the
+    # inputs of rec, and returns the largest difference. With main (phase
+    # 2's KITTI frame) it also times the kernel and registers it for the
+    # kernels line; noise_hw is the canvas of the noise case.
+    def check_fast(self, rec, noise_hw=(H, W), main=True):
         torch, ops = self.torch, self.port["ops"]
         fc = ops.fast_cuda
         (levels, th), = rec["fast_score"]
         noise = torch.from_numpy(np.random.default_rng(3).integers(
-            0, 256, size=(1, H, W), dtype=np.uint8)).to(levels[0].device)
+            0, 256, size=(1,) + tuple(noise_hw), dtype=np.uint8)).to(levels[0].device)
         cases = [(levels, t) for t in sorted({th, 20})] + [([noise], 0)]
         worst = 0
         for lvs, t in cases:
@@ -384,20 +412,22 @@ class Smoke:
                 require(k.dtype == torch.int16 and torch.equal(k, p),
                         f"FAST kernel != plain at {tuple(lv.shape)}, threshold {t}: "
                         f"max err {err}")
+        shapes = ", ".join(f"{tuple(lv.shape)}" for lv in levels)
+        print(f"K1 fast_score: 1 launch/frame over {shapes}; thresholds "
+              f"{sorted({th, 20})} and noise {(1,) + tuple(noise_hw)} at 0: bit-equal")
+        if not main:
+            return float(worst)
         fns = (lambda: fc.fast_score_levels(levels, th),
                lambda: [ops.fast.fast_score(lv, th) for lv in levels])
         px = sum(lv.numel() for lv in levels)
         bnd, by = bound_ms(px * 3, px * FAST_OPS_PER_PX)
-        shapes = ", ".join(f"{tuple(lv.shape)}" for lv in levels)
-        print(f"K1 fast_score: 1 launch/frame over {shapes}; thresholds "
-              f"{sorted({th, 20})} and noise {(1, H, W)} at 0: bit-equal")
         self.kernels["fast_score"] = dict(
             name="fast_score", route="cuda", source="iv_slam_tpu_torch/csrc/fast_score.cu",
             replaces="iv_slam_tpu/ops/fast_pallas.py:77", max_abs_err=float(worst),
             bound_ms=bnd, bound_by=by, library_ms=None, fns=fns,
             event_ms=event_ms(torch, fns[0]), plain_event_ms=event_ms(torch, fns[1], iters=10))
 
-    def check_orient_brief(self, rec):
+    def check_orient_brief(self, rec, main=True):
         torch, ops = self.torch, self.port["ops"]
         raw, blur, yx = rec["orient_brief"][0]
         # the main path's keypoints, then keypoints 0-5 and 18-19 px from
@@ -415,6 +445,10 @@ class Smoke:
         require(torch.equal(ang, ang_p), f"angles differ: max err {err}")
         require(torch.equal(desc, desc_p),
                 f"descriptors differ in {int((desc != desc_p).sum())} bytes")
+        if not main:
+            print(f"K2 orient_brief: canvas {tuple(raw.shape)}, {yx.shape[0]} keypoints + "
+                  f"{len(edge)} at the canvas edges: angles and descriptors bit-equal")
+            return err
         fns = (lambda: ops.finish_cuda.orient_brief(raw, blur, yx),
                lambda: ops.finish_cuda.orient_brief_plain(raw, blur, yx))
         n = yx.shape[0]
@@ -444,7 +478,7 @@ class Smoke:
             bound_ms=bnd, bound_by=by, library_ms=None, fns=fns,
             event_ms=event_ms(torch, fns[0]), plain_event_ms=event_ms(torch, fns[1], iters=10))
 
-    def check_sad(self, rec):
+    def check_sad(self, rec, main=True):
         torch, ops = self.torch, self.port["ops"]
         canvas, main_mod16, yc, xl, xr = rec["sad_windows"][0]
         cl, cr = canvas[0], canvas[1]  # views, as the main path hands them over
@@ -483,6 +517,11 @@ class Smoke:
             require(torch.equal(k, p), f"SAD kernel != plain on {what}: max err {e}")
             if what == "extreme values":
                 top = int(k.max())
+        if not main:
+            print(f"K3 sad_windows: canvas {tuple(canvas.shape)}, {yc.shape[0]} keypoints + "
+                  f"{len(lim)} clip-limit centers, at base offsets 0-15 and at the extreme "
+                  f"values: bit-equal (largest extreme SAD {top})")
+            return err
         fns = (lambda: ops.stereo_cuda.sad_windows(cl, cr, yc, xl, xr),
                lambda: ops.stereo_cuda.sad_windows_plain(cl, cr, yc, xl, xr))
         n = yc.shape[0]
@@ -1335,6 +1374,326 @@ class Smoke:
         it.out.update(fcn_device_ms=fcn_ms, fcn_launches=fcn_n, frame_device_ms=frame_ms,
                       frame_launches=frame_n, fcn_share_of_loop_frame=share)
 
+    # ---- phase 7: loop closing ----------------------------------------------
+    def lc_setup(self):
+        """bench.py's LC world (_lc_world(240)): DistinctTerrainWorld, seed 3,
+        320x240, fx = fy = 400, baseline 0.5, 1.45 laps of a 6 m circle with
+        the yaw following the path; its configuration (bench.py:463-471);
+        and the vocabulary of _lc_corpus_vocab (bench.py:416-445): the port's
+        Vocabulary.train(k=10, L=6, seed=0) on the port's own descriptors of
+        every third frame's left image, extracted on the card."""
+        torch, port = self.torch, self.port
+        sys.path.insert(0, os.path.join(HERE, "tests"))
+        import synth_world
+
+        t0 = time.perf_counter()
+        world = synth_world.DistinctTerrainWorld(
+            np.random.default_rng(3), tex_size=8192, res=60.0, fx=400.0, fy=400.0,
+            cx=160.0, cy=120.0, w=LC_W, h=LC_H, baseline=0.5)
+        pairs, gt = [], []
+        for i in range(N_LC):
+            ang = 2.9 * np.pi * i / N_LC
+            Twc = synth_world.camera_pose(
+                np.array([6.0 * np.sin(ang), 6.0 * (1 - np.cos(ang)), 0.0], np.float32),
+                height=10.0, yaw=ang)
+            pairs.append(world.render_stereo(Twc))
+            gt.append(Twc)
+        render_s = time.perf_counter() - t0
+        # the renderer's cv2 and numpy round differently between versions
+        # (1 gray level on ~3% of pixels), and the LC world's ATE follows
+        # the pixels: ATEs of two machines compare only on equal digests
+        digest = hashlib.sha1()
+        for left, right in pairs:
+            digest.update(left.tobytes())
+            digest.update(right.tobytes())
+        C = port["config"]
+        cfg = C.Config()
+        cfg.camera = C.CameraConfig(fx=400.0, fy=400.0, cx=160.0, cy=120.0, bf=200.0,
+                                    width=LC_W, height=LC_H, th_depth=35.0, fps=4.0)
+        cfg.orb = C.ORBConfig(n_features=800, n_levels=8)
+        cfg.system.fused_tracking = True
+        t0 = time.perf_counter()
+        ext = port["extractor"].OrbExtractor(cfg.orb, LC_H, LC_W)
+        descs = []
+        for left, _right in pairs[::3]:
+            kp = ext(torch.as_tensor(left).cuda())
+            descs.append(kp.desc[kp.valid].cpu().numpy())
+        corpus = np.concatenate(descs)
+        voc = port["vocabulary"].Vocabulary.train(corpus, k=10, L=6, seed=0)
+        train_s = time.perf_counter() - t0
+        self.lc = SimpleNamespace(pairs=pairs, gt=gt, cfg=cfg, voc=voc, out={})
+        self.lc.out.update(world_render_s=render_s, world_sha1=digest.hexdigest()[:16],
+                           vocabulary_train_s=train_s,
+                           corpus_descriptors=len(corpus), lc_voc_words=voc.n_words,
+                           lc_voc_nodes=len(voc.node_desc))
+        print(f"loop closing: world {N_LC} frames rendered in {render_s:.1f} s (images' sha1 "
+              f"{digest.hexdigest()[:16]}); vocabulary "
+              f"k=10 L=6 trained on {len(corpus)} descriptors of {len(descs)} frames in "
+              f"{train_s:.1f} s: {voc.n_words} words, {len(voc.node_desc)} nodes")
+
+    def lc_kernels(self):
+        """K1-K3 bit-equal to their plain versions at the LC world's shapes,
+        before its runs: the inputs that frames 0 and N_LC / 2 hand each
+        wrapper through the LC configuration's frontend (320x240, 8 levels
+        down to 89x67), and FAST on noise at (1, LC_H, LC_W)."""
+        lc = self.lc
+        fe = self.port["frame"].StereoFrontend(lc.cfg, LC_H, LC_W)
+        errs = {"fast_score": 0.0, "orient_brief": 0.0, "sad_windows": 0.0}
+        for i in (0, N_LC // 2):
+            rec = self.record_inputs(fe, *lc.pairs[i])
+            print(f"loop closing, K1-K3 on the inputs of LC-world frame {i}:")
+            for name, check in (("fast_score", lambda r: self.check_fast(
+                    r, noise_hw=(LC_H, LC_W), main=False)),
+                                ("orient_brief", lambda r: self.check_orient_brief(r, main=False)),
+                                ("sad_windows", lambda r: self.check_sad(r, main=False))):
+                errs[name] = max(errs[name], check(rec))
+        lc.out["kernels_at_lc_shapes"] = dict(frames=[0, N_LC // 2], max_abs_err=errs,
+                                              bit_equal=True)
+        for name, e in errs.items():
+            if name in self.kernels:
+                self.kernels[name]["max_abs_err"] = max(self.kernels[name]["max_abs_err"], e)
+
+    def _lc_drive(self, voc, device=None, n=None, snapshot_at=None):
+        """One run of the LC world through System (fused tracking, unchained,
+        single-threaded, synchronous local BA), with the vocabulary attached
+        and use_bow and loop closing on when voc is given. Returns (System,
+        frames/s over the run as bench.py counts it, the snapshot after
+        frame snapshot_at, the stage timer)."""
+        torch, port, lc = self.torch, self.port, self.lc
+        cfg = copy.deepcopy(lc.cfg)
+        cfg.system.use_bow = cfg.system.enable_loop_closing = voc is not None
+        s = port["system"].System(cfg, LC_H, LC_W, device=device)
+        timer = StageTimer()
+        s.tracking.stage_timer = s.tracking.local_mapping.stage_timer = timer
+        if voc is not None:
+            s.attach_vocabulary(voc)
+            s.tracking.loop_closing.stage_timer = timer
+        snap = None
+        n = N_LC if n is None else n
+        t0 = time.perf_counter()
+        for i in range(n):
+            s.track_stereo(*lc.pairs[i], timestamp=i * 0.1)
+            if snapshot_at is not None and i == snapshot_at - 1:
+                snap = self._lc_snapshot(s)
+        if device is None:
+            torch.cuda.synchronize()
+        return s, n / (time.perf_counter() - t0), snap, timer
+
+    def _lc_snapshot(self, s):
+        """What the card and the CPU path must agree on: map sizes, the
+        keyframe database, the loop-closing state, the poses."""
+        tr = s.tracking
+        m = tr.map
+        lc = getattr(tr, "loop_closing", None)
+        return dict(
+            keyframes=int(m.n_keyframes), points=int(m.n_points),
+            points_alive=int(m.pt_alive[:m.n_points].sum()),
+            obs=sum(len(o) for o in m.pt_obs[:m.n_points]),
+            lost=int(sum(tr.lost_flags)), kfdb=list(tr.kfdb.bow) if lc else [],
+            loops=lc.n_loops_closed if lc else 0,
+            groups=[(sorted(g), c) for g, c in lc.consistent_groups] if lc else [],
+            twc=np.stack(tr.trajectory_poses()))
+
+    def lc_loops(self):
+        """(a) the control run, no vocabulary; (b) the vocabulary attached
+        and loop closing on. Each fails on a lost frame, an ATE above 0.5 m
+        or a cap overflow; K1-K3 are counted over each run."""
+        port, lc = self.port, self.lc
+        lc.runs = {}
+        for name, voc in (("a_control", None), ("b_loop_closing", lc.voc)):
+            for m in self.counters().values():
+                m.launches = 0
+            s, fps, snap, timer = self._lc_drive(
+                voc, snapshot_at=N_LC_CPU if voc is not None else None)
+            launches = {k: m.launches for k, m in self.counters().items()}
+            tr = s.tracking
+            est = s.trajectory_twc()
+            ate = port["trajectory"].ate_rmse(est, lc.gt[-len(est):])
+            lm, m = tr.local_mapping, tr.map
+            loop_c = getattr(tr, "loop_closing", None)
+            run = dict(frames=N_LC, fps=fps, ate_m=ate, lost_frames=int(sum(tr.lost_flags)),
+                       failures=int(s.failure_count), keyframes=int(m.n_keyframes),
+                       map_points=int(m.n_points),
+                       map_points_alive=int(m.pt_alive[:m.n_points].sum()),
+                       lc_loops_closed=loop_c.n_loops_closed if loop_c else None,
+                       kfdb_keyframes=len(tr.kfdb.bow) if loop_c else None,
+                       frontend_launches=launches, cap_overflows=dict(lm.overflows),
+                       host_ms_median=dict(
+                           frontend=timer.median("frontend"), track=timer.median("track"),
+                           keyframe_event=timer.median("keyframe_event"),
+                           **{k: timer.median(k) for k in ("lc_bow", "lc_detect", "lc_sim3",
+                                                            "lc_correct")}),
+                       lc_stage_calls={k: len(timer.ms.get(k, [])) for k in
+                                       ("lc_bow", "lc_detect", "lc_sim3", "lc_correct")})
+            lc.runs[name] = run
+            if voc is not None:
+                lc.snap_card = snap
+                for k, v in launches.items():
+                    self.kernels[k]["launches_loop_closing"] = v
+            print(f"loop closing ({name}): {N_LC} frames, {run['fps']:.3f} frames/s, ATE "
+                  f"{ate:.4f} m, {run['lost_frames']} lost, {run['keyframes']} keyframes, "
+                  f"{run['map_points']} map points, loops closed {run['lc_loops_closed']}, "
+                  f"K1-K3 launches {launches}; host ms (median) "
+                  f"{json.dumps(run['host_ms_median'])}; LC stage calls "
+                  f"{run['lc_stage_calls']}; overflows {run['cap_overflows']}")
+            want = {k: N_LC for k in launches}
+            require(launches == want, f"{name}: launch counts {launches} != {want}")
+            require(run["lost_frames"] == 0 and s.failure_count == 0,
+                    f"{name}: {run['lost_frames']} lost frames, {s.failure_count} failures")
+            require(ate <= 0.5, f"{name}: ATE {ate} m")
+            require(not any(lm.overflows.values()), f"{name}: cap overflow {lm.overflows}")
+        lc.out.update(runs=lc.runs)
+
+    def lc_cpu_vs_card(self):
+        """The first N_LC_CPU frames of run (b) on the CPU path: the same
+        keyframes, points, observations, keyframe database and loop-closing
+        state as the card at that frame, poses within LC_POSE_ATOL."""
+        lc = self.lc
+        s, fps, snap, _ = self._lc_drive(lc.voc, device="cpu", n=N_LC_CPU,
+                                         snapshot_at=N_LC_CPU)
+        card = lc.snap_card
+        same = {k: card[k] == snap[k] for k in card if k != "twc"}
+        dT = float(np.abs(card["twc"] - snap["twc"]).max())
+        lc.out["cpu_vs_card"] = dict(frames=N_LC_CPU, equal=same, max_abs_pose_diff=dT,
+                                     cpu_fps=fps, keyframes=card["keyframes"],
+                                     points=card["points"], kfdb=len(card["kfdb"]))
+        print(f"loop closing, run (b) frames 0-{N_LC_CPU - 1} card vs CPU path: equal "
+              f"{same}; max |pose diff| {dT:.3g} ({card['keyframes']} keyframes, "
+              f"{card['points']} points, {len(card['kfdb'])} in the keyframe database); CPU "
+              f"path {fps:.2f} frames/s")
+        require(all(same.values()), f"card and CPU path differ: {same}")
+        require(dT <= LC_POSE_ATOL, f"poses differ by {dT}")
+
+    def lc_correction(self):
+        """The correction path on the card (the LC world closes no loop, as
+        bench.py's TPU record shows for the reference): a revisit of 120
+        landmarks seen by two keyframes as disjoint point sets
+        (tests/test_loop_closing.py's scenario) through _compute_sim3 (BoW
+        matching, Sim3 RANSAC, Sim3 window search, Sim3 LM) and
+        _correct_loop (propagation, loop fuse, essential graph, the deferred
+        global BA merged by collect_gba), twice on the card (the first call
+        pays the solver libraries' start-up) and on the CPU path: the two
+        card runs bit-equal; the same loop keyframe, verified matches, live
+        points and observations as the CPU path, poses within 1e-4, points
+        within 1e-3."""
+        port = self.port
+        out = []
+        for dev in ("cuda", "cuda", "cpu"):   # the card cold, then warm
+            m, voc, cfg = self._revisit_map(dev)
+            lc = port["loop_closing"].LoopClosing(
+                cfg, m, voc, port["keyframe_db"].KeyFrameDatabase(voc), dev)
+            lc.stage_timer = timer = StageTimer()
+            for k in (0, 1):
+                lc.bow.ensure(k)
+            with timer.time("lc_sim3"):
+                match = lc._compute_sim3(1, [0], True)
+            require(match is not None, f"{dev}: no Sim3 accepted")
+            with timer.time("lc_correct"):
+                lc._correct_loop(1, match[0], match[1], match[2], fix_scale=True)
+                merged = lc.collect_gba()
+            out.append((m, match, merged, timer))
+        (m0, _, _, t0), (mc, gc, merged_c, tc), (mp, gp, merged_p, tp) = out
+        n = mc.n_points
+        repeat = bool(np.array_equal(m0.kf_pose[:2], mc.kf_pose[:2])
+                      and np.array_equal(m0.pt_pos[:n], mc.pt_pos[:n]))
+        same = dict(loop_kf=gc[0] == gp[0], matched=gc[2] == gp[2], merged=merged_c == merged_p,
+                    alive=bool(np.array_equal(mc.pt_alive[:n], mp.pt_alive[:n])),
+                    obs=mc.pt_obs[:n] == mp.pt_obs[:n])
+        dT = float(np.abs(mc.kf_pose[:2] - mp.kf_pose[:2]).max())
+        alive = mc.pt_alive[:n]
+        dX = float(np.abs(mc.pt_pos[:n][alive] - mp.pt_pos[:n][alive]).max())
+        self.lc.out["correction_card_vs_cpu"] = dict(
+            equal=same, max_abs_pose_diff=dT, max_abs_point_diff=dX,
+            matched=len(gc[2]), points_alive=int(alive.sum()),
+            card_repeatable=repeat,
+            card_first_ms=dict(sim3=t0.median("lc_sim3"), correct=t0.median("lc_correct")),
+            card_ms=dict(sim3=tc.median("lc_sim3"), correct=tc.median("lc_correct")),
+            cpu_ms=dict(sim3=tp.median("lc_sim3"), correct=tp.median("lc_correct")))
+        print(f"loop closing, correction on a revisit, card vs CPU path: equal {same}; max "
+              f"|pose diff| {dT:.3g}, max |point diff| {dX:.3g}; {len(gc[2])} verified "
+              f"matches, {int(alive.sum())} points alive after the fuse; two card runs "
+              f"bit-equal {repeat}; card ms sim3 {t0.median('lc_sim3'):.1f} (first call), "
+              f"{tc.median('lc_sim3'):.1f} (second), correct {t0.median('lc_correct'):.1f} / "
+              f"{tc.median('lc_correct'):.1f}; CPU path sim3 {tp.median('lc_sim3'):.1f}, "
+              f"correct {tp.median('lc_correct'):.1f}")
+        require(all(same.values()), f"correction differs: {same}")
+        require(repeat, "two card runs of the correction differ")
+        require(dT <= 1e-4 and dX <= 1e-3, f"correction poses {dT}, points {dX}")
+
+    def _revisit_map(self, dev):
+        """Keyframe 0 at the origin and keyframe 1 offset by (0.1, 0.02,
+        0.05) m over the same 120 landmarks, registered as two disjoint
+        point sets (an unrecognized revisit), keypoint tensors on dev."""
+        torch, port = self.torch, self.port
+        rng = np.random.default_rng(17)
+        C = port["config"]
+        cfg = C.Config()
+        cfg.camera = C.CameraConfig(fx=400, fy=400, cx=160, cy=120, bf=200, width=320,
+                                    height=240)
+        m = port["map_store"].MapStore(n_levels=8, scale_factor=1.2)
+        n, cap = 120, 256
+        Xw = np.stack([rng.uniform(-4, 4, n), rng.uniform(-3, 3, n),
+                       rng.uniform(6, 14, n)], 1).astype(np.float32)
+        descs = rng.integers(0, 256, (n, 32)).astype(np.uint8)
+        T1 = np.eye(4, dtype=np.float32)
+        T1[:3, 3] = [0.1, 0.02, 0.05]
+        for k, T in enumerate((np.eye(4, dtype=np.float32), T1)):
+            pc = Xw @ T[:3, :3].T + T[:3, 3]
+            uv = np.stack([400 * pc[:, 0] / pc[:, 2] + 160, 400 * pc[:, 1] / pc[:, 2] + 120], 1)
+            valid = np.arange(cap) < n
+            pad = lambda a: np.concatenate([a, np.zeros((cap - n,) + a.shape[1:], a.dtype)])  # noqa: E731
+            kp = port["extractor"].Keypoints(
+                xy=torch.as_tensor(pad(uv.astype(np.float32))).to(dev),
+                response=torch.zeros(cap, device=dev),
+                octave=torch.zeros(cap, dtype=torch.int32, device=dev),
+                angle=torch.zeros(cap, device=dev),
+                desc=torch.as_tensor(pad(descs)).to(dev),
+                valid=torch.as_tensor(valid).to(dev),
+                yx_level=torch.zeros((cap, 2), dtype=torch.int32, device=dev))
+            f = port["frame"].Frame(frame_id=k, timestamp=float(k), kp=kp,
+                                    u_right=np.full(cap, -1.0, np.float32),
+                                    depth=np.full(cap, -1.0, np.float32),
+                                    qual_score=np.ones(cap, np.float32), pose=T)
+            kf = m.add_keyframe(f)
+            for i in range(n):
+                pos = Xw[i] if k == 0 else Xw[i] + rng.normal(0, 0.01, 3).astype(np.float32)
+                pid = m.add_point(pos, kf)
+                m.add_observation(pid, kf, i)
+                f.map_pt[i] = pid
+                m.pt_desc[pid] = descs[i]
+                m.update_normal_and_depth(pid)
+        voc = port["vocabulary"].Vocabulary.train(descs, k=6, L=3, seed=3)
+        return m, voc, cfg
+
+    def lc_1m(self):
+        """bench.py's lc1m vocabulary, Vocabulary.synthesize(k=10, L=6,
+        seed=0) (~1.1M nodes): the device descent on the card equals the
+        host descent on the 800 descriptors of one LC-world frame; both
+        timed."""
+        torch, port, lc = self.torch, self.port, self.lc
+        t0 = time.perf_counter()
+        voc = port["vocabulary"].Vocabulary.synthesize(k=10, L=6, seed=0)
+        synth_s = time.perf_counter() - t0
+        fe = port["frame"].StereoFrontend(lc.cfg, LC_H, LC_W)
+        fr = fe.process(*lc.pairs[0], 0.0)
+        desc = fr.kp.desc
+        t0 = time.perf_counter()
+        host = voc.transform_words(desc.cpu().numpy())
+        host_ms = (time.perf_counter() - t0) * 1e3
+        dev = voc.transform_words_device(desc)
+        children, node_desc = port["bow"]._dev_tree(voc, desc.device)
+        dev_ms = event_ms(torch, lambda: port["bow"].transform_words(
+            children, node_desc, desc, voc.L), iters=20)
+        equal = bool(np.array_equal(dev, host))
+        lc.out["lc1m"] = dict(nodes=len(voc.node_desc), words=voc.n_words,
+                              descriptors=int(desc.shape[0]), device_equals_host=equal,
+                              device_descent_ms=dev_ms, host_descent_ms=host_ms,
+                              synthesize_s=synth_s)
+        print(f"loop closing, 1M-leaf vocabulary ({len(voc.node_desc)} nodes, synthesized "
+              f"in {synth_s:.1f} s): device descent of {desc.shape[0]} descriptors "
+              f"{dev_ms:.3f} ms (CUDA events), host descent {host_ms:.1f} ms; equal {equal}")
+        require(equal, "device descent differs from the host descent")
+
 
 def main() -> int:
     try:
@@ -1354,8 +1713,9 @@ def main() -> int:
     from iv_slam_tpu_torch.io import trajectory
     from iv_slam_tpu_torch.ops import (brief, fast, fast_cuda, finish_cuda, orient,
                                        stereo_cuda)
-    from iv_slam_tpu_torch.ops import match, triangulate
-    from iv_slam_tpu_torch.slam import device_map, frame, fused_track, map_store, system
+    from iv_slam_tpu_torch.ops import bow, extractor, match, triangulate
+    from iv_slam_tpu_torch.slam import (device_map, frame, fused_track, keyframe_db,
+                                        loop_closing, map_store, system, vocabulary)
     from iv_slam_tpu_torch.solvers import ba_core, local_ba
 
     ops = SimpleNamespace(brief=brief, fast=fast, fast_cuda=fast_cuda,
@@ -1364,7 +1724,9 @@ def main() -> int:
             "fused": fused_track, "map_store": map_store, "device_map": device_map,
             "trajectory": trajectory, "system": system, "match": match,
             "triangulate": triangulate, "local_ba": local_ba, "ba_core": ba_core,
-            "models": models}
+            "models": models, "extractor": extractor, "bow": bow,
+            "vocabulary": vocabulary, "keyframe_db": keyframe_db,
+            "loop_closing": loop_closing}
 
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -1424,6 +1786,18 @@ def main() -> int:
         else:
             smoke.phase(name, fn)
     intro_ok = loop_ok and len(smoke.failures) == n_fail
+    # loop closing, also before any profiling
+    n_fail = len(smoke.failures)
+    for name, fn in (("loop closing setup", smoke.lc_setup),
+                     ("loop closing K1-K3 at the LC world's shapes", smoke.lc_kernels),
+                     ("loop closing (a) control, (b) with loop closing", smoke.lc_loops),
+                     ("loop closing (b) card vs CPU path", smoke.lc_cpu_vs_card),
+                     ("loop closing correction card vs CPU path", smoke.lc_correction),
+                     ("loop closing 1M-leaf descent", smoke.lc_1m)):
+        if not loop_ok or len(smoke.failures) > n_fail:
+            smoke.failures.append(f"{name}: skipped, an earlier phase failed")
+        else:
+            smoke.phase(name, fn)
     if len(smoke.kernels) == 3:
         smoke.phase("kernel device times", smoke.device_times)
     if smoke.trk is not None and smoke.trk.record is not None:
@@ -1444,10 +1818,11 @@ def main() -> int:
               f"device {k['ms']:.4f} ms/frame (events {k['event_ms']:.4f}), plain "
               f"{k['plain_ms']:.4f} ms/frame (events {k['plain_event_ms']:.4f}), bound "
               f"{k['bound_ms']:.4f} ms ({k['bound_by']}), {k['launches_introspection']} "
-              f"launches on the introspection loop, on {card}")
+              f"launches on the introspection loop, {k['launches_loop_closing']} on the "
+              f"loop-closing loop, on {card}")
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms", "event_ms", "plain_event_ms",
-             "launches_introspection")
+             "launches_introspection", "launches_loop_closing")
     kernels = [{k: smoke.kernels[n][k] for k in order}
                for n in ("fast_score", "orient_brief", "sad_windows")]
     print(json.dumps({"frontend": smoke.fps,
@@ -1455,6 +1830,11 @@ def main() -> int:
     print(json.dumps({"tracking": dict(smoke.trk.out, card=card)}))
     print(json.dumps({"full_loop": dict(smoke.trk.loop, card=card)}))
     print(json.dumps({"introspection": dict(smoke.intro.out, card=card)}))
+    print(json.dumps({"loop_closing": dict(
+        smoke.lc.out, card=card, configuration=dict(
+            unchained=True, single_threaded=True, sync_local_ba=True, fused_tracking=True,
+            n_features=800, n_levels=8, fps=4.0, vocabulary="trained k=10 L=6 seed=0"))},
+        default=float))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

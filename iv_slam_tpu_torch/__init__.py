@@ -14,10 +14,13 @@ Layout (mirrors the JAX package):
   ops/           image, pyramid, FAST, orientation, BRIEF, Hamming, stereo,
                  extractor; each kernel has a ``*_cuda.py`` wrapper beside
                  its plain PyTorch version; projection matching and fuse,
-                 triangulation
-  solvers/       pose LM, bundle adjustment (Schur LM + local BA window)
+                 triangulation; vocabulary-tree descent, BoW and Sim3
+                 matching
+  solvers/       pose LM, bundle adjustment (Schur LM, local and global BA),
+                 PnP and Sim3 RANSAC, Sim3 LM, the essential graph
   slam/          Frame + StereoFrontend, MapStore, DeviceMap, the fused
-                 tracking step, LocalMapping, Tracking, System
+                 tracking step, LocalMapping, Tracking, System, the
+                 vocabulary and keyframe database, LoopClosing
   models/        the introspection FCN (MobileNetV2-dilated + C1-DeepSup)
                  for cost-map inference, and its weight loaders
   io/            trajectory writers and metrics

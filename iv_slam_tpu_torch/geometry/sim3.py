@@ -130,3 +130,16 @@ def sim3_log(S: Sim3) -> torch.Tensor:
     Wmat = _calc_w(w, sigma)
     v = torch.linalg.solve(Wmat, S.t[..., None])[..., 0]
     return torch.cat([w, v, sigma[..., None]], dim=-1)
+
+
+def jacobian7(f, xi: torch.Tensor) -> torch.Tensor:
+    """Forward-mode Jacobian of a row-wise function of tangents: f maps
+    (B, 7) to (B, ...), row b depending on xi[b] alone; returns (B, ..., 7)
+    (``jax.jacfwd`` of the reference, vmapped over rows): one
+    ``torch.func.jvp`` vmapped over the 7 coordinate directions, each set in
+    every row at once. The primal stays batched over rows: torch's forward
+    mode promotes the tangent of a 0-d float32 tensor combined with a
+    Python number to float64."""
+    basis = torch.eye(7, dtype=xi.dtype, device=xi.device)[:, None, :].expand(7, *xi.shape)
+    cols = torch.func.vmap(lambda v: torch.func.jvp(f, (xi,), (v,))[1])(basis)
+    return cols.movedim(0, -1)

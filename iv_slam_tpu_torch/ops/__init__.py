@@ -1,1 +1,3 @@
-"""Image and feature ops of the stereo frontend; ``*_cuda.py`` wrap the CUDA kernels."""
+"""Image, feature and matching ops: the stereo frontend, projection and BoW
+matching, triangulation, the vocabulary-tree descent; ``*_cuda.py`` wrap the
+CUDA kernels."""

@@ -1,5 +1,6 @@
 """The SLAM runtime: frames and the stereo frontend, the map and its device
-mirror, the fused tracking step, local mapping, tracking and System."""
+mirror, the fused tracking step, local mapping, the vocabulary, keyframe
+database and loop closing, tracking and System."""
 
 import torch
 

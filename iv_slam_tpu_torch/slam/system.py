@@ -6,10 +6,14 @@ map's save/load, with local mapping run inline after each keyframe (the
 reference's single-threaded mode, System.cc:177-189).
 
 ``System(cfg, height, width)`` runs on CUDA and raises without it;
-``device="cpu"`` runs the plain PyTorch path (the tests). Not ported yet,
-and raising NotImplementedError: mono and RGB-D tracking (ROADMAP A9), the
-vocabulary (A8), training-data generation (A12), and the config switches
-that ``tracking.check_config`` names.
+``device="cpu"`` runs the plain PyTorch path (the tests).
+``attach_vocabulary`` enables BoW tracking, relocalization and loop
+closing (``cfg.system.use_bow``, ``enable_loop_closing``); a deferred
+global BA merges at the next keyframe event or when the trajectory is
+read. ``activate_localization_mode`` tracks without mapping. Not ported
+yet, and raising NotImplementedError: mono and RGB-D tracking (ROADMAP
+A9), training-data generation (A12), and the config switches that
+``tracking.check_config`` names.
 """
 
 from __future__ import annotations
@@ -62,7 +66,9 @@ class System:
         raise NotImplementedError("RGB-D tracking is not ported yet (ROADMAP A9)")
 
     def attach_vocabulary(self, voc):
-        raise NotImplementedError("BoW and relocalization are not ported yet (ROADMAP A8)")
+        """Enable the BoW features: relocalization and loop closing (the
+        reference loads ORBvoc at startup, System.cc:105)."""
+        self.tracking.attach_vocabulary(voc)
 
     def enable_datagen(self, out_path=None):
         raise NotImplementedError("training-data generation is not ported yet (ROADMAP A12)")
@@ -80,6 +86,8 @@ class System:
             if fr is not None:   # the keyframes' keypoints onto the tracker's device
                 fr.kp = type(fr.kp)(*(t.to(tr.device) for t in fr.kp))
         tr.local_mapping.map = tr.map
+        if hasattr(tr, "voc"):
+            tr.attach_vocabulary(tr.voc)   # a database for the loaded map
         tr.mark_map_dirty()
 
     # --- state -------------------------------------------------------------
@@ -92,15 +100,33 @@ class System:
     def failure_count(self) -> int:
         return self.tracking.failure_count
 
+    def activate_localization_mode(self):
+        """System::ActivateLocalizationMode (System.h:122): tracking only, no
+        keyframes or mapping; temporary VO points carry the motion model."""
+        self.tracking.only_tracking = True
+
+    def deactivate_localization_mode(self):
+        self.tracking.only_tracking = False
+
     def reset(self):
         self.tracking._reset()
 
+    def _collect_gba(self):
+        lc = getattr(self.tracking, "loop_closing", None)
+        if lc is not None and lc.collect_gba():
+            self.tracking.mark_map_dirty()
+
     def shutdown(self):
-        """Local mapping runs inline, so nothing is left to join or stop."""
+        """Local mapping runs inline; only a deferred global BA is left to
+        merge (the reference joins its threads on Shutdown)."""
+        self._collect_gba()
 
     # --- output (System.h:148-163) ------------------------------------------
 
     def trajectory_twc(self):
+        # merge a deferred global BA so the trajectory composes against the
+        # final keyframe poses
+        self._collect_gba()
         return self.tracking.trajectory_poses()
 
     def save_trajectory_kitti(self, path: str):
@@ -114,6 +140,7 @@ class System:
     def save_keyframe_trajectory_tum(self, path: str):
         """SaveKeyFrameTrajectoryTUM (System.cc:614-676): keyframe poses
         only, by id, timestamp + Twc quaternion per line."""
+        self._collect_gba()
         m = self.tracking.map
         times, poses = [], []
         for k in range(m.n_keyframes):

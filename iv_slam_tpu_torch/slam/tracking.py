@@ -6,10 +6,13 @@ single-threaded (the reference's bSingleThreaded path, System.cc:177-189):
   NOT_INITIALIZED -> StereoInitialization (Tracking.cc:882)
   OK   -> the fused step (slam/fused_track.py) when
           cfg.system.fused_tracking, else or on its failure
-          TrackWithMotionModel (1303) | TrackReferenceKeyFrame (1154)
+          TrackWithMotionModel (1303) | TrackReferenceKeyFrame (1154; by
+          SearchByBoW when a vocabulary is attached and use_bow is on)
           -> TrackLocalMap (1509)
        -> NeedNewKeyFrame (1694) / CreateNewKeyFrame -> LocalMapping.LoopOnce
-  LOST -> failure accounting + reset (829-854) and re-initialization
+          -> LoopClosing.process_keyframe (enable_loop_closing)
+  LOST -> Relocalization (use_bow), else failure accounting + reset
+          (829-854) and re-initialization
 
 Extraction, stereo matching, the projection searches, the pose LM and the
 keyframe event's device work run on one device (``device``: CUDA unless
@@ -21,11 +24,21 @@ an FCN attached to ``frontend``) weights its extraction and seeds its
 keypoints' quality, which scales the Huber deltas of the pose LM and of
 local BA; ``cfg.iv.ba_mode == "vis"`` also updates map-point quality in BA.
 
+With a vocabulary attached (``attach_vocabulary``) the keyframe database
+and the shared BoW cache exist; ``cfg.system.enable_loop_closing`` runs
+``LoopClosing.process_keyframe`` inline after each keyframe event, and a
+deferred global BA merges at the next one. ``only_tracking`` (System's
+localization mode) tracks against the map without inserting keyframes,
+carrying the motion model on temporary VO points.
+
+The PnP RANSAC of relocalization draws its hypotheses through
+``self.pnp_sampler`` (default ``pnp.sample_pnp``), called as
+sampler(frame_id, valid, device).
+
 Not ported yet, and refused by ``check_config`` or the entry point: the
 LocalMapping worker, async local BA, chained tracking and prewarm (ROADMAP
-A7), BoW relocalization (A8), mono and RGB-D tracking (A9), loop closing
-(A10), training-data generation, GT depth maps and the constrained BA
-mode (A12), and the localization-only mode.
+A7), mono and RGB-D tracking (A9), training-data generation, GT depth maps
+and the constrained BA mode (A12).
 """
 
 from __future__ import annotations
@@ -41,12 +54,15 @@ import torch
 from ..config import Config
 from ..geometry import camera
 from ..ops import match as match_ops
-from ..solvers import pose_opt
+from ..ops import bow_match
+from ..solvers import pnp, pose_opt
 from . import resolve_device
 from .device_map import DeviceMap
 from .frame import Frame, StereoFrontend
 from .fused_track import LOCAL_CAP, FusedTracker
 from .local_mapping import LocalMapping
+from .keyframe_db import KeyFrameBow, KeyFrameDatabase
+from .loop_closing import LoopClosing
 from .map_store import MapStore
 
 log = logging.getLogger(__name__)
@@ -67,9 +83,7 @@ def check_config(cfg: Config) -> None:
         (s.async_local_ba, "async_local_ba", "A7"),
         (s.chained_tracking, "chained_tracking", "A7"),
         (s.prewarm, "prewarm", "A7"),
-        (s.use_bow, "use_bow", "A8"),
         (s.sensor != "stereo", f"sensor={s.sensor!r}", "A9"),
-        (s.enable_loop_closing, "enable_loop_closing", "A10"),
         (cfg.iv.ba_mode not in ("standard", "vis"), f"iv.ba_mode={cfg.iv.ba_mode!r}", "A12"),
         # the port always runs the chunked shape family, the reference's
         # choice on a low-RTT link, and probes no link
@@ -100,6 +114,10 @@ class Tracking:
         self.local_kfs: List[int] = []
         self.local_pts: np.ndarray = np.zeros(0, np.int64)
         self.n_inliers = 0
+        # localization-only mode (System.activate_localization_mode)
+        self.only_tracking = False
+        self._temporal_points: List[int] = []
+        self.pnp_sampler = pnp.sample_pnp
         self.min_frames = 0
         self.max_frames = int(cfg.camera.fps)
         # the fused step and its device map mirror, built at first use
@@ -163,6 +181,7 @@ class Tracking:
             self.cfg.system.fused_tracking
             and self.state == State.OK
             and self.velocity is not None
+            and not self.only_tracking
             and self.last_frame is not None
             and self.last_frame.pose is not None
         )
@@ -191,7 +210,7 @@ class Tracking:
     def _track(self):
         frame = self.current
         if frame.defer and not (self.cfg.system.fused_tracking and self.state == State.OK
-                                and self.velocity is not None):
+                                and self.velocity is not None and not self.only_tracking):
             frame.materialize()  # only the fused path defers
         if self.state in (State.NO_IMAGES_YET, State.NOT_INITIALIZED):
             self.state = State.NOT_INITIALIZED
@@ -206,13 +225,16 @@ class Tracking:
         ok = False
         fused_done = False
         if self.state == State.OK:
-            if self.cfg.system.fused_tracking and self.velocity is not None:
+            if (self.cfg.system.fused_tracking and self.velocity is not None
+                    and not self.only_tracking):
                 ok = self._track_fused()
                 fused_done = ok  # the fused step ran the local-map stage
             if not ok and self.velocity is not None:
                 ok = self._track_with_motion_model()
             if not ok and not fused_done:
                 ok = self._track_reference_keyframe()
+        elif self.state == State.LOST and self.cfg.system.use_bow:
+            ok = self._relocalization()
         if ok and not fused_done:
             ok = self._track_local_map()
         if ok:
@@ -222,7 +244,14 @@ class Tracking:
             out = frame.outlier & (frame.map_pt >= 0)
             frame.map_pt[out] = -1
             frame.outlier[:] = False
-            if self._need_new_keyframe():
+            if self.only_tracking:
+                # drop references to observation-less (VO) points, then the
+                # points themselves (Tracking.cc:789-807)
+                for i in np.nonzero(frame.map_pt >= 0)[0]:
+                    if not self.map.pt_obs[int(frame.map_pt[i])]:
+                        frame.map_pt[i] = -1
+                self._delete_temporal_points()
+            elif self._need_new_keyframe():
                 with self._stage("keyframe_event"):
                     self._create_new_keyframe()
             self._record_trajectory(lost=False)
@@ -368,10 +397,36 @@ class Tracking:
 
     def _update_last_frame(self):
         """Tracking::UpdateLastFrame: refresh the last frame's pose from its
-        reference keyframe."""
+        reference keyframe; in localization-only mode, seed temporary VO
+        points from its stereo depths (close points, or the 100 nearest)."""
         last = self.last_frame
         if last.ref_kf >= 0 and self.rel_poses:
             last.set_pose(self.rel_poses[-1] @ self.map.kf_pose[last.ref_kf])
+        if (not self.only_tracking or last.frame_id == self.last_kf_frame_id
+                or self.cfg.system.sensor == "mono"):
+            return
+        cam = self.cfg.camera
+        order = np.argsort(np.where(last.depth > 0, last.depth, np.inf))
+        n_points = 0
+        for i in order:
+            z = last.depth[i]
+            if z <= 0:
+                break
+            pid = int(last.map_pt[i])
+            if pid < 0 or not self.map.pt_obs[pid]:
+                pos = last.unproject_stereo(i, cam.fx, cam.fy, cam.cx, cam.cy)
+                new_pid = self.map.add_point(pos, -1)
+                self.map.pt_desc[new_pid] = last.desc[i]
+                last.map_pt[i] = new_pid
+                self._temporal_points.append(new_pid)
+            n_points += 1
+            if z > cam.depth_threshold and n_points > 100:
+                break
+
+    def _delete_temporal_points(self):
+        for pid in self._temporal_points:
+            self.map.kill_point(pid)
+        self._temporal_points.clear()
 
     def _track_with_motion_model(self) -> bool:
         frame = self.current
@@ -429,16 +484,49 @@ class Tracking:
         frame.qual_score[idx] = updated
 
     def _track_reference_keyframe(self) -> bool:
-        """Tracking::TrackReferenceKeyFrame (1154-1240), the use_BoW=false
-        projection variant: a th=5 window search from the last pose."""
+        """Tracking::TrackReferenceKeyFrame (1154-1240). With a vocabulary
+        attached and use_bow, the reference's use_BoW=true branch first:
+        windowless SearchByBoW against the reference keyframe. Else, or on
+        its failure, the use_BoW=false projection variant: a th=5 window
+        search from the last pose."""
         frame = self.current
         frame.set_pose(self.last_frame.pose)
         frame.map_pt[:] = -1
+        if self.cfg.system.use_bow and getattr(self, "voc", None) is not None:
+            if self._track_reference_keyframe_bow():
+                return True
+            frame.set_pose(self.last_frame.pose)
+            frame.map_pt[:] = -1
         swm = self.cfg.matcher.search_window_multiplier
         n = self._search_local_points(th=5.0 * swm,
                                       nn_ratio=0.7 * self.cfg.matcher.nn_ratio_multiplier)
         if n < 15:
             return False
+        self._pose_optimize(frame)
+        return self._discard_outliers(frame) >= 10
+
+    def _track_reference_keyframe_bow(self) -> bool:
+        """SearchByBoW(ref KF, current) -> pose optimization
+        (ORBmatcher.cc SearchByBoW + Tracking.cc:1165-1175)."""
+        frame = self.current
+        rf = self.map.kf_frames[self.ref_kf]
+        if rf is None:
+            return False
+        ref_has = (rf.map_pt >= 0) & rf.valid
+        if ref_has.sum() < 15:
+            return False
+        ref_nodes = self.voc.feature_nodes(rf.desc, rf.valid)
+        cur_nodes = self.voc.feature_nodes(frame.desc, frame.valid)
+        assign, n = bow_match.search_by_bow(
+            rf.kp.desc, self._up(ref_nodes), rf.kp.angle, self._up(ref_has),
+            frame.kp.desc, self._up(cur_nodes), frame.kp.angle, frame.kp.valid,
+            self._f32(0.7 * self.cfg.matcher.nn_ratio_multiplier))
+        out = torch.cat([assign, n[None]]).cpu().numpy()
+        assign, n = out[:-1], int(out[-1])
+        if n < 15:
+            return False
+        ai = np.nonzero(assign >= 0)[0]        # reference keyframe features
+        frame.map_pt[assign[ai]] = rf.map_pt[ai]
         self._pose_optimize(frame)
         return self._discard_outliers(frame) >= 10
 
@@ -458,7 +546,12 @@ class Tracking:
         # statistics + strip stereo outliers (Tracking.cc:1655-1684)
         good = (frame.map_pt >= 0) & ~frame.outlier
         self.map.increase_found(frame.map_pt[good])
-        self.n_inliers = int(np.count_nonzero(self.map.pt_n_obs[frame.map_pt[good]] > 0))
+        if self.only_tracking:
+            # localization mode counts every non-outlier match
+            # (Tracking.cc:1661-1666)
+            self.n_inliers = int(good.sum())
+        else:
+            self.n_inliers = int(np.count_nonzero(self.map.pt_n_obs[frame.map_pt[good]] > 0))
         bad = (frame.map_pt >= 0) & frame.outlier
         frame.map_pt[bad] = -1
         frame.outlier[bad] = False
@@ -572,11 +665,22 @@ class Tracking:
 
     def _create_new_keyframe(self):
         """Tracking.cc:1774-1860: promote the frame to a keyframe, create its
-        close stereo points, then run local mapping inline (LoopOnce)."""
+        close stereo points, then run local mapping inline (LoopOnce) and,
+        with loop closing on, LoopClosing on the reference keyframe."""
         frame = self.current
         self._create_new_keyframe_locked(frame)
         run_ba = frame.frame_id % max(self.cfg.iv.tracking_ba_rate, 1) == 0
         self.local_mapping.loop_once(run_ba=run_ba)
+        if (self.cfg.system.enable_loop_closing and hasattr(self, "loop_closing")
+                and self.map.kf_alive[self.ref_kf]):
+            # merge a deferred global BA from an earlier closure before
+            # anything else touches the map at this keyframe event (the next
+            # keyframe event is the join point of the reference's GBA thread)
+            if self.loop_closing.collect_gba():
+                self._mark_mirror_stale()
+            if self.loop_closing.process_keyframe(self.ref_kf,
+                                                  fix_scale=self.cfg.system.sensor != "mono"):
+                self._mark_mirror_stale()
 
     def _create_new_keyframe_locked(self, frame):
         kf_id = self.map.add_keyframe(frame)
@@ -630,6 +734,78 @@ class Tracking:
         self._mark_mirror_stale()
         self.local_mapping.insert_keyframe(kf_id)
 
+    # -------------------------------------------------------- relocalization
+
+    def attach_vocabulary(self, voc):
+        """Enable the BoW features: reference-keyframe tracking by BoW and
+        relocalization (use_bow), loop closing (enable_loop_closing)."""
+        self.voc = voc
+        self.kfdb = KeyFrameDatabase(voc)
+        self.kf_bow = KeyFrameBow(voc, self.map, self.device)
+        self.loop_closing = LoopClosing(self.cfg, self.map, voc, self.kfdb, self.device,
+                                        bow=self.kf_bow)
+
+    def _relocalization(self) -> bool:
+        """Tracking::Relocalization (2272-2421): BoW candidates -> per-
+        candidate BoW matching -> PnP RANSAC -> pose optimization; accept at
+        >= 50 inliers. (The IV-SLAM fork resets instead of relocalizing,
+        Tracking.cc:829-854, so the reference's loop never reaches this:
+        a lost frame resets at once.)"""
+        if not hasattr(self, "voc") or self.map.n_keyframes == 0:
+            return False
+        frame = self.current
+        leaf = self.voc.transform_nodes(frame.desc, frame.valid)
+        bow = self.voc.bow_vector(frame.desc, nodes=leaf)
+        cands = self.kfdb.detect_relocalization_candidates(bow, self.map)
+        if not cands:
+            return False
+        nodes_cur = self.voc.feature_nodes(frame.desc, nodes=leaf)
+        cam = self.cfg.camera
+        sf2 = self.map.scale_factors ** 2
+        for cand in cands[:5]:
+            cf = self.map.kf_frames[cand]
+            if cf is None:
+                continue
+            self.kf_bow.ensure(cand)
+            assign, n = bow_match.search_by_bow(
+                cf.kp.desc, self._up(self.kf_bow.kf_nodes[cand]), cf.kp.angle,
+                self._up((cf.map_pt >= 0) & cf.valid),
+                frame.kp.desc, self._up(nodes_cur), frame.kp.angle, frame.kp.valid,
+                self._f32(0.75))
+            out = torch.cat([assign, n[None]]).cpu().numpy()
+            assign_np, n = out[:-1], int(out[-1])
+            if n < 15:
+                continue
+            ai = np.nonzero(assign_np >= 0)[0]
+            pids = cf.map_pt[ai]
+            alive = self.map.pt_alive[pids]
+            ai, pids = ai[alive], pids[alive]
+            bi = assign_np[ai]
+            if len(ai) < 6:
+                continue
+            cap = frame.xy.shape[0]
+            Xw = np.zeros((cap, 3), np.float32)
+            uv = np.zeros((cap, 2), np.float32)
+            s2 = np.ones(cap, np.float32)
+            val = np.zeros(cap, bool)
+            Xw[: len(ai)] = self.map.pt_pos[pids]
+            uv[: len(ai)] = frame.xy[bi]
+            s2[: len(ai)] = sf2[frame.octave[bi]]
+            val[: len(ai)] = True
+            res = pnp.pnp_ransac(self._up(Xw), self._up(uv), self._up(s2), self._up(val),
+                                 cam.fx, cam.fy, cam.cx, cam.cy,
+                                 self.pnp_sampler(frame.frame_id, val, self.device))
+            out = torch.cat([res.T.reshape(-1), res.ok.to(torch.float32)[None]]).cpu().numpy()
+            if out[16] == 0.0:
+                continue
+            frame.set_pose(out[:16].reshape(4, 4))
+            frame.map_pt[:] = -1
+            frame.map_pt[bi] = pids
+            if self._pose_optimize(frame) >= 50:
+                self.state = State.OK
+                return True
+        return False
+
     # -------------------------------------------------------------- failure
 
     def _handle_lost(self, timestamp: float):
@@ -660,6 +836,8 @@ class Tracking:
         self.local_kfs = []
         self.local_pts = np.zeros(0, np.int64)
         self._mark_mirror_stale()
+        if hasattr(self, "voc"):
+            self.attach_vocabulary(self.voc)  # a fresh database for the new map
 
     # ----------------------------------------------------------- trajectory
 

@@ -1,1 +1,2 @@
-"""Solvers: motion-only pose optimization."""
+"""Solvers: motion-only pose optimization, bundle adjustment, PnP and Sim3
+estimation, the Sim3 LM and the essential graph."""

@@ -226,7 +226,10 @@ class _Ctx:
             S = torch.where(fixed6[:, None] | fixed6[None, :], 0.0, S)
             S = S + torch.diag(torch.where(fixed6, 1.0, 1e-9))
             rhs = torch.where(fixed6, 0.0, rhs)
-            dc = numerics.rounded(torch.linalg.solve, S, rhs).reshape(n_kf, 6)
+            # a singular system gives non-finite steps, which the trial rejects
+            # (jnp.linalg.solve does not raise either); CUDA's solve would raise
+            dc = numerics.rounded(lambda a, b: torch.linalg.solve_ex(a, b)[0], S,
+                                  rhs).reshape(n_kf, 6)
             # back-substitute points: dp = Hpp^-1 (gp - U^T dc)
             Ut_dc = _mm64(U2f, dc.reshape(-1, 1)).reshape(n_pt, 3)
             dp = numerics.matmul(Hinv, (gp - Ut_dc)[..., None])[..., 0]
@@ -278,22 +281,29 @@ def ba_solve(
     K: camera.Intrinsics,
     n_iters1: int = 5,
     n_iters2: int = 10,
+    kernel2: bool = False,
+    midpoint_gate: bool = True,
 ) -> BAResult:
-    """LocalBundleAdjustment's two runs: optimize(n_iters1) with the robust
-    kernel, the outlier gate, then optimize(n_iters2) on the inliers with
-    the robust kernel REMOVED (Optimizer.cc:774, 790)."""
+    """The reference's two BA flavours. LocalBundleAdjustment: optimize
+    (n_iters1) with the robust kernel, the outlier gate, then optimize
+    (n_iters2) on the inliers with the robust kernel REMOVED
+    (Optimizer.cc:774, 790). Global BA (kernel2=True, midpoint_gate=False):
+    one robust run over every valid edge (Optimizer.cc:51-249)."""
     ctx = _Ctx(prob, K)
     # phase 1: n_iters1 iterations on all valid edges, robust kernel on
     kf_pose, pt_pos = ctx.lm(prob.kf_pose, prob.pt_pos, prob.e_valid, True, n_iters1)
 
     # outlier gate between phases (Optimizer.cc:786-817)
-    e, pc, _ = ctx.edge_terms(kf_pose, pt_pos)
-    c2 = _chi2(e, prob.e_inv_s2)
-    inlier = prob.e_valid & (c2 <= ctx.chi2_th) & (pc[:, 2] > 0)
+    if midpoint_gate:
+        e, pc, _ = ctx.edge_terms(kf_pose, pt_pos)
+        c2 = _chi2(e, prob.e_inv_s2)
+        inlier = prob.e_valid & (c2 <= ctx.chi2_th) & (pc[:, 2] > 0)
+    else:
+        inlier = prob.e_valid
 
-    # phase 2 on the inlier set; the reference strips the robust kernel
-    # here (setRobustKernel(0), Optimizer.cc:774,790)
-    kf_pose, pt_pos = ctx.lm(kf_pose, pt_pos, inlier, False, n_iters2)
+    # phase 2 on the inlier set; the local BA strips the robust kernel here
+    # (setRobustKernel(0), Optimizer.cc:774,790)
+    kf_pose, pt_pos = ctx.lm(kf_pose, pt_pos, inlier, kernel2, n_iters2)
 
     # final classification (Optimizer.cc:820-850)
     e, pc, _ = ctx.edge_terms(kf_pose, pt_pos)

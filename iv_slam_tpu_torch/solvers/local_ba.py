@@ -1,6 +1,8 @@
-"""Bundle-adjustment window assembly (Optimizer.cc:505-871 local BA).
+"""Bundle-adjustment window assembly (Optimizer.cc:505-871 local BA;
+Optimizer.cc:51-249 global BA).
 
-Port of the synchronous local-BA path of ``iv_slam_tpu/solvers/local_ba.py``:
+Port of the synchronous local-BA and the global-BA paths of
+``iv_slam_tpu/solvers/local_ba.py``:
 the host gathers a keyframe/point window, packs padded edge arrays at one
 of three rung sizes, runs the Schur LM (ba_core.py) on the map's device
 with one upload of the problem and one download of the result, and writes
@@ -12,9 +14,14 @@ which points survive.
 ``local_bundle_adjustment_vis`` adds the reference's per-point quality
 update from the final chi2 of each point's edges (Optimizer.cc:873-1293).
 
+Global BA (loop closing): ``global_bundle_adjustment`` blocks;
+``global_bundle_adjustment_async`` solves when it is dispatched and holds
+the result on the device in a ``GBAHandle``, and ``apply_global_ba``
+merges it later into a map that kept growing, the reference's
+RunGlobalBundleAdjustment merge-back (LoopClosing.cc:649-745).
+
 Not ported yet: the async local BA (``local_bundle_adjustment_async``,
-``apply_local_ba``, ROADMAP A7), the constrained variant (A12) and the
-global BA (A10).
+``apply_local_ba``, ROADMAP A7) and the constrained variant (A12).
 """
 
 from __future__ import annotations
@@ -39,6 +46,25 @@ LBA_RUNGS = (
 )
 
 
+# Global BA (loop closing's deferred GBA) rungs: at most 4 padded shapes
+# a session; maps beyond the last rung take the open grid below
+GBA_RUNGS = (
+    (64, 8192, 16384),
+    (64, 16384, 32768),
+    (128, 32768, 65536),
+    (256, 65536, 131072),
+)
+
+
+def _bucket(n: int, quantum: int = 2048) -> int:
+    """Pad to a coarse fixed grid (the blocking global BA's sizes)."""
+    return max(quantum, ((n + quantum - 1) // quantum) * quantum)
+
+
+def _bucket_kf(n: int) -> int:
+    return max(32, ((n + 31) // 32) * 32)
+
+
 def _pick_rung(table, n_kf: int, n_pt: int, n_e: int):
     """Smallest rung that fits (n_kf, n_pt, n_e); None if none fits."""
     for rung in table:
@@ -53,10 +79,14 @@ def _lba_rung(n_kf: int, n_pt: int, n_e: int):
     return r if r is not None else LBA_RUNGS[-1]
 
 
-def _assemble(cfg, m, local_kfs, fixed_kfs, pts):
-    """Pack a keyframe/point window into a host (numpy) BAProblem padded to
-    its LBA_RUNGS size. Returns (prob, all_kfs, e_feat, E) or None when the
-    window is degenerate."""
+def _assemble(cfg, m, local_kfs, fixed_kfs, pts, extra_fixed=frozenset(), gba_rungs=None):
+    """Pack a keyframe/point window into a host (numpy) BAProblem. Returns
+    (prob, all_kfs, e_feat, E) or None when the window is degenerate.
+
+    Local BA (gba_rungs None) pads to the smallest of LBA_RUNGS that fits,
+    else to the last with a strided edge subsample; global BA to the
+    smallest of gba_rungs that fits, else to the open grid of
+    ``_bucket``/``_bucket_kf``."""
     all_kfs = list(local_kfs) + list(fixed_kfs)
     kf_slot = {k: i for i, k in enumerate(all_kfs)}
     if len(pts) == 0 or len(all_kfs) < 2:
@@ -106,7 +136,13 @@ def _assemble(cfg, m, local_kfs, fixed_kfs, pts):
     if len(e_kf) < 10:
         return None
 
-    n_kf, n_pt, n_e = _lba_rung(len(all_kfs), len(pts), len(e_kf))
+    sizes = (len(all_kfs), len(pts), len(e_kf))
+    if gba_rungs is not None:
+        rung = _pick_rung(gba_rungs, *sizes) or (
+            _bucket_kf(sizes[0]), _bucket(sizes[1]), _bucket(sizes[2]))
+    else:
+        rung = _lba_rung(*sizes)
+    n_kf, n_pt, n_e = rung
     if len(e_kf) > n_e:
         # strided subsample keeps per-keyframe proportions roughly
         # intact (edges are concatenated per keyframe in order)
@@ -121,7 +157,7 @@ def _assemble(cfg, m, local_kfs, fixed_kfs, pts):
     kf_fixed = np.ones(n_kf, bool)
     for i, k in enumerate(all_kfs):
         # the origin keyframe stays fixed even when local (Optimizer.cc:545)
-        kf_fixed[i] = (i >= len(local_kfs)) or (k == m.origin_kf)
+        kf_fixed[i] = (i >= len(local_kfs)) or (k == m.origin_kf) or (k in extra_fixed)
 
     pt_pos = np.zeros((n_pt, 3), np.float32)
     pt_pos[: len(pts)] = m.pt_pos[pts]
@@ -173,6 +209,12 @@ def _trim_window(m, local_kfs, fixed_kfs, pts):
     return local_kfs, fixed_kfs, pts
 
 
+def _solve(cfg, prob_np, device, **opts):
+    """ba_solve of a host BAProblem on `device` (one upload)."""
+    prob = BAProblem(*(torch.as_tensor(a).to(device) for a in prob_np))
+    return ba_solve(prob, camera.Intrinsics.from_config(cfg.camera, device), **opts)
+
+
 def _run_ba(cfg, m, local_kfs, fixed_kfs, pts, device, return_edges=False):
     """Trim the window to the largest rung, assemble, solve on `device`
     (one upload, one download) and write back, erasing the observations
@@ -184,9 +226,7 @@ def _run_ba(cfg, m, local_kfs, fixed_kfs, pts, device, return_edges=False):
     if packed is None:
         return None
     prob_np, all_kfs, e_feat, E = packed
-    prob = BAProblem(*(torch.as_tensor(a).to(device) for a in prob_np))
-    K = camera.Intrinsics.from_config(cfg.camera, device)
-    res = ba_solve(prob, K)
+    res = _solve(cfg, prob_np, device)
     # one download for everything host-bound
     parts = [res.kf_pose.reshape(-1), res.pt_pos.reshape(-1), res.e_inlier.to(torch.float32)]
     if return_edges:
@@ -280,3 +320,121 @@ def local_bundle_adjustment_vis(cfg, m, kf_id: int, device):
         m.pt_quality[pid] = 2.0 * (1.0 / (1.0 + scaled)) - 1.0
         m.mark_dirty(pid)
     return rung
+
+
+class GBAHandle:
+    """A deferred global BA (the reference's GBA thread, LoopClosing.cc:584):
+    the solved problem's result stays on the device until
+    ``apply_global_ba`` merges it, correcting keyframes and points created
+    since (RunGlobalBundleAdjustment, LoopClosing.cc:649-745)."""
+
+    def __init__(self, res, kf_ids, pt_in_snapshot, n_points_snapshot):
+        self.res = res                        # BAResult (device tensors)
+        self.kf_ids = kf_ids                  # snapshot keyframe ids
+        self.pt_in_snapshot = pt_in_snapshot  # (n_points_snapshot,) bool
+        self.n_points_snapshot = n_points_snapshot
+
+
+def _dispatch_global_ba(cfg, m, device, n_iters, fixed_kfs, rungs):
+    """Optimizer::GlobalBundleAdjustemnt (Optimizer.cc:51-63) solved on
+    `device`: every live keyframe and point, only the origin keyframe (and
+    any in fixed_kfs) anchored; one robust run, no midpoint outlier
+    reclassification, Huber kept throughout, nothing erased. Padded to the
+    smallest of `rungs` that fits, else to the open grid. Returns a
+    GBAHandle with no host read of the result, or None when degenerate."""
+    alive_kfs = [k for k in range(m.n_keyframes) if m.kf_alive[k]]
+    if len(alive_kfs) < 2:
+        return None
+    pts = [p for p in range(m.n_points) if m.pt_alive[p] and m.pt_obs[p]]
+    packed = _assemble(cfg, m, alive_kfs, [], pts, extra_fixed=set(fixed_kfs), gba_rungs=rungs)
+    if packed is None:
+        return None
+    prob_np, all_kfs, _e_feat, _E = packed
+    res = _solve(cfg, prob_np, device, n_iters1=n_iters // 2,
+                 n_iters2=n_iters - n_iters // 2, kernel2=True, midpoint_gate=False)
+    in_snap = np.zeros(m.n_points, bool)
+    in_snap[np.asarray(pts, np.int64)] = True
+    return GBAHandle(res, list(all_kfs), in_snap, m.n_points)
+
+
+def global_bundle_adjustment(cfg, m, device, n_iters: int = 20, fixed_kfs=()):
+    """The global BA, blocking: solved on the open grid (the reference's
+    padded sizes for it) and merged at once."""
+    handle = _dispatch_global_ba(cfg, m, device, n_iters, fixed_kfs, rungs=())
+    if handle is not None:
+        apply_global_ba(handle, m)
+
+
+def global_bundle_adjustment_async(cfg, m, device, n_iters: int = 20, fixed_kfs=()):
+    """The global BA solved at dispatch and padded to GBA_RUNGS; its
+    GBAHandle (None when degenerate) is merged later by apply_global_ba:
+    tracking goes on against the uncorrected map until then, the
+    reference's concurrent-GBA semantics."""
+    return _dispatch_global_ba(cfg, m, device, n_iters, fixed_kfs, rungs=GBA_RUNGS)
+
+
+def apply_global_ba(handle: GBAHandle, m):
+    """Merge a finished global BA into a map that kept growing (one
+    download), the reference's RunGlobalBundleAdjustment merge:
+
+    * snapshot keyframes take their optimized poses (mTcwGBA);
+    * keyframes created since are corrected through the spanning tree:
+      T_new = (T_child @ T_parent_before^-1) @ T_parent_GBA, parent = the
+      most covisible already-corrected keyframe, in id order;
+    * snapshot points take their optimized positions (mPosGBA); points
+      created since ride their reference keyframe's before->after delta.
+    """
+    n_kf = handle.res.kf_pose.shape[0]
+    flat = torch.cat([handle.res.kf_pose.reshape(-1), handle.res.pt_pos.reshape(-1)])
+    flat = flat.cpu().numpy()
+    with m.lock:
+        _apply_global_ba_data(handle, m, flat[: n_kf * 16].reshape(n_kf, 4, 4),
+                              flat[n_kf * 16:].reshape(-1, 3))
+
+
+def _apply_global_ba_data(handle, m, new_kf_poses, new_pt_pos):
+    slot = {k: i for i, k in enumerate(handle.kf_ids)}
+
+    before = {}
+    for k, i in slot.items():
+        if not m.kf_alive[k]:
+            continue
+        before[k] = m.kf_pose[k].copy()
+        m.set_kf_pose(k, new_kf_poses[i])
+    corrected = set(before)
+
+    # keyframes created while the GBA was pending
+    new_kfs = [k for k in range(m.n_keyframes) if m.kf_alive[k] and k not in slot]
+    for k in sorted(new_kfs):
+        parent, best_w = -1, -1
+        for nb, w in m.covisible_keyframes(k):
+            if nb in corrected and w > best_w:
+                parent, best_w = nb, w
+        if parent < 0:
+            cand = [c for c in corrected if c < k]
+            if not cand:
+                continue
+            parent = max(cand)
+        T_child = m.kf_pose[k].copy()
+        T_new = (T_child @ np.linalg.inv(before[parent]) @ m.kf_pose[parent]).astype(np.float32)
+        before[k] = T_child
+        m.set_kf_pose(k, T_new)
+        corrected.add(k)
+
+    for pid in range(m.n_points):
+        if not m.pt_alive[pid]:
+            continue
+        if pid < handle.n_points_snapshot and handle.pt_in_snapshot[pid]:
+            continue  # snapshot points: below, vectorized
+        ref = int(m.pt_ref_kf[pid])
+        if ref not in before:
+            continue
+        pc = before[ref][:3, :3] @ m.pt_pos[pid] + before[ref][:3, 3]
+        Twc = np.linalg.inv(m.kf_pose[ref])
+        m.pt_pos[pid] = (Twc[:3, :3] @ pc + Twc[:3, 3]).astype(np.float32)
+
+    snap_ids = np.nonzero(handle.pt_in_snapshot)[0]
+    alive = m.pt_alive[snap_ids]
+    m.pt_pos[snap_ids[alive]] = new_pt_pos[: len(snap_ids)][alive]
+    m.update_normal_and_depth_batch(snap_ids[alive])
+    m.mark_all_dirty()  # a global merge rewrites most live rows

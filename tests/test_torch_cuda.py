@@ -5,7 +5,11 @@ main-path shapes are checked by chip_smoke.py; these cases cover the edges
 it does not reach: tiny and odd image sizes and level lists mixing them,
 keypoint counts that do not fill a block, keypoints 0-5 and 18-19 px
 from the canvas edges, clip-limit window centers, SAD canvases that are
-views at every byte offset mod 16, and the wrappers' refusals. This file imports no JAX, so it runs where JAX is not installed:
+views at every byte offset mod 16, and the wrappers' refusals. Beyond the
+kernels: the vocabulary's device descent against the host descent on the
+1M-leaf synthesized tree, and the Sim3 RANSAC on the card against the CPU
+path with the same sampled indices. This file imports no JAX, so it runs
+where JAX is not installed:
 
     python -m pytest -o addopts="" --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -160,3 +164,58 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     c = torch.full((4,), 10, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
         stereo_cuda.sad_windows(img, img.float(), c, c, c)
+
+
+def test_device_descent_equals_host_at_orbvoc_scale(dev):
+    """The 1M-leaf synthesized tree (k=10, L=6, bench.py's lc1m vocabulary):
+    the descent on the card equals the host descent on descriptors near
+    its leaves and on random ones, batched and masked."""
+    from iv_slam_tpu_torch.slam.vocabulary import Vocabulary
+
+    voc = Vocabulary.synthesize(k=10, L=6, seed=0)
+    rng = np.random.default_rng(3)
+    near = voc.node_desc[rng.choice(np.nonzero(voc.is_leaf)[0], 1200)]
+    near = np.packbits(np.unpackbits(near, axis=1) ^ (rng.uniform(size=(1200, 256)) < 0.08),
+                       axis=1)
+    descs = np.concatenate([near, rng.integers(0, 256, (400, 32)).astype(np.uint8)])
+    host = voc.transform_words(descs)
+    np.testing.assert_array_equal(voc.transform_words_device(descs, device=dev), host)
+    got = voc.transform_words_device(torch.as_tensor(descs).to(dev).reshape(4, 400, 32))
+    np.testing.assert_array_equal(got.reshape(-1), host)
+    valid = rng.uniform(size=1600) < 0.5
+    np.testing.assert_array_equal(voc.transform_nodes(descs, valid, device=dev),
+                                  voc.transform_nodes(descs, valid))
+
+
+@pytest.mark.parametrize("fix_scale", [False, True])
+def test_sim3_ransac_card_equals_cpu(dev, fix_scale):
+    """The same sampled indices on the card and on the CPU: the same winning
+    hypothesis and inlier set, R, t, s within 1e-5 (Horn's solve runs in
+    float64 on both and is rounded once)."""
+    from iv_slam_tpu_torch.solvers import sim3_solver
+
+    rng = np.random.default_rng(4)
+    n, N = 300, 800
+    R, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+    R *= np.sign(np.linalg.det(R))
+    s, t = 1.0 if fix_scale else 1.2, np.array([0.5, -0.2, 0.3])
+    P1 = np.zeros((N, 3), np.float32)
+    P1[:n] = np.stack([rng.uniform(-5, 5, n), rng.uniform(-3, 3, n), rng.uniform(4, 20, n)], 1)
+    P2 = (s * P1 @ R.T + t).astype(np.float32)
+    P2[:60] += rng.uniform(1, 3, (60, 3)).astype(np.float32)
+    P2[n:] = 0
+    proj = lambda P: np.stack([400 * P[:, 0] / np.maximum(P[:, 2], 1e-9) + 160,  # noqa: E731
+                               400 * P[:, 1] / np.maximum(P[:, 2], 1e-9) + 120], 1)
+    uv1, uv2 = proj(P1).astype(np.float32), proj(s * P1 @ R.T + t).astype(np.float32)
+    valid = np.arange(N) < n
+    idx = sim3_solver.sample_sim3(7, 256, n, "cpu")
+    out = []
+    for d in ("cpu", dev):
+        a = [torch.as_tensor(x).to(d) for x in (P1, P2, uv1, uv2, np.ones(N, np.float32), valid)]
+        out.append(sim3_solver.sim3_ransac(*a, 400.0, 400.0, 160.0, 120.0, idx.to(d),
+                                           fix_scale=fix_scale))
+    cpu, card = out
+    assert torch.equal(cpu.inliers, card.inliers.cpu()) and int(cpu.n_inliers) >= 200
+    for f in ("R", "t", "s"):
+        np.testing.assert_allclose(getattr(card, f).cpu().numpy(), getattr(cpu, f).numpy(),
+                                   rtol=0, atol=1e-5)

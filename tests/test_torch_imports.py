@@ -54,7 +54,13 @@ def test_port_files_exist():
                  "iv_slam_tpu_torch/models/__init__.py",
                  "iv_slam_tpu_torch/models/mobilenet.py",
                  "iv_slam_tpu_torch/models/introspection.py",
-                 "iv_slam_tpu_torch/models/convert.py"):
+                 "iv_slam_tpu_torch/models/convert.py",
+                 "iv_slam_tpu_torch/slam/vocabulary.py", "iv_slam_tpu_torch/ops/bow.py",
+                 "iv_slam_tpu_torch/slam/keyframe_db.py", "iv_slam_tpu_torch/ops/bow_match.py",
+                 "iv_slam_tpu_torch/solvers/pnp.py", "iv_slam_tpu_torch/solvers/sim3_solver.py",
+                 "iv_slam_tpu_torch/solvers/sim3_opt.py",
+                 "iv_slam_tpu_torch/solvers/essential_graph.py",
+                 "iv_slam_tpu_torch/slam/loop_closing.py"):
         assert must in names, must
 
 
@@ -62,3 +68,18 @@ def test_port_files_exist():
 def test_no_jax_import(path):
     bad = sorted({r for r in _imported_roots(path) if r in FORBIDDEN})
     assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
+MODULES = sorted(
+    os.path.relpath(p, REPO)[:-3].replace(os.sep, ".") for p in FILES
+    if p.endswith(".py") and os.sep + "iv_slam_tpu_torch" + os.sep in p
+    and not p.endswith("__init__.py"))
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_imports_without_cuda(module):
+    """Every module of the port imports on a machine without CUDA, nvcc or
+    Triton (the kernels are built when first launched, not on import)."""
+    import importlib
+
+    importlib.import_module(module)

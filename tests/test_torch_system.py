@@ -24,8 +24,16 @@ on the CPU path.
   below the chi-square median, so the vis BA keeps every quality at 1
   here; tests/test_torch_local_mapping.py holds its writes on noisy
   observations);
+* with a vocabulary attached (trained by the port from the sequence's own
+  descriptors) and use_bow and loop closing on, fused, JAX's Sim3 and PnP
+  hypothesis indices installed as the samplers: the same keyframes, map
+  points, live points, keyframe database and loops closed (none: 16
+  frames give too few keyframes for DetectLoop, which
+  tests/test_torch_loop_closing.py holds on a recorded JAX map), poses
+  within 2e-3 as above;
 * the switches and entry points this port does not run yet raise
-  NotImplementedError, and System needs CUDA unless given a device.
+  NotImplementedError (use_bow and loop closing only together with the
+  LocalMapping worker, A7), and System needs CUDA unless given a device.
 """
 
 import os
@@ -39,7 +47,9 @@ from iv_slam_tpu_torch import config as tconfig
 from iv_slam_tpu_torch.io import trajectory
 from iv_slam_tpu_torch.slam.system import System
 from iv_slam_tpu_torch.slam.tracking import State
-from torch_parity import one_thread, run_reference  # noqa: F401 (fixture)
+from iv_slam_tpu_torch.slam.vocabulary import Vocabulary
+from torch_parity import (jax_pnp_indices, jax_sim3_indices, one_thread,  # noqa: F401
+                          run_reference, vocabulary_arrays)
 
 pytestmark = pytest.mark.usefixtures("one_thread")
 
@@ -56,9 +66,13 @@ def make_config(fused=False, ini_th_fast=12):
     return cfg
 
 
-def run(cfg, frames, kf_every=0, cost_map=None):
+def run(cfg, frames, kf_every=0, cost_map=None, voc=None):
     s = System(cfg, 240, 320, device="cpu")
     tr = s.tracking
+    if voc is not None:
+        s.attach_vocabulary(voc)
+        tr.loop_closing.sampler = jax_sim3_indices
+        tr.pnp_sampler = jax_pnp_indices
     for i, (left, right) in enumerate(frames):
         s.track_stereo(left, right, timestamp=i * 0.1, cost_map=cost_map)
         if kf_every and i % kf_every == kf_every - 1 \
@@ -134,11 +148,29 @@ def cost_map(h=240, w=320, seed=2):
     return np.clip(m, 0, 255).astype(np.uint8)
 
 
+def train_vocabulary(frames):
+    """A vocabulary trained by the port on the descriptors of every fourth
+    frame of a sequence (k=6, L=3)."""
+    from iv_slam_tpu_torch.slam.frame import StereoFrontend
+
+    fe = StereoFrontend(make_config(), 240, 320, device="cpu")
+    descs = []
+    for left, right in frames[::4]:
+        fr = fe.process(left, right, 0.0)
+        descs.append(fr.desc[fr.valid])
+    return Vocabulary.train(np.concatenate(descs), k=6, L=3, seed=0)
+
+
 @pytest.fixture(scope="module")
-def jax_systems(sequence, tmp_path_factory):
-    return run_reference("system", tmp_path_factory.mktemp("system"), seed=5, n_frames=16,
-                         kf_every=3, cam=np.array(CAM), n_features=800, n_levels=4,
-                         cost_map=cost_map())
+def vocabulary(sequence):
+    return train_vocabulary(sequence[1])
+
+
+@pytest.fixture(scope="module")
+def jax_systems(sequence, vocabulary, tmp_path_factory):
+    return run_reference("system", tmp_path_factory.mktemp("system"), timeout=900.0, seed=5,
+                         n_frames=16, kf_every=3, cam=np.array(CAM), n_features=800,
+                         n_levels=4, cost_map=cost_map(), **vocabulary_arrays(vocabulary))
 
 
 @pytest.mark.parametrize("mode", ["classic", "fused"])
@@ -177,6 +209,26 @@ def test_trajectory_with_cost_map_matches_jax_system(sequence, jax_systems):
     assert len(np.unique(qual)) > 50     # the cost map seeded keypoint quality
 
 
+def test_trajectory_with_loop_closing_matches_jax_system(sequence, jax_systems, vocabulary):
+    world, frames, gt = sequence
+    cfg = make_config(fused=True)
+    cfg.system.use_bow = cfg.system.enable_loop_closing = True
+    s = run(cfg, frames, kf_every=3, voc=vocabulary)
+    ref = {k[len("lc_"):]: v for k, v in jax_systems.items() if k.startswith("lc_")}
+    tr = s.tracking
+    m = tr.map
+    assert s.failure_count == 0 == int(ref["failures"])
+    assert (m.n_keyframes, m.n_points) == (int(ref["n_keyframes"]), int(ref["n_points"]))
+    assert int(m.pt_alive[:m.n_points].sum()) == int(ref["n_alive"])
+    assert tr.loop_closing.n_loops_closed == int(ref["n_loops"])
+    assert list(tr.kfdb.bow) == ref["kfdb"].tolist() and len(tr.kfdb.bow) >= 4
+    assert set(tr.kf_bow.kf_bow) >= set(tr.kfdb.bow)
+    est = np.stack(s.trajectory_twc())
+    np.testing.assert_allclose(est[:, :3, 3], ref["twc"][:, :3, 3], rtol=0, atol=2e-3)
+    np.testing.assert_allclose(est[:, :3, :3], ref["twc"][:, :3, :3], rtol=0, atol=2e-3)
+    assert trajectory.ate_rmse(list(est), gt) < 0.05
+
+
 def test_system_needs_cuda_without_a_device():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -189,9 +241,13 @@ SWITCHES = {
     "async_local_ba": lambda c: setattr(c.system, "async_local_ba", True),
     "chained_tracking": lambda c: setattr(c.system, "chained_tracking", True),
     "prewarm": lambda c: setattr(c.system, "prewarm", True),
-    "use_bow": lambda c: setattr(c.system, "use_bow", True),
+    # BoW and loop closing run inline; with the LocalMapping worker or
+    # async local BA they wait for A7
+    "use_bow": lambda c: (setattr(c.system, "use_bow", True),
+                          setattr(c.system, "threaded_local_mapping", True)),
     "sensor mono": lambda c: setattr(c.system, "sensor", "mono"),
-    "enable_loop_closing": lambda c: setattr(c.system, "enable_loop_closing", True),
+    "enable_loop_closing": lambda c: (setattr(c.system, "enable_loop_closing", True),
+                                      setattr(c.system, "async_local_ba", True)),
     "ba_mode constrained": lambda c: setattr(c.iv, "ba_mode", "constrained"),
     "link_rtt_ms": lambda c: setattr(c.system, "link_rtt_ms", 58.0),
 }
@@ -205,8 +261,7 @@ def test_unported_switch_raises(name):
         System(cfg, 240, 320, device="cpu")
 
 
-@pytest.mark.parametrize("call", ["track_mono", "track_rgbd", "attach_vocabulary",
-                                  "enable_datagen", "gt_depth_map"])
+@pytest.mark.parametrize("call", ["track_mono", "track_rgbd", "enable_datagen", "gt_depth_map"])
 def test_unported_entry_point_raises(call):
     s = System(make_config(), 240, 320, device="cpu")
     img = np.zeros((240, 320), np.uint8)

@@ -495,12 +495,30 @@ def _task_keyframe_event(seed, n_frames, event, kf_every, cam, n_features, n_lev
     return out
 
 
-def _task_system(seed, n_frames, kf_every, cam, n_features, n_levels, cost_map=None):
+def jax_vocabulary(voc):
+    """The JAX package's Vocabulary from arrays voc_<field> (children,
+    node_desc, weights, is_leaf, k, L)."""
+    from iv_slam_tpu.slam.vocabulary import Vocabulary
+
+    return Vocabulary(voc["voc_children"], voc["voc_node_desc"], voc["voc_weights"],
+                      voc["voc_is_leaf"].astype(bool), int(voc["voc_k"]), int(voc["voc_L"]))
+
+
+def vocabulary_arrays(voc):
+    """voc_<field> arrays of a Vocabulary (either package's)."""
+    return {f"voc_{f}": np.asarray(getattr(voc, f)) for f in
+            ("children", "node_desc", "weights", "is_leaf", "k", "L")}
+
+
+def _task_system(seed, n_frames, kf_every, cam, n_features, n_levels, cost_map=None, **voc):
     """The JAX package's System over a synth_world sequence, a keyframe
     forced every kf_every frames (0: none), classic then fused tracking,
     then (with `cost_map`) fused tracking with every frame weighted by the
-    cost map and local BA in the vis mode: each run's trajectory, map size
-    and point qualities, prefixed classic_ / fused_ / iv_."""
+    cost map and local BA in the vis mode, then (with a vocabulary,
+    voc_<field>) fused tracking with use_bow and loop closing on: each
+    run's trajectory, map size and point qualities, prefixed classic_ /
+    fused_ / iv_ / lc_ (with the loops closed and the keyframe database's
+    keyframes)."""
     import synth_world
 
     from iv_slam_tpu.slam.system import System
@@ -508,13 +526,19 @@ def _task_system(seed, n_frames, kf_every, cam, n_features, n_levels, cost_map=N
     world, frames, gt = synth_world.make_sequence(np.random.default_rng(int(seed)),
                                                   n_frames=int(n_frames), step=0.08)
     out = {}
-    for name in ("classic", "fused") + (("iv",) if cost_map is not None else ()):
+    names = (("classic", "fused") + (("iv",) if cost_map is not None else ())
+             + (("lc",) if voc else ()))
+    for name in names:
         cfg = _tracking_config(cam, n_features, n_levels)
         cfg.system.fused_tracking = name != "classic"
         cost = cost_map if name == "iv" else None
         if name == "iv":
             cfg.iv.ba_mode = "vis"
+        if name == "lc":
+            cfg.system.use_bow = cfg.system.enable_loop_closing = True
         s = System(cfg, cfg.camera.height, cfg.camera.width)
+        if name == "lc":
+            s.attach_vocabulary(jax_vocabulary(voc))
         tr = s.tracking
         k = int(kf_every)
         for i, (left, right) in enumerate(frames):
@@ -528,6 +552,222 @@ def _task_system(seed, n_frames, kf_every, cam, n_features, n_levels, cost_map=N
                     f"{name}_n_points": np.int64(m.n_points),
                     f"{name}_n_alive": np.int64(m.pt_alive[:m.n_points].sum()),
                     f"{name}_pt_quality": np.array(m.pt_quality[:m.n_points])})
+        if name == "lc":
+            out.update(lc_n_loops=np.int64(tr.loop_closing.n_loops_closed),
+                       lc_kfdb=np.array(list(tr.kfdb.bow), np.int64))
+    return out
+
+
+# ---- BoW, relocalization and loop closing (ROADMAP A8, A10) ---------------
+
+BOW_INPUTS = ("desc_a", "node_a", "angle_a", "valid_a", "desc_b", "node_b", "angle_b",
+              "valid_b", "nn_ratio")
+SIM3_INPUTS = ("P1", "desc1", "xy1", "oct1", "valid1", "P2", "desc2", "xy2", "oct2", "valid2",
+               "sR12", "t12", "fx", "fy", "cx", "cy", "sf", "log_scale", "maxd1", "maxd2")
+
+
+def _task_bow_match(n_bow, n_sim3, **a):
+    """search_by_bow (jitted, with and without the orientation check) on
+    each case bow<c>_<name>, search_by_sim3 (jitted) on each sim3<c>_<name>."""
+    import jax.numpy as jnp
+
+    from iv_slam_tpu.ops import bow_match
+
+    out = {}
+    for c in range(int(n_bow)):
+        args = [jnp.asarray(a[f"bow{c}_{k}"]) for k in BOW_INPUTS]
+        for chk in (True, False):
+            assign, n = bow_match.search_by_bow(*args, check_orientation=chk)
+            out[f"bow{c}_{int(chk)}"] = np.asarray(assign)
+    for c in range(int(n_sim3)):
+        assign, n = bow_match.search_by_sim3(*(jnp.asarray(a[f"sim3{c}_{k}"])
+                                               for k in SIM3_INPUTS))
+        out[f"sim3{c}"] = np.asarray(assign)
+    return out
+
+
+def jax_sim3_indices(key_id, n_hyp, n_valid, device=None):
+    """The (n_hyp, 3) hypothesis indices the JAX package's sim3_ransac draws
+    under PRNGKey(key_id) from the valid prefix [0, n_valid) (a sampler for
+    LoopClosing.sampler)."""
+    import jax
+    import torch
+
+    idx = jax.random.randint(jax.random.PRNGKey(int(key_id)), (n_hyp, 3), 0,
+                             max(int(n_valid), 1))
+    return torch.as_tensor(np.array(idx), dtype=torch.int64, device=device)
+
+
+def jax_pnp_indices(key_id, valid, device=None, n_hyp=300, sample_size=4):
+    """The (n_hyp, sample_size) indices the JAX package's pnp_ransac draws
+    under PRNGKey(key_id) over the valid entries (a sampler for
+    Tracking.pnp_sampler)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    valid = jnp.asarray(np.asarray(valid, bool))
+    n = valid.shape[0]
+    p = jnp.where(valid, 1.0, 0.0) / jnp.maximum(jnp.sum(valid), 1)
+
+    @jax.jit
+    def draw(keys):
+        return jax.vmap(lambda k: jax.random.choice(k, n, shape=(sample_size,),
+                                                    replace=False, p=p))(keys)
+
+    idx = draw(jax.random.split(jax.random.PRNGKey(int(key_id)), n_hyp))
+    return torch.as_tensor(np.array(idx), dtype=torch.int64, device=device)
+
+
+def bow_session(s, frames, kf_every, loc_from, bow_frame, reloc_frame):
+    """Drive a System (either package's) with a vocabulary attached and loop
+    closing on over `frames`, a keyframe forced every kf_every frames, in
+    localization-only mode from frame loc_from on. Then, by direct calls on
+    re-processed frames: tracking by BoW against the reference keyframe
+    (frame bow_frame from the last pose) and relocalization (frame
+    reloc_frame, the state set to LOST by hand: the reference's loop never
+    reaches it). Returns a dict of numpy arrays."""
+    tr = s.tracking
+    m = tr.map
+    out = {}
+    for i, (left, right) in enumerate(frames):
+        if i == loc_from:
+            out.update(loc_kfs=np.int64(m.n_keyframes), loc_pts=np.int64(m.n_points),
+                       loc_alive=np.int64(m.pt_alive[:m.n_points].sum()))
+            s.activate_localization_mode()
+        s.track_stereo(left, right, timestamp=i * 0.1)
+        if (kf_every and i % kf_every == kf_every - 1 and not tr.only_tracking
+                and tr.current.frame_id != tr.last_kf_frame_id):
+            tr._create_new_keyframe()
+    s.deactivate_localization_mode()
+    lc = tr.loop_closing
+    out.update(twc=np.stack(s.trajectory_twc()), failures=np.int64(s.failure_count),
+               n_keyframes=np.int64(m.n_keyframes), n_points=np.int64(m.n_points),
+               n_alive=np.int64(m.pt_alive[:m.n_points].sum()),
+               n_loops=np.int64(lc.n_loops_closed), kfdb=np.array(list(tr.kfdb.bow), np.int64),
+               temporal=np.int64(len(tr._temporal_points)))
+    last = tr.current
+    for name, j in (("bow", int(bow_frame)), ("reloc", int(reloc_frame))):
+        tr.last_frame = last
+        fr = tr.frontend.process(*frames[j], 10.0 + j)
+        tr.current = fr
+        if name == "bow":
+            fr.set_pose(last.pose)
+            ok = tr._track_reference_keyframe_bow()
+        else:
+            tr.state = type(tr.state).LOST
+            ok = tr._relocalization()
+            out["reloc_state"] = np.int64(tr.state.value)
+        out.update({f"{name}_ok": np.bool_(ok), f"{name}_frame_id": np.int64(fr.frame_id),
+                    f"{name}_pose": np.array(fr.pose, np.float32),
+                    f"{name}_map_pt": np.array(fr.map_pt)})
+    return out
+
+
+def _task_bow_system(seed, n_frames, kf_every, cam, n_features, n_levels, loc_from, bow_frame,
+                     reloc_frame, **voc):
+    """bow_session on the JAX package's System (fused tracking, use_bow and
+    enable_loop_closing on) over a synth_world sequence, with the
+    vocabulary given as arrays (voc_<field>)."""
+    import synth_world
+
+    from iv_slam_tpu.slam.system import System
+
+    cfg = _tracking_config(cam, n_features, n_levels)
+    cfg.system.fused_tracking = True
+    cfg.system.use_bow = cfg.system.enable_loop_closing = True
+    world, frames, gt = synth_world.make_sequence(np.random.default_rng(int(seed)),
+                                                  n_frames=int(n_frames), step=0.08)
+    s = System(cfg, cfg.camera.height, cfg.camera.width)
+    s.attach_vocabulary(jax_vocabulary(voc))
+    return bow_session(s, frames, int(kf_every), int(loc_from), bow_frame, reloc_frame)
+
+
+def lc_world(n_frames, radius):
+    """bench.py's loop-closing world (_lc_world, bench.py:378-413) on a
+    circle of `radius` m: DistinctTerrainWorld (seed 3, its platforms ring
+    on the circle), 320x240, fx = fy = 400, baseline 0.5, 1.45 laps with
+    the yaw following the path. Returns (stereo pairs, Twc per frame)."""
+    import synth_world
+
+    world = synth_world.DistinctTerrainWorld(
+        np.random.default_rng(3), ring_center=(0.0, float(radius)), ring_radius=float(radius),
+        tex_size=8192, res=60.0, fx=400.0, fy=400.0, cx=160.0, cy=120.0, w=320, h=240,
+        baseline=0.5)
+    pairs, gt = [], []
+    for i in range(int(n_frames)):
+        ang = 2.9 * np.pi * i / int(n_frames)
+        t = np.array([radius * np.sin(ang), radius * (1 - np.cos(ang)), 0.0], np.float32)
+        Twc = synth_world.camera_pose(t, height=10.0, yaw=ang)
+        pairs.append(world.render_stereo(Twc))
+        gt.append(Twc)
+    return pairs, gt
+
+
+def lc_state(lc):
+    """A LoopClosing's state (either package's) as arrays: the keyframe
+    database's keyframes in insertion order, the consistent groups, the
+    last loop keyframe, the loop edges, the loops closed."""
+    groups = lc.consistent_groups
+    return dict(kfdb=np.array(list(lc.kfdb.bow), np.int64),
+                group_sizes=np.array([len(g) for g, _ in groups], np.int64),
+                group_members=np.array([k for g, _ in groups for k in sorted(g)], np.int64),
+                group_counts=np.array([c for _, c in groups], np.int64),
+                last_loop_kf=np.int64(lc.last_loop_kf),
+                loop_edges=np.array(sorted(lc.loop_edges), np.int64).reshape(-1, 2),
+                n_loops=np.int64(lc.n_loops_closed))
+
+
+def _task_lc_event(n_frames, radius, kf_every, n_levels, ba_rate, map_path, **voc):
+    """The JAX package's System (fused, use_bow and loop closing on, local BA
+    at keyframe events of frames divisible by ba_rate) over lc_world with a
+    keyframe forced every kf_every frames, up to the first keyframe event
+    whose LoopClosing.process_keyframe closes a loop, with the global BA
+    left out (tests/test_torch_loop_closing.py holds it on its own). The
+    map just before that call is saved to map_path (MapStore.save); returns
+    the keyframe, the LoopClosing state before (before_) and after
+    (after_), the map after (dump_map) and the loop fuse's statistics."""
+    from iv_slam_tpu.slam import loop_closing
+    from iv_slam_tpu.slam.system import System
+    from iv_slam_tpu.solvers import local_ba
+
+    cfg = _tracking_config((400.0, 400.0, 160.0, 120.0, 200.0, 320, 240), 800, n_levels)
+    cfg.camera.fps = 10.0
+    cfg.system.fused_tracking = True
+    cfg.system.use_bow = cfg.system.enable_loop_closing = True
+    cfg.iv.tracking_ba_rate = int(ba_rate)
+    pairs, gt = lc_world(n_frames, float(radius))
+    local_ba.global_bundle_adjustment_async = lambda *a, **k: None
+    orig = loop_closing.LoopClosing.process_keyframe
+    out = {}
+
+    def process(self, kf_id, fix_scale=True):
+        if out or self.map.n_keyframes < 11:
+            return orig(self, kf_id, fix_scale)
+        before = lc_state(self)
+        self.map.save(str(map_path))
+        closed = orig(self, kf_id, fix_scale)
+        if closed:
+            out.update(kf_id=np.int64(kf_id), **{"before_" + k: v for k, v in before.items()},
+                       **{"after_" + k: v for k, v in lc_state(self).items()},
+                       **{"map_" + k: v for k, v in dump_map(self.map).items()},
+                       fuse=np.array([self.last_fuse_stats[k] for k in
+                                      ("targets", "loop_pts", "replaced", "added")]))
+        return closed
+
+    loop_closing.LoopClosing.process_keyframe = process
+    s = System(cfg, 240, 320)
+    s.attach_vocabulary(jax_vocabulary(voc))
+    tr = s.tracking
+    k = int(kf_every)
+    for i, (left, right) in enumerate(pairs):
+        s.track_stereo(left, right, timestamp=i * 0.1)
+        if not out and i % k == k - 1 and tr.current.frame_id != tr.last_kf_frame_id:
+            tr._create_new_keyframe()
+        if out:
+            out["frame"] = np.int64(i)
+            break
+    assert out, "no loop closed"
     return out
 
 
