@@ -69,15 +69,44 @@ It drives the port only (no JAX, nothing of ``iv_slam_tpu``):
      graph, deferred global BA) on a manufactured revisit, card against
      CPU path; the 1M-leaf synthesized vocabulary's device descent against
      the host descent;
-  8. from torch.profiler, after every phase that times the host: each
+  8. mono and RGB-D at the sensors' published settings (settings/
+     EuRoC_mono.yaml: 752x480, 1000 features; settings/TUM1.yaml: 640x480,
+     bf 40, DepthMapFactor 5000, 1000 features; loaded through
+     config.load_reference_yaml, distortion set to zero for the ideal
+     pinhole renderer), fused tracking: (a) K1 and K2 bit for bit against
+     their plain versions on the inputs of each world's frame 0 and FAST on
+     noise at each size; (b) mono, 60 frames of tests/test_mono_rgbd.py's
+     TwoPlaneWorld path through System.track_mono: it initialises, stays OK,
+     moves along the ground truth (direction cosine > 0.95), K1/K2/K3
+     launches 60/60/0, and every search_for_initialization and
+     initialize_mono call again on the CPU path with the card's draws (the
+     same model, hypotheses, inliers and is_good set, R, t and the good
+     points within 1e-4); (c) RGB-D, 60 frames of a TwoPlaneWorld seen from 2.5 m (depth
+     as TUM's uint16 at 1/5000) through System.track_rgbd: no frame lost,
+     ATE below 0.5 m, launches 60/60/0;
+  9. training-data generation at KITTI geometry (settings/KITTI00-02.yaml,
+     2000 features) on tests/test_introspection_helps.py's ReflectionWorld
+     (seed 5) and serpentine path, GT poses on every frame: (a) supervised
+     (ref_kf_epipolar_normalized), 60 frames: no frame lost, heatmaps
+     (uint8, 360x1240) and the dataset's JSON files written, one
+     process_frame_supervised call again on the CPU path (the same scored
+     keypoints and verdict, errors within 1e-4 relative, heatmap within 1),
+     the GP's device time (CUDA events), the heatmaps' mean inside and
+     outside the band; (b) unsupervised with ba_mode="constrained", 40
+     frames: no frame lost, masks and keypoint quality labels written, one
+     constrained BA solve again on the CPU path (points within 1e-4 m,
+     labels within 1e-3); K1-K3 counted in both (once a frame);
+ 10. from torch.profiler, after every phase that times the host: each
      kernel's device time, the tracking step's device time and kernel
      launches, a profile of whole frames, one keyframe event (device ms,
      launches, host syncs), and the FCN's and a weighted frame's device
      time and launches;
-  9. prints one {"tracking": {...}} line, one {"full_loop": {...}} line, one
+ 11. prints one {"tracking": {...}} line, one {"full_loop": {...}} line, one
      {"introspection": {...}} line, one {"loop_closing": {...}} line, one
+     {"mono_rgbd": {...}} line, one {"datagen": {...}} line, one
      {"kernels": [...]} line (with each kernel's launches on the
-     introspection and loop-closing loops too) and, last, the status line.
+     introspection, loop-closing, mono, RGB-D and datagen runs too) and,
+     last, the status line.
 
 A phase that fails is reported and the script exits 1 without a result.
 With no CUDA device, or run outside a checkout, it exits 2 at once.
@@ -129,6 +158,35 @@ N_INTRO_FRAMES = 10
 N_LC, N_LC_CPU = 240, 60
 LC_H, LC_W = 240, 320
 LC_POSE_ATOL = 2e-3     # card vs CPU path over N_LC_CPU frames (translation m, rotation)
+
+# mono and RGB-D (phase 8): tests/test_mono_rgbd.py's world seed, frames of
+# each run; the RGB-D world's seed, platform (x0, x1, y0, y1 in m, 1 m high)
+# and ground texture (px/m: 517 / (2.5 m * 200) = 1.03 image px a texture
+# px); the card-vs-CPU limit on the initializer's R, t and triangulated
+# points: both solve in float64 (R and t agree to ~1e-8) and round once, so
+# a far point's coordinate may round to the next float32 (1.53e-5 on an
+# "NVIDIA H100 80GB HBM3, 700.00 W": one ulp at ~150 baselines); the
+# parallax check keeps points within ~160 baselines, where a few ulps stay
+# below 1e-4
+MONO_SEED, N_MONO = 23, 60
+RGBD_SEED, N_RGBD = 29, 60
+RGBD_PLATFORM = (-0.6, 0.6, -0.45, 0.45)
+RGBD_TEX_PX_PER_M = 200.0
+INIT_ATOL = 1e-4
+
+# training-data generation (phase 9): frames of the supervised and the
+# unsupervised run, the frame whose supervised call is held card against
+# CPU path (its normalized errors within DG_ERR_TOL relative), and the
+# constrained-BA call held the same way
+N_DG_SUP, N_DG_UNSUP = 60, 40
+DG_RECORD, DG_ERR_TOL, DG_BA_RECORD = 30, 1e-4, 1
+# the band's blend over the ground (ReflectionWorld's default is 0.65): at
+# KITTI geometry the tracker drops the default band's points within a few
+# frames, no frame's bad-match share reaches the 5% a training frame needs
+# and nothing is written (this phase on the CPU path: 0 of 60 frames); at
+# 0.75 the first frames qualify (7 of 40) and the band's points are culled
+# after
+DG_BAND_ALPHA = 0.75
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, and the float32
 # rate outside the tensor cores, used for these kernels' 32-bit scalar ops
@@ -323,6 +381,8 @@ class Smoke:
         self.trk = None
         self.intro = None
         self.lc = None
+        self.mr = None
+        self.dg = None
 
     def phase(self, name, fn, *args):
         t0 = time.perf_counter()
@@ -352,8 +412,9 @@ class Smoke:
                     print(f"  ptxas {name}: {ln.strip()}")
 
     # ---- phase 2 ---------------------------------------------------------
-    def record_inputs(self, fe, left, right):
-        """The inputs one frame of the main path hands each wrapper."""
+    def record_inputs(self, run, n_sad=1):
+        """The inputs one frame (``run()``, a frontend's process call) hands
+        each wrapper: K1 and K2 once, K3 n_sad times (0 for one image)."""
         ops = self.port["ops"]
         rec = {"fast_score": [], "orient_brief": [], "sad_windows": []}
         orig = (ops.fast_cuda.fast_score_levels, ops.finish_cuda.orient_brief,
@@ -381,13 +442,14 @@ class Smoke:
         ops.fast_cuda.fast_score_levels, ops.finish_cuda.orient_brief = fast, ob
         ops.stereo_cuda.sad_windows = sad
         try:
-            fe.process(left, right, 0.0)
+            run()
         finally:
             (ops.fast_cuda.fast_score_levels, ops.finish_cuda.orient_brief,
              ops.stereo_cuda.sad_windows) = orig
         self.torch.cuda.synchronize()
-        require(all(len(v) == 1 for v in rec.values()),
-                {k: len(v) for k, v in rec.items()})
+        want = {"fast_score": 1, "orient_brief": 1, "sad_windows": n_sad}
+        require({k: len(v) for k, v in rec.items()} == want,
+                ({k: len(v) for k, v in rec.items()}, want))
         return rec
 
     # Each check holds a kernel bit-equal to its plain version on the
@@ -1440,7 +1502,7 @@ class Smoke:
         fe = self.port["frame"].StereoFrontend(lc.cfg, LC_H, LC_W)
         errs = {"fast_score": 0.0, "orient_brief": 0.0, "sad_windows": 0.0}
         for i in (0, N_LC // 2):
-            rec = self.record_inputs(fe, *lc.pairs[i])
+            rec = self.record_inputs(lambda: fe.process(*lc.pairs[i], 0.0))
             print(f"loop closing, K1-K3 on the inputs of LC-world frame {i}:")
             for name, check in (("fast_score", lambda r: self.check_fast(
                     r, noise_hw=(LC_H, LC_W), main=False)),
@@ -1694,6 +1756,483 @@ class Smoke:
               f"{dev_ms:.3f} ms (CUDA events), host descent {host_ms:.1f} ms; equal {equal}")
         require(equal, "device descent differs from the host descent")
 
+    # ---- phase 8: mono and RGB-D -------------------------------------------
+    def mr_setup(self):
+        """The sensors' published settings through config.load_reference_yaml
+        (settings/EuRoC_mono.yaml: 752x480, fx 458.654, 1000 features;
+        settings/TUM1.yaml: 640x480, fx 517.306, bf 40, ThDepth 40,
+        DepthMapFactor 5000, 1000 features), fused tracking, the distortion
+        coefficients set to zero (the renderer is an ideal pinhole camera),
+        and their worlds: the mono one tests/test_mono_rgbd.py's TwoPlaneWorld
+        and path at those intrinsics, the RGB-D one a TwoPlaneWorld seen from
+        2.5 m with a 1 m platform in view, 2 cm a frame, its depth handed over
+        as TUM stores it (uint16, 5000 a metre)."""
+        port = self.port
+        sys.path.insert(0, os.path.join(HERE, "tests"))
+        import synth_world
+
+        C = port["config"]
+        t0 = time.perf_counter()
+        mr = SimpleNamespace(out={})
+        for sensor, yaml_name in (("mono", "EuRoC_mono.yaml"), ("rgbd", "TUM1.yaml")):
+            cfg = C.load_reference_yaml(os.path.join(HERE, "settings", yaml_name))
+            cam = cfg.camera
+            dist = dict(k1=cam.k1, k2=cam.k2, p1=cam.p1, p2=cam.p2, k3=cam.k3)
+            cam.k1 = cam.k2 = cam.p1 = cam.p2 = cam.k3 = 0.0
+            cfg.system.sensor = sensor
+            cfg.system.fused_tracking = True
+            setattr(mr, sensor + "_cfg", cfg)
+            print(f"{sensor}: settings/{yaml_name}: {cam.width}x{cam.height}, fx {cam.fx}, "
+                  f"bf {cam.bf}, ThDepth {cam.th_depth}, DepthMapFactor "
+                  f"{cam.depth_map_factor}, {cfg.orb.n_features} features, "
+                  f"{cfg.orb.n_levels} levels, FAST {cfg.orb.ini_th_fast}/"
+                  f"{cfg.orb.min_th_fast}; distortion {dist} set to 0 (the synthetic "
+                  f"renderer is an ideal pinhole camera; camera.undistort_points is ROADMAP "
+                  f"A14)")
+        cm, cr = mr.mono_cfg.camera, mr.rgbd_cfg.camera
+        world = synth_world.TwoPlaneWorld(np.random.default_rng(MONO_SEED), fx=cm.fx, fy=cm.fy,
+                                          cx=cm.cx, cy=cm.cy, w=cm.width, h=cm.height)
+        mr.mono_gt = [synth_world.camera_pose(
+            np.array([0.25 * i, 0.03 * np.sin(i * 0.5), 0.0], np.float32), height=10.0,
+            yaw=0.01 * i) for i in range(N_MONO)]
+        mr.mono_imgs = [world.render(T) for T in mr.mono_gt]
+        world = synth_world.TwoPlaneWorld(
+            np.random.default_rng(RGBD_SEED), height2=1.0, region=RGBD_PLATFORM,
+            res=RGBD_TEX_PX_PER_M, fx=cr.fx, fy=cr.fy, cx=cr.cx, cy=cr.cy, w=cr.width,
+            h=cr.height)
+        mr.rgbd_gt = [synth_world.camera_pose(
+            np.array([0.02 * i, 0.01 * np.sin(i * 0.2), 0.0], np.float32), height=2.5,
+            yaw=0.002 * i) for i in range(N_RGBD)]
+        mr.rgbd_imgs = [world.render(T) for T in mr.rgbd_gt]
+        mr.rgbd_depth = [np.round(world.render_depth(T) * cr.depth_map_factor).astype(np.uint16)
+                         for T in mr.rgbd_gt]
+        z = world.render_depth(mr.rgbd_gt[0])
+        tex_px = max(cr.fx / (2.5 * RGBD_TEX_PX_PER_M),
+                     cr.fx / ((2.5 - 1.0) * 1000.0 / (RGBD_PLATFORM[1] - RGBD_PLATFORM[0])))
+        mr.out.update(render_s=time.perf_counter() - t0, rgbd_texture_px_per_m=RGBD_TEX_PX_PER_M,
+                      rgbd_image_px_per_texture_px=tex_px)
+        print(f"mono world: TwoPlaneWorld seed {MONO_SEED}, {N_MONO} frames, 0.25 m a frame "
+              f"at 10 m; RGB-D world: TwoPlaneWorld seed {RGBD_SEED} from 2.5 m, platform "
+              f"1 m high over {RGBD_PLATFORM}, ground texture {RGBD_TEX_PX_PER_M} px/m "
+              f"(at most {tex_px:.2f} image px a texture px), depth {z.min():.2f}-"
+              f"{z.max():.2f} m, {N_RGBD} frames, 2 cm a frame; rendered in "
+              f"{mr.out['render_s']:.1f} s")
+        self.mr = mr
+
+    def mr_kernels(self):
+        """(a) K1 and K2 bit-equal to their plain versions on the inputs
+        frame 0 of each world hands them through the sensor's frontend (one
+        image: no K3), and FAST on noise at each size."""
+        port, mr = self.port, self.mr
+        F = port["frame"]
+        errs = {"fast_score": 0.0, "orient_brief": 0.0}
+        cm, cr = mr.mono_cfg.camera, mr.rgbd_cfg.camera
+        mono = F.MonoFrontend(mr.mono_cfg, cm.height, cm.width)
+        rgbd = F.RGBDFrontend(mr.rgbd_cfg, cr.height, cr.width)
+        runs = (("mono", (cm.height, cm.width), lambda: mono.process(mr.mono_imgs[0], 0.0)),
+                ("RGB-D", (cr.height, cr.width), lambda: rgbd.process(
+                    mr.rgbd_imgs[0], mr.rgbd_depth[0], 0.0, 1.0 / cr.depth_map_factor)))
+        for what, hw, run in runs:
+            rec = self.record_inputs(run, n_sad=0)
+            print(f"{what}, K1-K2 on the inputs of frame 0 ({(1,) + hw}):")
+            errs["fast_score"] = max(errs["fast_score"],
+                                     self.check_fast(rec, noise_hw=hw, main=False))
+            errs["orient_brief"] = max(errs["orient_brief"],
+                                       self.check_orient_brief(rec, main=False))
+        mr.out["kernels_at_mono_rgbd_shapes"] = dict(max_abs_err=errs, bit_equal=True)
+        for name, e in errs.items():
+            if name in self.kernels:
+                self.kernels[name]["max_abs_err"] = max(self.kernels[name]["max_abs_err"], e)
+
+    def _mr_run(self, sensor):
+        """One sensor's run through System on the card, K1-K3 counted.
+        Returns (System, frames/s, states, launches, stage timer)."""
+        torch, port, mr = self.torch, self.port, self.mr
+        cfg = getattr(mr, sensor + "_cfg")
+        cam = cfg.camera
+        s = port["system"].System(cfg, cam.height, cam.width)
+        timer = StageTimer()
+        s.tracking.stage_timer = s.tracking.local_mapping.stage_timer = timer
+        for m in self.counters().values():
+            m.launches = 0
+        states = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if sensor == "mono":
+            for i, img in enumerate(mr.mono_imgs):
+                s.track_mono(img, i / cam.fps)
+                states.append(s.state.name)
+        else:
+            for i, img in enumerate(mr.rgbd_imgs):
+                s.track_rgbd(img, mr.rgbd_depth[i], i / cam.fps,
+                             depth_scale=1.0 / cam.depth_map_factor)
+                states.append(s.state.name)
+        torch.cuda.synchronize()
+        fps = len(states) / (time.perf_counter() - t0)
+        return s, fps, states, {k: m.launches for k, m in self.counters().items()}, timer
+
+    def mr_mono(self):
+        """(b) mono: it initialises, stays OK once OK, and moves along the
+        ground truth's direction (cosine > 0.95, tests/test_mono_rgbd.py's
+        gate); every call of search_for_initialization and initialize_mono
+        is recorded and run again on the CPU path with the card's draws."""
+        port, mr = self.port, self.mr
+        match, init = port["match"], port["initializer"]
+        origs = (match.search_for_initialization, init.initialize_mono)
+        calls = []
+
+        def search(*a, **kw):
+            out = origs[0](*a, **kw)
+            calls.append(("search", clone(a), kw, clone(out)))
+            return out
+
+        def initialize(*a, **kw):
+            out = origs[1](*a, **kw)
+            calls.append(("init", clone(a), kw, clone(out)))
+            return out
+
+        match.search_for_initialization, init.initialize_mono = search, initialize
+        try:
+            s, fps, states, launches, timer = self._mr_run("mono")
+        finally:
+            match.search_for_initialization, init.initialize_mono = origs
+        require("OK" in states, f"never initialised: {states}")
+        first_ok = states.index("OK")
+        gt = mr.mono_gt
+        est = s.trajectory_twc()
+        d_est = est[-1][:3, 3] - est[first_ok - 1][:3, 3]
+        d_gt = gt[-1][:3, 3] - gt[first_ok - 1][:3, 3]
+        cos = float(d_est @ d_gt / max(np.linalg.norm(d_est) * np.linalg.norm(d_gt), 1e-9))
+        ate = port["trajectory"].ate_rmse(est[first_ok - 1:], gt[first_ok - 1:],
+                                          align_scale=True)
+        m = s.tracking.map
+        # the card's initializer calls again on the CPU path
+        diffs, n_init_ok = [], 0
+        for kind, args, kw, out in calls:
+            if kind == "search":
+                cpu = match.search_for_initialization(*to_cpu(args), **kw)
+                diffs.append(dict(kind=kind, equal=bool(
+                    torch_equal(out[0], cpu[0]) and int(out[1]) == int(cpu[1]))))
+                continue
+            cpu = init.initialize_mono(*to_cpu(args), **kw)
+            same = {f: torch_equal(getattr(out, f), getattr(cpu, f)) for f in
+                    ("ok", "used_homography", "best_h", "best_f", "inliers", "is_good")}
+            # the points that triangulated (is_good): the other rows solve
+            # degenerate systems (unmatched zero rows, no parallax) whose
+            # null vector each library picks freely, and are never used
+            good = cpu.is_good
+            errs = dict(R=float((out.R.cpu() - cpu.R).abs().max()),
+                        t=float((out.t.cpu() - cpu.t).abs().max()),
+                        good_points=float((out.points.cpu()[good] - cpu.points[good])
+                                          .abs().max()) if bool(good.any()) else 0.0,
+                        all_points=float((out.points.cpu() - cpu.points).abs().max()))
+            err = max(errs["R"], errs["t"], errs["good_points"])
+            n_init_ok += int(bool(out.ok))
+            diffs.append(dict(kind=kind, equal=all(same.values()), fields=same, max_abs_err=err,
+                              errs=errs, ok=bool(out.ok), homography=bool(out.used_homography)))
+        out = dict(frames=N_MONO, fps=fps, first_ok_frame=first_ok,
+                   lost_after_init=int(sum(st != "OK" for st in states[first_ok:])),
+                   direction_cosine=cos, ate_sim3_m=ate, keyframes=int(m.n_keyframes),
+                   map_points=int(m.n_points), failures=int(s.failure_count),
+                   frontend_launches=launches, init_calls_card_vs_cpu=diffs,
+                   host_ms_median=dict(frontend=timer.median("frontend"),
+                                       track=timer.median("track"),
+                                       keyframe_event=timer.median("keyframe_event")))
+        mr.out["mono"] = out
+        for k, v in launches.items():
+            self.kernels[k]["launches_mono"] = v
+        print(f"mono: {N_MONO} frames, {fps:.3f} frames/s, initialised at frame {first_ok}, "
+              f"{out['lost_after_init']} frames not OK after, direction cosine {cos:.5f}, "
+              f"Sim3-aligned ATE {ate:.4f} m, {out['keyframes']} keyframes, "
+              f"{out['map_points']} map points, K1-K3 launches {launches}; card vs CPU path: "
+              f"{sum(d['kind'] == 'search' for d in diffs)} search_for_initialization calls, "
+              f"equal {all(d['equal'] for d in diffs if d['kind'] == 'search')}; "
+              f"initialize_mono calls {[(d['ok'], d['homography']) for d in diffs if d['kind'] == 'init']} "
+              f"(ok, H), discrete outcomes equal "
+              f"{all(d['equal'] for d in diffs if d['kind'] == 'init')}, max |d| of "
+              f"R/t/good points {[d['errs'] for d in diffs if d['kind'] == 'init']}; "
+              f"host ms (median) {json.dumps(out['host_ms_median'])}")
+        want = {"fast_score": N_MONO, "orient_brief": N_MONO, "sad_windows": 0}
+        require(launches == want, f"launch counts {launches} != {want}")
+        require(out["lost_after_init"] == 0 and s.failure_count == 0,
+                f"{out['lost_after_init']} frames not OK after initialisation")
+        require(cos > 0.95, f"direction cosine {cos}")
+        require(n_init_ok == 1, f"{n_init_ok} accepted initializations")
+        require(all(d["equal"] for d in diffs), "an initializer call differs card vs CPU")
+        require(all(d.get("max_abs_err", 0.0) <= INIT_ATOL for d in diffs),
+                f"initializer R, t or points differ by more than {INIT_ATOL}")
+
+    def mr_rgbd(self):
+        """(c) RGB-D: no frame lost, ATE below 0.5 m."""
+        port, mr = self.port, self.mr
+        s, fps, states, launches, timer = self._mr_run("rgbd")
+        est = s.trajectory_twc()
+        ate = port["trajectory"].ate_rmse(est, mr.rgbd_gt)
+        m = s.tracking.map
+        lost = int(sum(st != "OK" for st in states))
+        out = dict(frames=N_RGBD, fps=fps, ate_m=ate, lost_frames=lost,
+                   failures=int(s.failure_count), keyframes=int(m.n_keyframes),
+                   map_points=int(m.n_points), frontend_launches=launches,
+                   cap_overflows=dict(s.tracking.local_mapping.overflows),
+                   host_ms_median=dict(frontend=timer.median("frontend"),
+                                       track=timer.median("track"),
+                                       keyframe_event=timer.median("keyframe_event")))
+        mr.out["rgbd"] = out
+        for k, v in launches.items():
+            self.kernels[k]["launches_rgbd"] = v
+        print(f"RGB-D: {N_RGBD} frames, {fps:.3f} frames/s, ATE {ate:.4f} m, {lost} lost, "
+              f"{out['keyframes']} keyframes, {out['map_points']} map points, K1-K3 launches "
+              f"{launches}; host ms (median) {json.dumps(out['host_ms_median'])}")
+        want = {"fast_score": N_RGBD, "orient_brief": N_RGBD, "sad_windows": 0}
+        require(launches == want, f"launch counts {launches} != {want}")
+        require(lost == 0 and s.failure_count == 0, f"{lost} lost frames")
+        require(ate < 0.5, f"ATE {ate} m")
+
+    # ---- phase 9: training-data generation ----------------------------------
+    def dg_setup(self):
+        """KITTI geometry (settings/KITTI00-02.yaml: 376x1241, fx 718.856,
+        baseline 0.54, 2000 features, 8 levels, FAST 20/7), fused tracking,
+        introspection training on (cfg.iv.enabled; gp.max_train_points at
+        its default, 512), and tests/test_introspection_helps.py's world at
+        that geometry: ReflectionWorld seed 5 (a static image-space band,
+        blended at DG_BAND_ALPHA) on its serpentine path (0.1 m a frame, yaw
+        amplitude 0.3), GT poses relative to the first camera, as KITTI's
+        are."""
+        port = self.port
+        sys.path.insert(0, os.path.join(HERE, "tests"))
+        import synth_world
+
+        cfg = port["config"].load_reference_yaml(os.path.join(HERE, "settings",
+                                                              "KITTI00-02.yaml"))
+        cfg.system.fused_tracking = True
+        cfg.iv.enabled = True
+        cam = cfg.camera
+        t0 = time.perf_counter()
+        world = synth_world.ReflectionWorld(np.random.default_rng(5), alpha=DG_BAND_ALPHA,
+                                            fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy,
+                                            w=cam.width, h=cam.height, baseline=cam.baseline)
+        n = max(N_DG_SUP, N_DG_UNSUP)
+        gt = [synth_world.camera_pose(
+            np.array([0.1 * i, 0.03 * np.sin(i * 0.4), 0.0], np.float32), height=10.0,
+            yaw=0.3 * np.sin(i * 0.3)) for i in range(n)]
+        pairs = [world.render_stereo(T) for T in gt]
+        gt_rel = [(np.linalg.inv(gt[0]) @ T).astype(np.float32) for T in gt]
+        self.dg = SimpleNamespace(cfg=cfg, pairs=pairs, gt=gt_rel, band=world.bad_region_mask(),
+                                  out=dict(render_s=time.perf_counter() - t0,
+                                           max_train_points=cfg.gp.max_train_points))
+        self.dg.out["band_alpha"] = DG_BAND_ALPHA
+        print(f"datagen: settings/KITTI00-02.yaml {cam.width}x{cam.height}, fx {cam.fx}, "
+              f"baseline {cam.baseline:.4f}, {cfg.orb.n_features} features; ReflectionWorld "
+              f"seed 5, band alpha {DG_BAND_ALPHA}, {n} frames rendered in "
+              f"{self.dg.out['render_s']:.1f} s; GP max_train_points {cfg.gp.max_train_points}")
+
+    def _dg_run(self, n, unsupervised):
+        """One datagen run through System on the card into a temporary
+        directory. Returns (System, frames/s, launches, timer, directory)."""
+        import tempfile
+
+        torch, port, dg = self.torch, self.port, self.dg
+        cfg = copy.deepcopy(dg.cfg)
+        cfg.iv.unsupervised_learning = unsupervised
+        if unsupervised:
+            cfg.iv.ba_mode = "constrained"
+        cam = cfg.camera
+        out = tempfile.mkdtemp(prefix="chip_smoke_datagen_")
+        s = port["system"].System(cfg, cam.height, cam.width)
+        s.enable_datagen(out)
+        timer = StageTimer()
+        s.tracking.stage_timer = s.tracking.local_mapping.stage_timer = timer
+        for m in self.counters().values():
+            m.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            s.track_stereo(*dg.pairs[i], timestamp=i / cam.fps, gt_pose=dg.gt[i],
+                           img_name=f"{i:06d}.png")
+        torch.cuda.synchronize()
+        fps = n / (time.perf_counter() - t0)
+        s.tracking.datagen.finalize()
+        return s, fps, {k: m.launches for k, m in self.counters().items()}, timer, out
+
+    def dg_supervised(self):
+        """(a) supervised, ref_kf_epipolar_normalized: no frame lost, at
+        least one heatmap written with the JSON files, heatmaps uint8 at the
+        GP grid's size; one process_frame_supervised call (frame
+        DG_RECORD) made again on the CPU path on the same frame and map:
+        the same scored keypoints, count and verdict, errors within
+        DG_ERR_TOL, the uint8 heatmap within 1; the GP's device time on that
+        call's inputs by CUDA events; the heatmaps' mean inside the band
+        and outside it (printed, not gated)."""
+        torch, port, dg = self.torch, self.port, self.dg
+        DG = port["datagen"].DataGenerator
+        gp = port["gp"]
+        orig, orig_gp = DG.process_frame_supervised, gp.gp_grid_predict
+        rec = {}
+
+        def gp_rec(*a, **kw):
+            out = orig_gp(*a, **kw)
+            if rec.get("armed"):
+                rec["gp"] = (clone(a), kw)
+            return out
+
+        def record(self_, frame, img_hw, prev_frame=None):
+            rec["armed"] = frame.frame_id == DG_RECORD
+            out = orig(self_, frame, img_hw, prev_frame)
+            if rec.pop("armed"):
+                cpu = DG(self_.cfg, self_.map, None, device="cpu")
+                rec["card"], rec["cpu"] = out, orig(cpu, frame, img_hw, prev_frame)
+            return out
+
+        DG.process_frame_supervised, gp.gp_grid_predict = record, gp_rec
+        try:
+            s, fps, launches, timer, out_dir = self._dg_run(N_DG_SUP, False)
+        finally:
+            DG.process_frame_supervised, gp.gp_grid_predict = orig, orig_gp
+        tr = s.tracking
+        gen = tr.datagen
+        hm_dir = os.path.join(out_dir, "bad_region_heatmap")
+        names = sorted(os.listdir(hm_dir)) if os.path.isdir(hm_dir) else []
+        bny, bnx, out_h, out_w = gp.grid_shape(H, W)
+        import cv2
+
+        maps = [cv2.imread(os.path.join(hm_dir, nm), cv2.IMREAD_UNCHANGED) for nm in names]
+        band = dg.band[:out_h, :out_w]
+        inside = float(np.mean([m[band].mean() for m in maps])) if maps else None
+        outside = float(np.mean([m[~band].mean() for m in maps])) if maps else None
+        files = {f: os.path.exists(os.path.join(out_dir, f))
+                 for f in ("keypoints.json", "img_names.json")}
+        card, cpu = rec.get("card"), rec.get("cpu")
+        require(card is not None and cpu is not None,
+                f"frame {DG_RECORD} gave no supervised result to compare")
+        same = dict(keep=bool(np.array_equal(card["keep"], cpu["keep"])),
+                    n_scored=card["n_scored"] == cpu["n_scored"], good=card["good"] == cpu["good"])
+        d_err = float(np.abs(card["norm_err"] - cpu["norm_err"]).max())
+        scale = float(np.abs(cpu["norm_err"]).max())
+        d_hm = int(np.abs(card["heatmap"].astype(int) - cpu["heatmap"].astype(int)).max())
+        args, kw = rec["gp"]
+        gp_ms = event_ms(torch, lambda: orig_gp(*args, **kw), iters=20)
+        lost = int(sum(tr.lost_flags))
+        out = dict(frames=N_DG_SUP, fps=fps, lost_frames=lost, heatmaps_written=len(names),
+                   frames_scored=None, json_written=files, heatmap_shape=list(
+                       maps[0].shape) if maps else None,
+                   heatmap_dtype=str(maps[0].dtype) if maps else None,
+                   heatmap_mean_in_band=inside, heatmap_mean_outside_band=outside,
+                   card_vs_cpu=dict(frame=DG_RECORD, equal=same, max_abs_err_norm_err=d_err,
+                                    norm_err_max=scale, heatmap_max_abs_diff=d_hm),
+                   gp_device_ms=gp_ms, gp_points=int(args[0].shape[0]),
+                   frontend_launches=launches,
+                   host_ms_median=dict(datagen=timer.median("datagen"),
+                                       frontend=timer.median("frontend"),
+                                       track=timer.median("track"),
+                                       keyframe_event=timer.median("keyframe_event")))
+        out["frames_scored"] = len(timer.ms.get("datagen", []))
+        dg.out["supervised"] = out
+        print(f"datagen (a) supervised: {N_DG_SUP} frames, {fps:.3f} frames/s, {lost} lost, "
+              f"{len(names)} heatmaps written ({gen.n_saved} saved), files {files}, heatmaps "
+              f"{out['heatmap_shape']} {out['heatmap_dtype']}; mean inside the band "
+              f"{inside}, outside {outside}; frame {DG_RECORD} card vs CPU path: equal {same}, "
+              f"max |d norm_err| {d_err:.3g} (values up to {scale:.3g}), heatmap max |d| "
+              f"{d_hm}; GP ({out['gp_points']} points) {gp_ms:.3f} ms device (CUDA events); "
+              f"K1-K3 launches {launches}; host ms (median) {json.dumps(out['host_ms_median'])}")
+        want = {k: N_DG_SUP for k in launches}
+        require(launches == want, f"launch counts {launches} != {want}")
+        require(lost == 0 and s.failure_count == 0, f"{lost} lost frames")
+        require(len(names) >= 1 and gen.n_saved == len(names), f"{len(names)} heatmaps written")
+        require(all(files.values()), f"dataset files missing: {files}")
+        require(all(m.dtype == np.uint8 and m.shape == (out_h, out_w) for m in maps),
+                "a heatmap is not uint8 at the GP grid's size")
+        require(all(same.values()), f"card and CPU path differ: {same}")
+        require(d_err <= DG_ERR_TOL * (1.0 + scale), f"norm_err differs by {d_err}")
+        require(d_hm <= 1, f"heatmaps differ by {d_hm}")
+        for k, v in launches.items():
+            self.kernels[k]["launches_datagen"] = v
+
+    def dg_unsupervised(self):
+        """(b) unsupervised with ba_mode="constrained": no frame lost, masks
+        written, keypoint quality labels written by the constrained BA, and
+        one of its solves (the DG_BA_RECORD-th) again on the CPU path on the
+        same problem: points within 1e-4 m, labels within 1e-3."""
+        port, dg = self.port, self.dg
+        lba = port["local_ba"]
+        orig_c, orig_solve = lba.constrained_local_bundle_adjustment, lba._solve
+        rec = {"calls": 0}
+
+        def solve(cfg, prob_np, device, **opts):
+            res = orig_solve(cfg, prob_np, device, **opts)
+            if rec.get("armed"):
+                rec["solve"] = (cfg, prob_np, opts, to_cpu(res))
+            return res
+
+        def constrained(cfg, m, kf_id, device):
+            rec["calls"] += 1
+            rec["armed"] = rec["calls"] == DG_BA_RECORD
+            try:
+                return orig_c(cfg, m, kf_id, device)
+            finally:
+                rec["armed"] = False
+
+        lba.constrained_local_bundle_adjustment, lba._solve = constrained, solve
+        try:
+            s, fps, launches, timer, out_dir = self._dg_run(N_DG_UNSUP, True)
+        finally:
+            lba.constrained_local_bundle_adjustment, lba._solve = orig_c, orig_solve
+        tr = s.tracking
+        m = tr.map
+        gen = tr.datagen
+        n_masks = len(os.listdir(os.path.join(out_dir, "bad_region_heatmap_mask"))) \
+            if os.path.isdir(os.path.join(out_dir, "bad_region_heatmap_mask")) else 0
+        labelled = int(sum((m.kf_frames[k].qual_score != 1.0).sum()
+                           for k in range(m.n_keyframes) if m.kf_frames[k] is not None))
+        require("solve" in rec, f"only {rec['calls']} constrained BA calls")
+        cfg, prob_np, opts, card = rec["solve"]
+        cpu = orig_solve(cfg, prob_np, "cpu", **opts)
+        n_pt = int(prob_np.pt_valid.sum())
+        dX = float((card.pt_pos[:n_pt] - cpu.pt_pos[:n_pt]).abs().max())
+        valid = prob_np.e_valid
+
+        def labels(c2):
+            scaled = np.clip((c2.numpy()[valid] - 1.0) / (7.815 - 1.0), 0.0, 1.0)
+            return 2.0 * (1.0 / (1.0 + scaled)) - 1.0
+
+        d_lab = float(np.abs(labels(card.e_chi2) - labels(cpu.e_chi2)).max())
+        poses_fixed = bool(torch_equal(card.kf_pose, cpu.kf_pose))
+        lost = int(sum(tr.lost_flags))
+        out = dict(frames=N_DG_UNSUP, fps=fps, lost_frames=lost, saved=gen.n_saved,
+                   masks_written=n_masks, keypoint_labels_written=labelled,
+                   constrained_ba_calls=rec["calls"],
+                   constrained_ba_card_vs_cpu=dict(call=DG_BA_RECORD, points=n_pt,
+                                                   edges=int(valid.sum()),
+                                                   max_abs_point_diff=dX,
+                                                   max_abs_label_diff=d_lab,
+                                                   poses_equal=poses_fixed),
+                   frontend_launches=launches,
+                   host_ms_median=dict(datagen=timer.median("datagen"),
+                                       local_ba=timer.median("lm_local_ba"),
+                                       track=timer.median("track"),
+                                       keyframe_event=timer.median("keyframe_event")))
+        dg.out["unsupervised_constrained"] = out
+        print(f"datagen (b) unsupervised, constrained BA: {N_DG_UNSUP} frames, {fps:.3f} "
+              f"frames/s, {lost} lost, {gen.n_saved} heatmaps and {n_masks} masks written, "
+              f"{labelled} keypoint quality labels on {m.n_keyframes} keyframes, "
+              f"{rec['calls']} constrained BA calls; call {DG_BA_RECORD} card vs CPU path "
+              f"({n_pt} points, {int(valid.sum())} edges): max |d point| {dX:.3g} m, max "
+              f"|d label| {d_lab:.3g}, poses equal {poses_fixed}; K1-K3 launches {launches}; "
+              f"host ms (median) {json.dumps(out['host_ms_median'])}")
+        want = {k: N_DG_UNSUP for k in launches}
+        require(launches == want, f"launch counts {launches} != {want}")
+        require(lost == 0 and s.failure_count == 0, f"{lost} lost frames")
+        require(n_masks >= 1 and n_masks == gen.n_saved, f"{n_masks} masks written")
+        require(labelled > 0, "no keypoint quality label written")
+        require(dX <= 1e-4 and d_lab <= 1e-3 and poses_fixed,
+                f"constrained BA differs card vs CPU: points {dX}, labels {d_lab}")
+        for k, v in launches.items():
+            self.kernels[k]["launches_datagen"] = self.kernels[k].get("launches_datagen", 0) + v
+
+
+def torch_equal(a, b) -> bool:
+    """Tensors equal in shape and value, wherever each lives."""
+    return bool(a.shape == b.shape and (a.cpu() == b.cpu()).all())
+
 
 def main() -> int:
     try:
@@ -1710,13 +2249,14 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     from iv_slam_tpu_torch import _kernels, config, models
+    from iv_slam_tpu_torch.introspection import datagen
     from iv_slam_tpu_torch.io import trajectory
     from iv_slam_tpu_torch.ops import (brief, fast, fast_cuda, finish_cuda, orient,
                                        stereo_cuda)
-    from iv_slam_tpu_torch.ops import bow, extractor, match, triangulate
+    from iv_slam_tpu_torch.ops import bow, extractor, gp, match, triangulate
     from iv_slam_tpu_torch.slam import (device_map, frame, fused_track, keyframe_db,
                                         loop_closing, map_store, system, vocabulary)
-    from iv_slam_tpu_torch.solvers import ba_core, local_ba
+    from iv_slam_tpu_torch.solvers import ba_core, initializer, local_ba
 
     ops = SimpleNamespace(brief=brief, fast=fast, fast_cuda=fast_cuda,
                           finish_cuda=finish_cuda, orient=orient, stereo_cuda=stereo_cuda)
@@ -1726,7 +2266,8 @@ def main() -> int:
             "triangulate": triangulate, "local_ba": local_ba, "ba_core": ba_core,
             "models": models, "extractor": extractor, "bow": bow,
             "vocabulary": vocabulary, "keyframe_db": keyframe_db,
-            "loop_closing": loop_closing}
+            "loop_closing": loop_closing, "initializer": initializer, "datagen": datagen,
+            "gp": gp}
 
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -1741,7 +2282,8 @@ def main() -> int:
     cfg.orb = config.ORBConfig(n_features=2000, n_levels=8, ini_th_fast=20, min_th_fast=7)
     left, right = test_pair(H, W)
     fe = frame.StereoFrontend(cfg, H, W)
-    rec = smoke.phase("record main-path inputs", smoke.record_inputs, fe, left, right)
+    rec = smoke.phase("record main-path inputs", smoke.record_inputs,
+                      lambda: fe.process(left, right, 0.0))
     if rec is not None:
         smoke.phase("K1 fast_score vs plain", smoke.check_fast, rec)
         smoke.phase("K2 orient_brief vs plain", smoke.check_orient_brief, rec)
@@ -1798,6 +2340,20 @@ def main() -> int:
             smoke.failures.append(f"{name}: skipped, an earlier phase failed")
         else:
             smoke.phase(name, fn)
+    # mono and RGB-D, then training-data generation, also before any profiling
+    for group in ((("mono/RGB-D setup", smoke.mr_setup),
+                   ("mono/RGB-D (a) K1-K2 at 752x480 and 640x480", smoke.mr_kernels),
+                   ("mono/RGB-D (b) mono", smoke.mr_mono),
+                   ("mono/RGB-D (c) RGB-D", smoke.mr_rgbd)),
+                  (("datagen setup", smoke.dg_setup),
+                   ("datagen (a) supervised", smoke.dg_supervised),
+                   ("datagen (b) unsupervised, constrained BA", smoke.dg_unsupervised))):
+        n_fail = len(smoke.failures)
+        for name, fn in group:
+            if not loop_ok or len(smoke.failures) > n_fail:
+                smoke.failures.append(f"{name}: skipped, an earlier phase failed")
+            else:
+                smoke.phase(name, fn)
     if len(smoke.kernels) == 3:
         smoke.phase("kernel device times", smoke.device_times)
     if smoke.trk is not None and smoke.trk.record is not None:
@@ -1819,10 +2375,13 @@ def main() -> int:
               f"{k['plain_ms']:.4f} ms/frame (events {k['plain_event_ms']:.4f}), bound "
               f"{k['bound_ms']:.4f} ms ({k['bound_by']}), {k['launches_introspection']} "
               f"launches on the introspection loop, {k['launches_loop_closing']} on the "
-              f"loop-closing loop, on {card}")
+              f"loop-closing loop, {k['launches_mono']} on the mono run, "
+              f"{k['launches_rgbd']} on the RGB-D run, {k['launches_datagen']} on the datagen "
+              f"runs, on {card}")
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms", "event_ms", "plain_event_ms",
-             "launches_introspection", "launches_loop_closing")
+             "launches_introspection", "launches_loop_closing", "launches_mono",
+             "launches_rgbd", "launches_datagen")
     kernels = [{k: smoke.kernels[n][k] for k in order}
                for n in ("fast_score", "orient_brief", "sad_windows")]
     print(json.dumps({"frontend": smoke.fps,
@@ -1835,6 +2394,8 @@ def main() -> int:
             unchained=True, single_threaded=True, sync_local_ba=True, fused_tracking=True,
             n_features=800, n_levels=8, fps=4.0, vocabulary="trained k=10 L=6 seed=0"))},
         default=float))
+    print(json.dumps({"mono_rgbd": dict(smoke.mr.out, card=card)}, default=float))
+    print(json.dumps({"datagen": dict(smoke.dg.out, card=card)}, default=float))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,8 @@
 
 The JAX package ``iv_slam_tpu`` stays beside this one, unchanged, as the
 reference every piece of the port is held against. This package imports
-torch, numpy and the standard library only; it never imports jax or
-anything from ``iv_slam_tpu``.
+torch, numpy, scipy and the standard library only; it never imports jax
+or anything from ``iv_slam_tpu``.
 
 Layout (mirrors the JAX package):
   config.py      copy of the dataclass config tree
@@ -14,15 +14,20 @@ Layout (mirrors the JAX package):
   ops/           image, pyramid, FAST, orientation, BRIEF, Hamming, stereo,
                  extractor; each kernel has a ``*_cuda.py`` wrapper beside
                  its plain PyTorch version; projection matching and fuse,
-                 triangulation; vocabulary-tree descent, BoW and Sim3
-                 matching
-  solvers/       pose LM, bundle adjustment (Schur LM, local and global BA),
-                 PnP and Sim3 RANSAC, Sim3 LM, the essential graph
-  slam/          Frame + StereoFrontend, MapStore, DeviceMap, the fused
-                 tracking step, LocalMapping, Tracking, System, the
-                 vocabulary and keyframe database, LoopClosing
+                 the monocular initialization search, triangulation;
+                 vocabulary-tree descent, BoW and Sim3 matching; the GP
+                 heatmaps of training-data generation
+  solvers/       pose LM, bundle adjustment (Schur LM, local, constrained
+                 and global BA), the monocular H/F initializer, PnP and
+                 Sim3 RANSAC, Sim3 LM, the essential graph
+  slam/          Frame and the stereo, mono and RGB-D frontends, MapStore,
+                 DeviceMap, the fused tracking step, LocalMapping,
+                 Tracking, System, the vocabulary and keyframe database,
+                 LoopClosing
   models/        the introspection FCN (MobileNetV2-dilated + C1-DeepSup)
                  for cost-map inference, and its weight loaders
+  introspection/ training-data generation: feature scoring, unsupervised
+                 quality labels, the dataset writer, the per-frame orchestrator
   io/            trajectory writers and metrics
 
 Device rule: functions follow the device of the tensors they are given. A

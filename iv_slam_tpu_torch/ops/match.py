@@ -21,8 +21,8 @@ logarithms and matrix products go through numerics.py).
   * fuse_into_keyframes (+ the _compact and _compact_indexed forms):
     ORBmatcher::Fuse batched over target keyframes and points, the
     projection pass of LocalMapping::SearchInNeighbors
-
-Not ported yet: ``search_for_initialization`` (ROADMAP A9).
+  * search_for_initialization: the level-0 windowed search of the
+    monocular initializer (ORBmatcher::SearchForInitialization)
 """
 
 from __future__ import annotations
@@ -190,6 +190,59 @@ def search_by_projection_last_frame(
     return assign, matched_kp.sum(dtype=torch.int32)
 
 
+def _best_two(masked: torch.Tensor):
+    """Best and second-best column of each row, as ``lax.top_k(-masked, 2)``
+    orders them: the first minimum, then the first minimum of the rest (an
+    all-masked row gives columns 0 and 1). Returns (best_j, best_d,
+    second_j, second_d), the indices int64."""
+    best_j = torch.argmin(masked, dim=1)
+    best_d = torch.gather(masked, 1, best_j[:, None])[:, 0]
+    rest = masked.scatter(1, best_j[:, None], 1 << 30)
+    second_j = torch.argmin(rest, dim=1)
+    second_d = torch.gather(rest, 1, second_j[:, None])[:, 0]
+    return best_j, best_d, second_j, second_d
+
+
+def search_for_initialization(
+    xy1: torch.Tensor,      # (N, 2) frame-1 keypoints
+    oct1: torch.Tensor,
+    angle1: torch.Tensor,
+    desc1: torch.Tensor,
+    valid1: torch.Tensor,
+    xy2: torch.Tensor,      # (M, 2) frame-2 keypoints
+    oct2: torch.Tensor,
+    angle2: torch.Tensor,
+    desc2: torch.Tensor,
+    valid2: torch.Tensor,
+    prev_xy: torch.Tensor,  # (N, 2) predicted positions in frame 2
+    window: torch.Tensor,   # search radius (reference: 100)
+    nn_ratio: torch.Tensor,  # 0.9 in MonocularInitialization
+    check_orientation: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ORBmatcher::SearchForInitialization (ORBmatcher.cc:69 semantics):
+    level-0-only windowed search with best/second ratio and rotation
+    histogram. Returns (assign (N,) int32, n): frame-2 index per frame-1
+    keypoint, or -1."""
+    du = torch.abs(xy2[None, :, 0] - prev_xy[:, None, 0])
+    dv = torch.abs(xy2[None, :, 1] - prev_xy[:, None, 1])
+    mask = ((du < window) & (dv < window)
+            & (oct1[:, None] == 0) & (oct2[None, :] == 0)
+            & valid1[:, None] & valid2[None, :])
+    masked = torch.where(mask, hamming_matrix(desc1, desc2), _BIG)
+    best_j, best_d, _second_j, second_d = _best_two(masked)
+    ok = (best_d <= TH_LOW) & (
+        best_d.to(torch.float32) < nn_ratio * second_d.to(torch.float32))
+    # one-to-one resolution by lowest distance
+    best_j = best_j.to(torch.int32)
+    _assign, wins = resolve_one_to_one(best_j, best_d, ok, xy2.shape[0])
+    assign = torch.where(wins, best_j, -1)
+    if check_orientation:
+        safe = torch.clamp(assign, min=0).long()
+        keep = rotation_consistency_mask(angle1, angle2[safe], assign >= 0)
+        assign = torch.where(keep, assign, -1)
+    return assign, (assign >= 0).sum(dtype=torch.int32)
+
+
 def _radius_by_viewing_cos(cos_v: torch.Tensor) -> torch.Tensor:
     return torch.where(cos_v > 0.998, 2.5, 4.0)
 
@@ -276,14 +329,7 @@ def search_by_projection_local_map(
     )
     masked = torch.where(mask, hamming_matrix(pt_desc, cur_desc), _BIG)
 
-    # best + second best, as lax.top_k(-masked, 2) orders them: the first
-    # minimum, then the first minimum of the rest (an all-masked row gives
-    # columns 0 and 1)
-    best_j = torch.argmin(masked, dim=1)
-    best_d = torch.gather(masked, 1, best_j[:, None])[:, 0]
-    rest = masked.scatter(1, best_j[:, None], 1 << 30)
-    second_j = torch.argmin(rest, dim=1)
-    second_d = torch.gather(rest, 1, second_j[:, None])[:, 0]
+    best_j, best_d, second_j, second_d = _best_two(masked)
     same_level = cur_octave[best_j] == cur_octave[second_j]
     ratio_fail = same_level & (
         best_d.to(torch.float32) > nn_ratio * second_d.to(torch.float32)

@@ -1,19 +1,21 @@
-"""Per-frame data bundle + the stereo frontend that fills it.
+"""Per-frame data bundle + the frontends that fill it.
 
-Port of ``iv_slam_tpu/slam/frame.py`` (``Frame`` and ``StereoFrontend``):
-the reference's Frame stereo constructor (Frame.cc:89-230) — ORB
+Port of ``iv_slam_tpu/slam/frame.py``: ``StereoFrontend``, the reference's
+Frame stereo constructor (Frame.cc:89-230) — ORB
 extraction on both images, weighted by an introspection cost map when one
 is given or an FCN is attached, stereo matching, quality-score seeding.
 Both images go through the extractor as one batch; the whole frame,
 the FCN included, is queued on the device's current stream with no host
 synchronisation, so ``submit`` returns at once and ``collect`` waits for
-one (N, 7) download.
+one (N, 7) download. ``MonoFrontend`` (the mono constructor,
+Frame.cc:308-413) and ``RGBDFrontend`` (the RGB-D one, Frame.cc:232-305)
+extract one image; each frame is one download, and the RGB-D depth
+sampled on the host at the keypoints goes up once. ``sample_gt_depth``
+gives the per-keypoint ground-truth depth of the feature evaluator.
 
 Host-side state (pose, map-point associations, outlier flags) lives in
-NumPy; the padded keypoint tensors stay on the device for the downstream
-matchers and optimizers.
-
-Not ported yet: ``MonoFrontend`` and ``RGBDFrontend`` (ROADMAP A9).
+NumPy; the padded keypoint tensors, and each frame's u_right, depth and
+quality, stay on the device for the downstream matchers and optimizers.
 """
 
 from __future__ import annotations
@@ -50,6 +52,10 @@ class Frame:
     # per-keypoint GT depth (mvKeysGTDepth, Frame.cc:152-191); -1 where
     # unavailable
     kp_gt_depth: Optional[np.ndarray] = None
+    # the pose LM's final chi2 per keypoint and its degrees of freedom (3
+    # stereo, 2 mono, 0 unmatched), for unsupervised introspection
+    chi2: Optional[np.ndarray] = None
+    chi2_dof: Optional[np.ndarray] = None
     img_name: str = ""
     # cached numpy views of the keypoint arrays (host bookkeeping)
     xy: np.ndarray = None
@@ -137,6 +143,134 @@ class Frame:
         return (Twc @ pc)[:3]
 
 
+def sample_gt_depth(
+    depth_map: np.ndarray, xy: np.ndarray, valid: np.ndarray,
+    patch: int = 5, max_depth: float = 600.0,
+) -> np.ndarray:
+    """Per-keypoint ground-truth depth as the minimum over a 5x5 patch
+    around the keypoint (Frame.cc:152-191 mvKeysGTDepth; sky masked at
+    600 m). Returns (N,) float32; -1 where invalid."""
+    half = patch // 2
+    out = np.full(len(xy), -1.0, np.float32)
+    for i in np.nonzero(valid)[0]:
+        px = int(round(float(xy[i, 0])))
+        py = int(round(float(xy[i, 1])))
+        x0, y0 = max(px - half, 0), max(py - half, 0)
+        p = depth_map[y0:y0 + patch, x0:x0 + patch]
+        if p.size:
+            d = float(p.min())
+            if d < max_depth:
+                out[i] = d
+    return out
+
+
+def _to_device(a, shape, dtype, device, name: str) -> torch.Tensor:
+    """An (H, W) map (numpy array or tensor) of the given dtype on `device`,
+    uploaded from pinned memory without a stream sync."""
+    t = torch.as_tensor(a)
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: need a {tuple(shape)} {dtype} map, got "
+                         f"{tuple(t.shape)} {t.dtype}")
+    if t.device != device:
+        if device.type == "cuda":
+            t = t.contiguous().pin_memory()
+        t = t.to(device, non_blocking=True)
+    return t.contiguous()
+
+
+def _host_frame(fid, timestamp, kp, ur, depth, qual, **kw) -> Frame:
+    """A materialized Frame of one image's keypoints and the device tensors
+    u_right/depth/qual (N,), with one download for the host views."""
+    pack = torch.stack([kp.xy[:, 0], kp.xy[:, 1], kp.octave.to(torch.float32),
+                        kp.valid.to(torch.float32), ur, depth, qual], dim=1)
+    fr = Frame(frame_id=fid, timestamp=timestamp, kp=kp, u_right=ur, depth=depth,
+               qual_score=qual, defer=True, ur_dev=ur, depth_dev=depth, qual_dev=qual, **kw)
+    _unpack_host(fr, pack.cpu().numpy())
+    fr.defer = False
+    return fr
+
+
+class MonoFrontend:
+    """Monocular frontend (Frame.cc:308-413 mono ctor): extraction,
+    weighted by a cost map when one is given; stereo fields stay at -1."""
+
+    def __init__(self, cfg: Config, height: int, width: int, device=None):
+        self.device = resolve_device(device, "MonoFrontend")
+        self.cfg = cfg
+        self.extractor = OrbExtractor(cfg.orb, height, width)
+        self._qual256 = numerics.quality_table(256.0).to(self.device)
+        self._frame_count = 0
+
+    def process(
+        self,
+        img: np.ndarray,
+        timestamp: float,
+        cost_map: Optional[np.ndarray] = None,
+        gt_pose: Optional[np.ndarray] = None,
+        img_name: str = "",
+    ) -> Frame:
+        dev = self.device
+        shape = (self.extractor.height, self.extractor.width)
+        img_t = _to_device(img, shape, torch.uint8, dev, "img")
+        cost = (_to_device(cost_map, shape, torch.uint8, dev, "cost_map")
+                if cost_map is not None else None)
+        kp = self.extractor(img_t, cost)
+        n = kp.xy.shape[0]
+        if cost is not None:
+            # 2/(1 + cost/256) - 1 at the keypoint pixel (Frame.cc:130-143)
+            xs = torch.clamp(torch.round(kp.xy[:, 0]).to(torch.int64), 0, shape[1] - 1)
+            ys = torch.clamp(torch.round(kp.xy[:, 1]).to(torch.int64), 0, shape[0] - 1)
+            qual = self._qual256[cost[ys, xs].to(torch.int64)]
+        else:
+            qual = torch.ones(n, dtype=torch.float32, device=dev)
+        fid = self._frame_count
+        self._frame_count += 1
+        none = torch.full((n,), -1.0, dtype=torch.float32, device=dev)
+        return _host_frame(fid, timestamp, kp, none, none.clone(), qual,
+                           gt_pose=gt_pose, img_name=img_name)
+
+
+class RGBDFrontend:
+    """RGB-D frontend (Frame.cc:232-305 RGBD ctor): depth sampled at
+    the keypoint pixels on the host, virtual right coordinate
+    u_r = u - bf / depth, both uploaded once for the device matchers."""
+
+    def __init__(self, cfg: Config, height: int, width: int, device=None):
+        self.device = resolve_device(device, "RGBDFrontend")
+        self.cfg = cfg
+        self.extractor = OrbExtractor(cfg.orb, height, width)
+        self._frame_count = 0
+
+    def process(
+        self,
+        img: np.ndarray,
+        depth_map: np.ndarray,
+        timestamp: float,
+        depth_scale: float = 1.0,
+        img_name: str = "",
+    ) -> Frame:
+        """depth_map: (H, W) depth in any numeric type; depth_scale turns it
+        into metres (1 / DepthMapFactor for a TUM uint16 map)."""
+        dev = self.device
+        shape = (self.extractor.height, self.extractor.width)
+        kp = self.extractor(_to_device(img, shape, torch.uint8, dev, "img"))
+        n = kp.xy.shape[0]
+        xy = kp.xy.cpu().numpy()
+        xs = np.clip(np.rint(xy[:, 0]).astype(int), 0, depth_map.shape[1] - 1)
+        ys = np.clip(np.rint(xy[:, 1]).astype(int), 0, depth_map.shape[0] - 1)
+        depth = depth_map[ys, xs].astype(np.float32) * depth_scale
+        valid_d = depth > 0
+        u_right = np.where(
+            valid_d, xy[:, 0] - self.cfg.camera.bf / np.maximum(depth, 1e-6), -1.0,
+        ).astype(np.float32)
+        depth = np.where(valid_d, depth, -1.0).astype(np.float32)
+        fid = self._frame_count
+        self._frame_count += 1
+        up = lambda a: _to_device(a, (n,), torch.float32, dev, "depth")  # noqa: E731
+        return _host_frame(fid, timestamp, kp, up(u_right), up(depth),
+                           torch.ones(n, dtype=torch.float32, device=dev), img_name=img_name)
+
+
 def _unpack_host(fr: Frame, pack: np.ndarray) -> None:
     """Split the (N, 7) host pack into the frame's numpy views."""
     fr.xy = np.ascontiguousarray(pack[:, 0:2])
@@ -201,15 +335,7 @@ class StereoFrontend:
         else the attached FCN's on the grayscale left image stacked to RGB,
         else None."""
         if cost_map is not None:
-            cost = torch.as_tensor(cost_map)
-            if cost.dtype != torch.uint8 or tuple(cost.shape) != tuple(pair.shape[1:]):
-                raise ValueError(f"cost_map: need an {tuple(pair.shape[1:])} uint8 map, got "
-                                 f"{tuple(cost.shape)} {cost.dtype}")
-            if cost.device != self.device:
-                if self.device.type == "cuda":
-                    cost = cost.pin_memory()
-                cost = cost.to(self.device, non_blocking=True)
-            return cost.contiguous()
+            return _to_device(cost_map, pair.shape[1:], torch.uint8, self.device, "cost_map")
         if self._fcn is not None:
             net, net_hw = self._fcn
             rgb = pair[0][..., None].expand(-1, -1, 3)

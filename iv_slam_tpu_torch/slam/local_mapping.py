@@ -17,12 +17,15 @@ reference's: dict insertion order of the observation lists and of
 assembly. Each device call is read back before the host applies it, so an
 event waits for the device (a keyframe event is not held to zero syncs).
 
-The local BA is the standard one or, with ``cfg.iv.ba_mode == "vis"``, the
-one that also updates each window point's quality from its edges' chi2.
+The local BA is the standard one or, by ``cfg.iv.ba_mode``: "vis", the
+one that also updates each window point's quality from its edges' chi2;
+"constrained", IV-SLAM's guided BA of training-data generation (keyframe
+poses pinned to ground truth, each observation's chi2 a keypoint quality
+label).
 
 Not ported yet: the worker thread (``start_worker``/``kick_async``, ROADMAP
-A7), the async local BA (A7), ``set_link_profile`` (the port always uses
-the chunked shapes), and the constrained BA mode (A12).
+A7), the async local BA (A7) and ``set_link_profile`` (the port always uses
+the chunked shapes).
 """
 
 from __future__ import annotations
@@ -52,9 +55,6 @@ class LocalMapping:
     P_CAP = 16384
 
     def __init__(self, cfg: Config, map_store, device=None):
-        if cfg.iv.ba_mode not in ("standard", "vis"):
-            raise NotImplementedError(
-                f"ba_mode {cfg.iv.ba_mode!r} is not ported yet (ROADMAP A12)")
         self.cfg = cfg
         self.map = map_store
         self.device = resolve_device(device, "LocalMapping")
@@ -473,6 +473,7 @@ class LocalMapping:
     # ----------------------------------------------------------------- BA
 
     def _run_local_ba(self, kf_id: int):
-        ba = (local_ba.local_bundle_adjustment_vis if self.cfg.iv.ba_mode == "vis"
-              else local_ba.local_bundle_adjustment)
+        ba = {"vis": local_ba.local_bundle_adjustment_vis,
+              "constrained": local_ba.constrained_local_bundle_adjustment,
+              }.get(self.cfg.iv.ba_mode, local_ba.local_bundle_adjustment)
         self.ba_rungs.append(ba(self.cfg, self.map, kf_id, self.device))

@@ -1,6 +1,7 @@
 """System facade (src/System.cc re-designed for one host process).
 
-Port of ``iv_slam_tpu/slam/system.py``: TrackStereo, Reset, Shutdown,
+Port of ``iv_slam_tpu/slam/system.py``: TrackStereo, TrackMonocular,
+TrackRGBD, Reset, Shutdown,
 SaveTrajectoryKITTI/TUM, SaveKeyFrameTrajectoryTUM, the failure log and the
 map's save/load, with local mapping run inline after each keyframe (the
 reference's single-threaded mode, System.cc:177-189).
@@ -10,10 +11,11 @@ reference's single-threaded mode, System.cc:177-189).
 ``attach_vocabulary`` enables BoW tracking, relocalization and loop
 closing (``cfg.system.use_bow``, ``enable_loop_closing``); a deferred
 global BA merges at the next keyframe event or when the trajectory is
-read. ``activate_localization_mode`` tracks without mapping. Not ported
-yet, and raising NotImplementedError: mono and RGB-D tracking (ROADMAP
-A9), training-data generation (A12), and the config switches that
-``tracking.check_config`` names.
+read. ``activate_localization_mode`` tracks without mapping.
+``enable_datagen`` turns on IV-SLAM's training-data generation
+(``cfg.iv.enabled``; supervised from GT poses, or unsupervised). The config
+switches that ``tracking.check_config`` names are not ported yet and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -59,11 +61,31 @@ class System:
         host tracking of the current frame."""
         return self.tracking.submit_frontend(img_left, img_right, cost_map)
 
-    def track_mono(self, *args, **kwargs):
-        raise NotImplementedError("mono tracking is not ported yet (ROADMAP A9)")
+    def track_mono(
+        self,
+        img: np.ndarray,
+        timestamp: float,
+        gt_pose: Optional[np.ndarray] = None,
+        img_name: str = "",
+        cost_map: Optional[np.ndarray] = None,
+        gt_depth_map: Optional[np.ndarray] = None,
+    ) -> Optional[np.ndarray]:
+        """Monocular tracking (cfg.system.sensor "mono"); the pose is up to
+        the scale fixed at initialization."""
+        return self.tracking.track_mono(img, timestamp, cost_map=cost_map, gt_pose=gt_pose,
+                                        img_name=img_name, gt_depth_map=gt_depth_map)
 
-    def track_rgbd(self, *args, **kwargs):
-        raise NotImplementedError("RGB-D tracking is not ported yet (ROADMAP A9)")
+    def track_rgbd(
+        self,
+        img: np.ndarray,
+        depth_map: np.ndarray,
+        timestamp: float,
+        depth_scale: float = 1.0,
+        img_name: str = "",
+    ) -> Optional[np.ndarray]:
+        """RGB-D tracking; depth_map * depth_scale is metric depth."""
+        return self.tracking.track_rgbd(img, depth_map, timestamp, depth_scale=depth_scale,
+                                        img_name=img_name)
 
     def attach_vocabulary(self, voc):
         """Enable the BoW features: relocalization and loop closing (the
@@ -71,7 +93,10 @@ class System:
         self.tracking.attach_vocabulary(voc)
 
     def enable_datagen(self, out_path=None):
-        raise NotImplementedError("training-data generation is not ported yet (ROADMAP A12)")
+        """Write IV-SLAM training data (heatmaps, keypoints, descriptors)
+        under out_path while tracking; the DataGenerator is
+        ``tracking.datagen`` (its ``finalize`` writes the JSON files)."""
+        self.tracking.enable_datagen(out_path)
 
     # --- map persistence ---------------------------------------------------
 

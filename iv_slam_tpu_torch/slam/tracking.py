@@ -1,9 +1,12 @@
 """The per-frame tracking state machine (src/Tracking.cc re-designed).
 
-Port of the stereo path of ``iv_slam_tpu/slam/tracking.py``, unchained and
-single-threaded (the reference's bSingleThreaded path, System.cc:177-189):
+Port of ``iv_slam_tpu/slam/tracking.py``, unchained and single-threaded
+(the reference's bSingleThreaded path, System.cc:177-189), for the stereo,
+monocular and RGB-D sensors:
 
-  NOT_INITIALIZED -> StereoInitialization (Tracking.cc:882)
+  NOT_INITIALIZED -> StereoInitialization (Tracking.cc:882; stereo and
+          RGB-D) | MonocularInitialization (951: the H/F initializer of
+          solvers/initializer.py over two frames, median-depth scaling)
   OK   -> the fused step (slam/fused_track.py) when
           cfg.system.fused_tracking, else or on its failure
           TrackWithMotionModel (1303) | TrackReferenceKeyFrame (1154; by
@@ -31,14 +34,21 @@ deferred global BA merges at the next one. ``only_tracking`` (System's
 localization mode) tracks against the map without inserting keyframes,
 carrying the motion model on temporary VO points.
 
-The PnP RANSAC of relocalization draws its hypotheses through
-``self.pnp_sampler`` (default ``pnp.sample_pnp``), called as
-sampler(frame_id, valid, device).
+With ``enable_datagen`` (and ``cfg.iv.enabled``, not
+``inference_mode``) every tracked frame past the second feeds IV-SLAM's
+training-data generation (introspection/datagen.py): supervised scoring
+against ground-truth poses, or, with ``cfg.iv.unsupervised_learning``, the
+pose LM's chi2 of each match, which ``_pose_optimize`` and the fused step
+record on the frame. A GT depth map (``gt_depth_map``) is sampled per
+keypoint for the evaluator.
 
-Not ported yet, and refused by ``check_config`` or the entry point: the
-LocalMapping worker, async local BA, chained tracking and prewarm (ROADMAP
-A7), mono and RGB-D tracking (A9), training-data generation, GT depth maps
-and the constrained BA mode (A12).
+The RANSACs draw their hypotheses through samplers called as
+sampler(frame_id, valid, device): ``self.pnp_sampler`` (relocalization's
+PnP, default ``pnp.sample_pnp``) and ``self.init_sampler`` (the monocular
+initializer, default ``initializer.sample_init``).
+
+Not ported yet, and refused by ``check_config``: the LocalMapping worker,
+async local BA, chained tracking and prewarm (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -55,10 +65,10 @@ from ..config import Config
 from ..geometry import camera
 from ..ops import match as match_ops
 from ..ops import bow_match
-from ..solvers import pnp, pose_opt
+from ..solvers import initializer, pnp, pose_opt
 from . import resolve_device
 from .device_map import DeviceMap
-from .frame import Frame, StereoFrontend
+from .frame import Frame, MonoFrontend, RGBDFrontend, StereoFrontend, sample_gt_depth
 from .fused_track import LOCAL_CAP, FusedTracker
 from .local_mapping import LocalMapping
 from .keyframe_db import KeyFrameBow, KeyFrameDatabase
@@ -83,8 +93,6 @@ def check_config(cfg: Config) -> None:
         (s.async_local_ba, "async_local_ba", "A7"),
         (s.chained_tracking, "chained_tracking", "A7"),
         (s.prewarm, "prewarm", "A7"),
-        (s.sensor != "stereo", f"sensor={s.sensor!r}", "A9"),
-        (cfg.iv.ba_mode not in ("standard", "vis"), f"iv.ba_mode={cfg.iv.ba_mode!r}", "A12"),
         # the port always runs the chunked shape family, the reference's
         # choice on a low-RTT link, and probes no link
         (s.link_rtt_ms is not None, "link_rtt_ms (a pinned link profile)", "A7"),
@@ -118,6 +126,8 @@ class Tracking:
         self.only_tracking = False
         self._temporal_points: List[int] = []
         self.pnp_sampler = pnp.sample_pnp
+        self.init_sampler = initializer.sample_init
+        self.datagen = None  # introspection DataGenerator (training mode)
         self.min_frames = 0
         self.max_frames = int(cfg.camera.fps)
         # the fused step and its device map mirror, built at first use
@@ -172,9 +182,11 @@ class Tracking:
     ) -> Optional[np.ndarray]:
         """Track one stereo pair; returns Tcw or None. Pass `frontend_handle`
         from `submit_frontend` (called while the previous frame was tracking)
-        to overlap the frontend's device work with host-side tracking."""
-        if gt_depth_map is not None:
-            raise NotImplementedError("GT depth maps are not ported yet (ROADMAP A12)")
+        to overlap the frontend's device work with host-side tracking.
+
+        gt_depth_map: optional full-resolution GT depth image (the AirSim PFM
+        path, stereo_airsim.cc:339-360), sampled per keypoint as the
+        reference's mvKeysGTDepth (Frame.cc:152-191)."""
         # the fused step reads the frame's device tensors, so the frontend's
         # host views can wait for the step's single download
         defer = (
@@ -184,6 +196,7 @@ class Tracking:
             and not self.only_tracking
             and self.last_frame is not None
             and self.last_frame.pose is not None
+            and gt_depth_map is None
         )
         with self._stage("frontend"):
             if frontend_handle is not None:
@@ -192,6 +205,8 @@ class Tracking:
             else:
                 frame = self.frontend.process(img_left, img_right, timestamp, cost_map,
                                               gt_pose, gt_cov, img_name, defer=defer)
+        if gt_depth_map is not None:
+            frame.kp_gt_depth = sample_gt_depth(gt_depth_map, frame.xy, frame.valid)
         self.current = frame
         with self._stage("track"):
             self._track()
@@ -204,6 +219,63 @@ class Tracking:
         if not self.cfg.system.fused_tracking:
             self.frontend.prefetch_host(handle)
         return handle
+
+    def track_mono(
+        self,
+        img: np.ndarray,
+        timestamp: float,
+        cost_map: Optional[np.ndarray] = None,
+        gt_pose: Optional[np.ndarray] = None,
+        img_name: str = "",
+        gt_depth_map: Optional[np.ndarray] = None,
+    ) -> Optional[np.ndarray]:
+        """Monocular tracking (Tracking::GrabImageMonocular): the H/F
+        initializer builds the first map, then the per-frame loop is the
+        stereo one (mono frames carry no depth). gt_depth_map as in
+        track_stereo (mono_airsim.cc)."""
+        if not hasattr(self, "mono_frontend"):
+            self.mono_frontend = MonoFrontend(self.cfg, self.height, self.width,
+                                              device=self.device)
+        with self._stage("frontend"):
+            frame = self.mono_frontend.process(img, timestamp, cost_map, gt_pose, img_name)
+        if gt_depth_map is not None:
+            frame.kp_gt_depth = sample_gt_depth(gt_depth_map, frame.xy, frame.valid)
+        self.current = frame
+        with self._stage("track"):
+            self._track_mono_flow()
+        return frame.pose
+
+    def _track_mono_flow(self):
+        frame = self.current
+        if self.state in (State.NO_IMAGES_YET, State.NOT_INITIALIZED):
+            self.state = State.NOT_INITIALIZED
+            self._monocular_initialization()
+            self._record_trajectory(lost=self.state != State.OK)
+            self.last_frame = frame
+            return
+        self._track_after_init()
+
+    def track_rgbd(
+        self,
+        img: np.ndarray,
+        depth_map: np.ndarray,
+        timestamp: float,
+        depth_scale: float = 1.0,
+        img_name: str = "",
+    ) -> Optional[np.ndarray]:
+        """RGB-D tracking (Tracking::GrabImageRGBD): depth-seeded frames go
+        through the stereo state machine. depth_scale turns the map's values
+        into metres (1 / DepthMapFactor, examples/run_rgbd.py)."""
+        if not hasattr(self, "rgbd_frontend"):
+            self.rgbd_frontend = RGBDFrontend(self.cfg, self.height, self.width,
+                                              device=self.device)
+        with self._stage("frontend"):
+            frame = self.rgbd_frontend.process(img, depth_map, timestamp, depth_scale,
+                                               img_name)
+        self.current = frame
+        with self._stage("track"):
+            self._track()
+        return frame.pose
 
     # ----------------------------------------------------------- state flow
 
@@ -255,6 +327,8 @@ class Tracking:
                 with self._stage("keyframe_event"):
                     self._create_new_keyframe()
             self._record_trajectory(lost=False)
+            with self._stage("datagen"):
+                self._run_datagen(frame)
         else:
             self.state = State.LOST
             self._record_trajectory(lost=True)
@@ -291,11 +365,82 @@ class Tracking:
         self.local_pts = np.nonzero(self.map.pt_alive[: self.map.n_points])[0]
         self.state = State.OK
 
+    def _monocular_initialization(self):
+        """Tracking::MonocularInitialization (951-1150): two frames with
+        > 100 features, windowed level-0 matching, the H/F initializer on
+        the hypotheses of ``init_sampler``, median-depth normalization
+        (CreateInitialMapMonocular), then the first keyframe event."""
+        frame = self.current
+        prev = self.last_frame
+        if prev is None or prev.n_valid <= 100 or frame.n_valid <= 100:
+            return
+        f = self._f32
+        assign, n = match_ops.search_for_initialization(
+            prev.kp.xy, prev.kp.octave, prev.kp.angle, prev.kp.desc, prev.kp.valid,
+            frame.kp.xy, frame.kp.octave, frame.kp.angle, frame.kp.desc, frame.kp.valid,
+            prev.kp.xy, f(100.0), f(0.9 * self.cfg.matcher.nn_ratio_multiplier))
+        out = torch.cat([assign, n[None]]).cpu().numpy()
+        assign_np, n = out[:-1], int(out[-1])
+        if n < 100:
+            return
+        matched = assign_np >= 0
+        p1 = np.where(matched[:, None], prev.xy, 0.0).astype(np.float32)
+        p2 = np.where(matched[:, None], frame.xy[np.maximum(assign_np, 0)],
+                      0.0).astype(np.float32)
+        res = initializer.initialize_mono(
+            self._up(p1), self._up(p2), self._up(matched),
+            self._up(np.asarray(self.cfg.camera.K(), np.float32)),
+            self.init_sampler(frame.frame_id, matched, self.device))
+        cap = p1.shape[0]
+        flat = torch.cat([res.ok.to(torch.float32)[None], res.R.reshape(9), res.t,
+                          res.points.reshape(-1), res.is_good.to(torch.float32)])
+        flat = flat.cpu().numpy()
+        if flat[0] == 0.0:
+            return
+        R, t = flat[1:10].reshape(3, 3), flat[10:13]
+        pts = flat[13:13 + 3 * cap].reshape(cap, 3)
+        good = flat[13 + 3 * cap:] != 0.0
+        # median-depth normalization (Tracking::CreateInitialMapMonocular)
+        depths = pts[good, 2]
+        if len(depths) < 50:
+            return
+        med = float(np.median(depths))
+        if med <= 0:
+            return
+        inv_med = 1.0 / med
+        pts = pts * inv_med
+        T2 = np.eye(4, dtype=np.float32)
+        T2[:3, :3] = R
+        T2[:3, 3] = t * inv_med
+        prev.set_pose(np.eye(4, dtype=np.float32))
+        frame.set_pose(T2)
+        kf0 = self.map.add_keyframe(prev)
+        kf1 = self.map.add_keyframe(frame)
+        for i in np.nonzero(good & matched)[0]:
+            j = int(assign_np[i])
+            pid = self.map.add_point(pts[i], kf0)
+            self.map.add_observation(pid, kf0, int(i))
+            self.map.add_observation(pid, kf1, j)
+            prev.map_pt[i] = pid
+            frame.map_pt[j] = pid
+            self.map.compute_distinctive_descriptor(pid)
+            self.map.update_normal_and_depth(pid)
+        self.local_mapping.insert_keyframe(kf0)
+        self.local_mapping.insert_keyframe(kf1)
+        self.local_mapping.loop_once(run_ba=True)
+        self.ref_kf = kf1
+        frame.ref_kf = kf1
+        self.last_kf_frame_id = frame.frame_id
+        self.local_pts = np.nonzero(self.map.pt_alive[: self.map.n_points])[0]
+        self.state = State.OK
+
     # ------------------------------------------------------------- tracking
 
     def _pose_optimize(self, frame: Frame) -> int:
-        """The pose LM over the frame's associations, written back as pose
-        and outliers (Optimizer::PoseOptimization); one download."""
+        """The pose LM over the frame's associations, written back as pose,
+        outliers and each edge's final chi2 (Optimizer::PoseOptimization;
+        the chi2 feeds the unsupervised introspection path,
+        Optimizer.cc:452-455, 486-489); one download."""
         has_pt = frame.map_pt >= 0
         if has_pt.sum() < 3:
             return 0
@@ -311,10 +456,14 @@ class Tracking:
             self._up(self.inv_level_sigma2[frame.octave]),
             self._up(np.asarray(qual, np.float32)), self._up(has_pt), self.K,
             n_rounds=self.cfg.iv.optimizer_pose_opt_iter_count)
-        out = torch.cat([res.T.reshape(16), res.inlier.to(torch.float32)]).cpu().numpy()
+        out = torch.cat([res.T.reshape(16), res.inlier.to(torch.float32), res.chi2])
+        out = out.cpu().numpy()
+        n = has_pt.shape[0]
         frame.set_pose(out[:16].reshape(4, 4))
-        inlier = out[16:] != 0.0
+        inlier = out[16:16 + n] != 0.0
         frame.outlier = has_pt & ~inlier
+        frame.chi2 = out[16 + n:]
+        frame.chi2_dof = np.where(has_pt, np.where(frame.u_right >= 0, 3, 2), 0).astype(np.int32)
         return int(inlier.sum())
 
     def _track_fused(self) -> bool:
@@ -352,6 +501,7 @@ class Tracking:
             frame.depth = np.ascontiguousarray(pack[:, 5])
             frame.qual_score = np.ascontiguousarray(pack[:, 6])
         assign = pack[:, 7].astype(np.int32)
+        chi2 = np.ascontiguousarray(pack[:, 9])
         T = small[:16].reshape(4, 4).astype(np.float32)
         n_motion = int(small[16])
         # compaction overflows (never silent): local-search candidates over
@@ -368,6 +518,9 @@ class Tracking:
         frame.set_pose(T)
         frame.map_pt[:] = assign
         frame.outlier[:] = False
+        frame.chi2 = chi2
+        frame.chi2_dof = np.where(assign >= 0, np.where(frame.u_right >= 0, 3, 2),
+                                  0).astype(np.int32)
         good = assign >= 0
         self.map.increase_found(assign[good])
         self.n_inliers = int(np.count_nonzero(self.map.pt_n_obs[assign[good]] > 0))
@@ -805,6 +958,45 @@ class Tracking:
                 self.state = State.OK
                 return True
         return False
+
+    # -------------------------------------------------------- introspection
+
+    def enable_datagen(self, out_path=None):
+        from ..introspection.datagen import DataGenerator
+
+        self.datagen = DataGenerator(self.cfg, self.map, out_path, device=self.device)
+
+    def _run_datagen(self, frame):
+        """Training-data generation hooks (Tracking.cc:687-775): run after
+        pose estimation on OK frames past the warmup."""
+        if (self.datagen is None or not self.cfg.iv.enabled or self.cfg.iv.inference_mode
+                or frame.frame_id <= 2):
+            return
+        self.datagen.set_map(self.map)
+        img_hw = (self.height, self.width)
+        if not self.cfg.iv.unsupervised_learning:
+            self.datagen.process_frame_supervised(frame, img_hw, prev_frame=self.last_frame)
+            return
+        if frame.chi2 is None:
+            return
+        found = np.where(frame.map_pt >= 0, self.map.pt_found[np.maximum(frame.map_pt, 0)], 0)
+        reliable = True
+        if frame.gt_pose is not None and self.last_frame is not None:
+            from ..introspection import unsupervised as unsup
+
+            ref_kf = self.ref_kf
+            if ref_kf >= 0 and self.map.kf_gt_pose[ref_kf] is not None:
+                err6 = unsup.relative_pose_error(
+                    np.linalg.inv(self.map.kf_pose[ref_kf]), np.linalg.inv(frame.pose),
+                    self.map.kf_gt_pose[ref_kf], frame.gt_pose)
+                dt = max((frame.frame_id - self.last_kf_frame_id) / max(self.max_frames, 1),
+                         1e-3)
+                rel_gt = np.linalg.inv(self.map.kf_gt_pose[ref_kf]) @ frame.gt_pose
+                reliable = unsup.evaluate_tracking_accuracy(
+                    err6, rel_gt, dt, self.cfg.iv.ref_pose_ang_var_inv,
+                    self.cfg.iv.ref_pose_trans_var_inv)
+        self.datagen.process_frame_unsupervised(frame, frame.chi2, frame.chi2_dof, found,
+                                                reliable, img_hw)
 
     # -------------------------------------------------------------- failure
 

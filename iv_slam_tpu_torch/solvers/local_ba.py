@@ -12,7 +12,11 @@ The host bookkeeping is numpy, order for order the reference's: it decides
 which points survive.
 
 ``local_bundle_adjustment_vis`` adds the reference's per-point quality
-update from the final chi2 of each point's edges (Optimizer.cc:873-1293).
+update from the final chi2 of each point's edges (Optimizer.cc:873-1293);
+``constrained_local_bundle_adjustment`` is IV-SLAM's guided BA
+(Optimizer.cc:1295-1751): keyframe poses pinned to ground truth, only the
+points solved, nothing erased, and each observation's chi2 a keypoint
+quality label.
 
 Global BA (loop closing): ``global_bundle_adjustment`` blocks;
 ``global_bundle_adjustment_async`` solves when it is dispatched and holds
@@ -21,7 +25,7 @@ merges it later into a map that kept growing, the reference's
 RunGlobalBundleAdjustment merge-back (LoopClosing.cc:649-745).
 
 Not ported yet: the async local BA (``local_bundle_adjustment_async``,
-``apply_local_ba``, ROADMAP A7) and the constrained variant (A12).
+``apply_local_ba``, ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -320,6 +324,50 @@ def local_bundle_adjustment_vis(cfg, m, kf_id: int, device):
         m.pt_quality[pid] = 2.0 * (1.0 / (1.0 + scaled)) - 1.0
         m.mark_dirty(pid)
     return rung
+
+
+def constrained_local_bundle_adjustment(cfg, m, kf_id: int, device):
+    """Optimizer::ConstrainedLocalBundleAdjustment (Optimizer.cc:1295-1751):
+    the covisibility window's keyframes pinned to their ground-truth poses
+    (kept there), its points solved on `device` with no outlier erased, and
+    each observation of a point seen more than twice labelled with a
+    keypoint quality from its final chi2 through the [kErrMin = 1.0,
+    kErrMax = 7.815] window. Returns the rung solved, or None (the window
+    lacks ground truth or is degenerate; the poses are then restored)."""
+    local_kfs = [kf_id] + [k for k, _ in m.covisible_keyframes(kf_id)]
+    local_kfs = [k for k in local_kfs if m.kf_alive[k]]
+    if len(local_kfs) < 2 or any(m.kf_gt_pose[k] is None for k in local_kfs):
+        return None
+    saved = {k: m.kf_pose[k].copy() for k in local_kfs}
+    for k in local_kfs:
+        m.set_kf_pose(k, np.linalg.inv(m.kf_gt_pose[k]).astype(np.float32))
+    pts = set()
+    for k in local_kfs:
+        frame = m.kf_frames[k]
+        for pid in frame.map_pt[frame.map_pt >= 0]:
+            if m.pt_alive[pid]:
+                pts.add(int(pid))
+    pinned = set(local_kfs)
+    local_kfs, _, pts = _trim_window(m, local_kfs, [], sorted(pts))
+    packed = _assemble(cfg, m, local_kfs, [], pts, extra_fixed=pinned)
+    if packed is None:
+        for k, T in saved.items():
+            m.set_kf_pose(k, T)
+        return None
+    prob_np, _all_kfs, e_feat, E = packed
+    res = _solve(cfg, prob_np, device)
+    n_pt = prob_np.pt_pos.shape[0]
+    flat = torch.cat([res.pt_pos.reshape(-1), res.e_chi2]).cpu().numpy()
+    m.pt_pos[pts] = flat[: n_pt * 3].reshape(n_pt, 3)[: len(pts)]
+    m.mark_dirty(pts)
+    m.update_normal_and_depth_batch([p for p in pts if m.pt_alive[p]])
+    K_ERR_MIN, K_ERR_MAX = 1.0, 7.815
+    for (pid, k, feat), c2 in zip(e_feat, flat[n_pt * 3: n_pt * 3 + E]):
+        if m.n_observations(pid) <= 2:
+            continue
+        scaled = np.clip((float(c2) - K_ERR_MIN) / (K_ERR_MAX - K_ERR_MIN), 0.0, 1.0)
+        m.kf_frames[k].qual_score[feat] = 2.0 * (1.0 / (1.0 + scaled)) - 1.0
+    return (prob_np.kf_pose.shape[0], n_pt, prob_np.e_obs.shape[0])
 
 
 class GBAHandle:

@@ -7,8 +7,10 @@ keypoint counts that do not fill a block, keypoints 0-5 and 18-19 px
 from the canvas edges, clip-limit window centers, SAD canvases that are
 views at every byte offset mod 16, and the wrappers' refusals. Beyond the
 kernels: the vocabulary's device descent against the host descent on the
-1M-leaf synthesized tree, and the Sim3 RANSAC on the card against the CPU
-path with the same sampled indices. This file imports no JAX, so it runs
+1M-leaf synthesized tree, the Sim3 RANSAC and the monocular initializer on
+the card against the CPU path with the same sampled indices, and the
+single-image extraction of the mono and RGB-D frontends at the EuRoC and
+TUM sizes. This file imports no JAX, so it runs
 where JAX is not installed:
 
     python -m pytest -o addopts="" --noconftest -m cuda tests/test_torch_cuda.py
@@ -219,3 +221,60 @@ def test_sim3_ransac_card_equals_cpu(dev, fix_scale):
     for f in ("R", "t", "s"):
         np.testing.assert_allclose(getattr(card, f).cpu().numpy(), getattr(cpu, f).numpy(),
                                    rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("hw", [(480, 752), (480, 640)], ids=["EuRoC-mono", "TUM-RGB-D"])
+def test_single_image_extraction_card_equals_cpu(dev, hw):
+    """The monocular and RGB-D frontends' extraction (OrbExtractor on one
+    image: K1 once over the 8 levels, K2 once) at the EuRoC and TUM sizes
+    with 1000 features: every keypoint field on the card equals the CPU
+    path's, and each kernel launches once."""
+    from iv_slam_tpu_torch.config import ORBConfig
+    from iv_slam_tpu_torch.ops.extractor import OrbExtractor
+
+    rng = np.random.default_rng(hw[1])
+    img = image.gaussian_blur(_u8(rng, *hw), 7, 2.0)
+    ext = OrbExtractor(ORBConfig(n_features=1000, n_levels=8), *hw)
+    cpu = ext(img)
+    k1, k2 = fast_cuda.launches, finish_cuda.launches
+    card = ext(img.to(dev))
+    torch.cuda.synchronize()
+    assert (fast_cuda.launches - k1, finish_cuda.launches - k2) == (1, 1)
+    for f in cpu._fields:
+        assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
+    assert int(cpu.valid.sum()) > 500
+
+
+def test_initializer_card_equals_cpu(dev):
+    """The monocular initializer on the same sampled indices: the same
+    model, hypotheses, inliers and is_good set; R, t and the triangulated
+    (is_good) points within 1e-4 (float64 throughout on both, rounded
+    once: a far point's coordinate may round to the next float32, a few
+    ulps below 1e-4 within the parallax check's ~160 baselines; the other
+    rows solve degenerate systems and are never used)."""
+    from iv_slam_tpu_torch.solvers import initializer
+
+    rng = np.random.default_rng(2)
+    n = 400
+    X = np.stack([rng.uniform(-5, 5, n), rng.uniform(-3.5, 3.5, n),
+                  10.0 + 0.1 * rng.uniform(-5, 5, n)], 1)
+    t = np.array([-0.6, 0.05, 0.02])
+    proj = lambda P: np.stack([400 * P[:, 0] / P[:, 2] + 160,  # noqa: E731
+                               400 * P[:, 1] / P[:, 2] + 120], 1)
+    p1 = (proj(X) + rng.normal(0, 0.5, (n, 2))).astype(np.float32)
+    p2 = (proj(X + t) + rng.normal(0, 0.5, (n, 2))).astype(np.float32)
+    valid = np.arange(n) < 300
+    K = np.array([[400, 0, 160], [0, 400, 120], [0, 0, 1]], np.float32)
+    idx = initializer.sample_init(3, valid)
+    out = [initializer.initialize_mono(*(torch.as_tensor(a).to(d) for a in (p1, p2, valid, K)),
+                                       idx.to(d)) for d in ("cpu", dev)]
+    cpu, card = out
+    for f in ("ok", "used_homography", "best_h", "best_f", "inliers", "is_good"):
+        assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
+    assert bool(cpu.ok)
+    good = cpu.is_good.numpy()
+    for f in ("R", "t", "points"):
+        a, b = getattr(card, f).cpu().numpy(), getattr(cpu, f).numpy()
+        if f == "points":   # the rows that did not triangulate are never used
+            a, b = a[good], b[good]
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)

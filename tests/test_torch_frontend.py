@@ -130,19 +130,13 @@ def test_attached_fcn_equals_explicit_cost_map(world_frame):
 
 def test_unported_frontend_paths_raise(world_frame):
     """What stays refused around the frontend: a cost map that is not an
-    (H, W) uint8 map, and the constrained local BA (ROADMAP A12)."""
-    from iv_slam_tpu_torch.slam.local_mapping import LocalMapping
-    from iv_slam_tpu_torch.slam.map_store import MapStore
-
+    (H, W) uint8 map."""
     cfg, _, left, right = world_frame
     fe = StereoFrontend(cfg, left.shape[0], left.shape[1], device="cpu")
     with pytest.raises(ValueError, match="uint8"):
         fe.process(left, right, 0.0, cost_map=np.zeros(left.shape, np.float32))
     with pytest.raises(ValueError, match="uint8"):
         fe.process(left, right, 0.0, cost_map=np.zeros((8, 8), np.uint8))
-    c = dataclasses.replace(cfg, iv=dataclasses.replace(cfg.iv, ba_mode="constrained"))
-    with pytest.raises(NotImplementedError, match="A12"):
-        LocalMapping(c, MapStore(n_levels=4, scale_factor=1.2), "cpu")
 
 
 def test_default_device_needs_cuda(world_frame, monkeypatch):

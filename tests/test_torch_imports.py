@@ -60,7 +60,13 @@ def test_port_files_exist():
                  "iv_slam_tpu_torch/solvers/pnp.py", "iv_slam_tpu_torch/solvers/sim3_solver.py",
                  "iv_slam_tpu_torch/solvers/sim3_opt.py",
                  "iv_slam_tpu_torch/solvers/essential_graph.py",
-                 "iv_slam_tpu_torch/slam/loop_closing.py"):
+                 "iv_slam_tpu_torch/slam/loop_closing.py",
+                 "iv_slam_tpu_torch/solvers/initializer.py", "iv_slam_tpu_torch/ops/gp.py",
+                 "iv_slam_tpu_torch/introspection/__init__.py",
+                 "iv_slam_tpu_torch/introspection/feature_evaluator.py",
+                 "iv_slam_tpu_torch/introspection/unsupervised.py",
+                 "iv_slam_tpu_torch/introspection/dataset_creator.py",
+                 "iv_slam_tpu_torch/introspection/datagen.py"):
         assert must in names, must
 
 

@@ -25,6 +25,17 @@ summed chi2 carries the BA's small differences through the quantile
 window's slope), keyframe poses and point positions within 1e-4 and 2e-4 m
 (the noisy problem is less well conditioned than the clean one; points
 sit ~10 m away, and 1.1e-4 m, 1.1e-5 relative, was seen).
+
+The constrained local BA (``ba_mode="constrained"``, IV-SLAM's guided BA
+of training-data generation) runs once more on that noisy map at the same
+keyframe, every keyframe given its ground-truth pose relative to the first
+camera: the window's keyframes pinned to it exactly (the same numpy
+inverse), no observation erased, which keypoints get a quality label exact,
+the labels within 1e-3 (a label is 2/(1 + (chi2 - 1)/6.815) - 1 of an
+edge's final chi2, which carries the BA's small differences) and point
+positions within 5e-4 m (2.3e-4 m, 2.2e-5 relative, seen on one point of
+2,373: with every pose fixed each point is its own small LM, and a weakly
+observed one ends its iterations further apart).
 """
 
 import numpy as np
@@ -76,7 +87,7 @@ def build_map(d, n_levels):
 def reference(tmp_path_factory):
     return run_reference("keyframe_event", tmp_path_factory.mktemp("kfev"), seed=7,
                          n_frames=15, event=EVENT, kf_every=3, cam=np.array(CAM),
-                         n_features=800, n_levels=4, vis_ba_px=1.5)
+                         n_features=800, n_levels=4, vis_ba_px=1.5, constrained=True)
 
 
 def _split(ref, pre):
@@ -149,3 +160,28 @@ def test_vis_local_ba_matches_jax(vis_event):
     np.testing.assert_allclose(got["kf_pose"], after["kf_pose"], rtol=0, atol=1e-4)
     alive = after["pt_alive"]
     np.testing.assert_allclose(got["pt_pos"][alive], after["pt_pos"][alive], rtol=0, atol=2e-4)
+
+
+def test_constrained_local_ba_matches_jax(reference):
+    before, after = _split(reference, "con_before_"), _split(reference, "con_after_")
+    kf_id = int(reference["kf_id"])
+    cfg = port_config(CAM, 800, 4)
+    cfg.iv.ba_mode = "constrained"
+    m = build_map(before, 4)
+    for k, T in enumerate(reference["con_gt_pose"]):
+        m.kf_gt_pose[k] = T
+    LocalMapping(cfg, m, "cpu")          # the constrained mode is accepted
+    assert local_ba.constrained_local_bundle_adjustment(cfg, m, kf_id, "cpu") == (32, 2048, 4096)
+    got = dump_map(m)
+    np.testing.assert_array_equal(got["kf_pose"], after["kf_pose"])
+    moved = np.abs(after["kf_pose"] - before["kf_pose"]).max(axis=(1, 2)) > 0
+    assert moved.sum() >= 3
+    assert got["obs"].tolist() == after["obs"].tolist() == before["obs"].tolist()
+    np.testing.assert_array_equal(got["fr_map_pt"], after["fr_map_pt"])
+    want_lab = after["fr_qual_score"] != before["fr_qual_score"]
+    np.testing.assert_array_equal(got["fr_qual_score"] != before["fr_qual_score"], want_lab)
+    assert want_lab.sum() > 100, want_lab.sum()
+    np.testing.assert_allclose(got["fr_qual_score"], after["fr_qual_score"], rtol=0, atol=1e-3)
+    assert (after["fr_qual_score"][want_lab] < 0.5).sum() > 10  # the window's far side
+    alive = after["pt_alive"]
+    np.testing.assert_allclose(got["pt_pos"][alive], after["pt_pos"][alive], rtol=0, atol=5e-4)

@@ -31,9 +31,10 @@ on the CPU path.
   frames give too few keyframes for DetectLoop, which
   tests/test_torch_loop_closing.py holds on a recorded JAX map), poses
   within 2e-3 as above;
-* the switches and entry points this port does not run yet raise
-  NotImplementedError (use_bow and loop closing only together with the
-  LocalMapping worker, A7), and System needs CUDA unless given a device.
+* the switches this port does not run yet raise NotImplementedError
+  (use_bow, loop closing, mono tracking and the constrained BA only
+  together with the LocalMapping worker or async local BA, A7), and System
+  needs CUDA unless given a device.
 """
 
 import os
@@ -245,10 +246,14 @@ SWITCHES = {
     # async local BA they wait for A7
     "use_bow": lambda c: (setattr(c.system, "use_bow", True),
                           setattr(c.system, "threaded_local_mapping", True)),
-    "sensor mono": lambda c: setattr(c.system, "sensor", "mono"),
+    # mono tracking and the constrained BA run inline; with the
+    # LocalMapping worker or async local BA they wait for A7
+    "sensor mono": lambda c: (setattr(c.system, "sensor", "mono"),
+                              setattr(c.system, "threaded_local_mapping", True)),
     "enable_loop_closing": lambda c: (setattr(c.system, "enable_loop_closing", True),
                                       setattr(c.system, "async_local_ba", True)),
-    "ba_mode constrained": lambda c: setattr(c.iv, "ba_mode", "constrained"),
+    "ba_mode constrained": lambda c: (setattr(c.iv, "ba_mode", "constrained"),
+                                      setattr(c.system, "async_local_ba", True)),
     "link_rtt_ms": lambda c: setattr(c.system, "link_rtt_ms", 58.0),
 }
 
@@ -259,14 +264,3 @@ def test_unported_switch_raises(name):
     SWITCHES[name](cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         System(cfg, 240, 320, device="cpu")
-
-
-@pytest.mark.parametrize("call", ["track_mono", "track_rgbd", "enable_datagen", "gt_depth_map"])
-def test_unported_entry_point_raises(call):
-    s = System(make_config(), 240, 320, device="cpu")
-    img = np.zeros((240, 320), np.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        if call == "gt_depth_map":
-            s.track_stereo(img, img, 0.0, gt_depth_map=np.ones((240, 320), np.float32))
-        else:
-            getattr(s, call)(None)

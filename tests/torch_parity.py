@@ -440,15 +440,17 @@ def dump_map(m, recent_points=None):
 
 
 def _task_keyframe_event(seed, n_frames, event, kf_every, cam, n_features, n_levels,
-                         vis_ba_px=0.0):
+                         vis_ba_px=0.0, constrained=False):
     """The JAX package's System over a synth_world sequence with a keyframe
     forced every kf_every frames (tests/test_ba_variants.py's loop); the map
     just before and just after LocalMapping._process_one of event number
     `event` (0 = the initialization's). With vis_ba_px > 0, then the map
     with every keyframe's keypoint positions (the BA's observations) moved
     by seeded Gaussian noise of that many pixels, before and after one
-    local_bundle_adjustment_vis at the same keyframe (vis_ keys); the run
-    stops there."""
+    local_bundle_adjustment_vis at the same keyframe (vis_ keys). With
+    `constrained`, then every keyframe's ground-truth pose set and the map
+    before and after one constrained_local_bundle_adjustment at the same
+    keyframe (con_ keys, con_gt_pose). The run stops there."""
     import synth_world
 
     from iv_slam_tpu.slam import local_mapping
@@ -460,6 +462,7 @@ def _task_keyframe_event(seed, n_frames, event, kf_every, cam, n_features, n_lev
                                                   n_frames=int(n_frames), step=0.08)
     orig = local_mapping.LocalMapping._process_one
     px = float(vis_ba_px)
+    constrained = bool(constrained)
     seen, out = [], {}
 
     def process(self, kf_id, run_ba=True):
@@ -480,6 +483,19 @@ def _task_keyframe_event(seed, n_frames, event, kf_every, cam, n_features, n_lev
                 out.update({"vis_before_" + k: v for k, v in dump_map(m).items()})
                 local_ba.local_bundle_adjustment_vis(self.cfg, m, kf_id)
                 out.update({"vis_after_" + k: v for k, v in dump_map(m).items()})
+            if constrained:
+                # every keyframe's ground truth relative to the first
+                # camera (the map's frame, as KITTI's poses are), then one
+                # constrained BA at the same keyframe (on the noisy map when
+                # vis_ba_px > 0)
+                m = self.map
+                for k in range(m.n_keyframes):
+                    m.kf_gt_pose[k] = (np.linalg.inv(gt[0])
+                                       @ gt[int(m.kf_frame_id[k])]).astype(np.float32)
+                out["con_gt_pose"] = np.stack(m.kf_gt_pose[:m.n_keyframes])
+                out.update({"con_before_" + k: v for k, v in dump_map(m).items()})
+                local_ba.constrained_local_bundle_adjustment(self.cfg, m, kf_id)
+                out.update({"con_after_" + k: v for k, v in dump_map(m).items()})
         seen.append(kf_id)
 
     local_mapping.LocalMapping._process_one = process
@@ -555,6 +571,176 @@ def _task_system(seed, n_frames, kf_every, cam, n_features, n_levels, cost_map=N
         if name == "lc":
             out.update(lc_n_loops=np.int64(tr.loop_closing.n_loops_closed),
                        lc_kfdb=np.array(list(tr.kfdb.bow), np.int64))
+    return out
+
+
+# ---- mono and RGB-D, training-data generation (ROADMAP A9, A12) ------------
+
+def mono_rgbd_world(n_frames, seed=23):
+    """tests/test_mono_rgbd.py's world and path: a TwoPlaneWorld (320x240,
+    fx = fy = 400) seen from 10 m, 0.25 m a frame with a sway and a slow
+    yaw. Returns (images, depth maps, Twc ground truth)."""
+    import synth_world
+
+    world = synth_world.TwoPlaneWorld(np.random.default_rng(seed))
+    gt = [synth_world.camera_pose(np.array([i * 0.25, 0.03 * np.sin(i * 0.5), 0.0], np.float32),
+                                  height=10.0, yaw=0.01 * i) for i in range(n_frames)]
+    return (np.stack([world.render(T) for T in gt]),
+            np.stack([world.render_depth(T) for T in gt]), np.stack(gt))
+
+
+def _task_mono_frontend(img, cost_map, depth_f, depth_u16, cam, n_features, n_levels):
+    """MonoFrontend.process of one image without and with a cost map (mono_
+    and monoq_ keys), and RGBDFrontend.process of it with a float depth map
+    in metres (rgbdf_ keys) and a uint16 one at 1/5000 (rgbdu_ keys): every
+    Frame field."""
+    from iv_slam_tpu.slam.frame import MonoFrontend, RGBDFrontend
+
+    cfg = _tracking_config(cam, n_features, n_levels)
+    h, w = cfg.camera.height, cfg.camera.width
+    mono = MonoFrontend(cfg, h, w)
+    rgbd = RGBDFrontend(cfg, h, w)
+    frames = {"mono": mono.process(img, 0.0), "monoq": mono.process(img, 0.1, cost_map),
+              "rgbdf": rgbd.process(img, depth_f, 0.0, 1.0),
+              "rgbdu": rgbd.process(img, depth_u16, 0.1, 1.0 / 5000.0)}
+    out = {}
+    for name, fr in frames.items():
+        out.update({f"{name}_{f}": np.asarray(getattr(fr.kp, f)) for f in KP_FIELDS})
+        out.update({f"{name}_{f}": np.asarray(getattr(fr, f)) for f in (
+            "u_right", "depth", "qual_score", "xy", "octave", "valid", "frame_id")})
+    return out
+
+
+def _task_mono_rgbd_system(imgs, depths, cam, n_features, n_levels, fused, kf_every_rgbd):
+    """The JAX package's System over the frames with track_mono (mono_ keys)
+    and with track_rgbd (rgbd_ keys, a keyframe forced every kf_every_rgbd
+    frames, 0: none): each frame's state, the trajectory, the map's size,
+    its keyframes' frame ids, and the last frame's associations and pose-LM
+    chi2 record."""
+    from iv_slam_tpu.slam.system import System
+
+    out = {}
+    for sensor in ("mono", "rgbd"):
+        cfg = _tracking_config(cam, n_features, n_levels)
+        cfg.system.sensor = sensor
+        cfg.system.fused_tracking = bool(fused)
+        s = System(cfg, cfg.camera.height, cfg.camera.width)
+        states = []
+        for i, img in enumerate(imgs):
+            if sensor == "mono":
+                s.track_mono(img, i * 0.1)
+            else:
+                s.track_rgbd(img, depths[i], i * 0.1)
+                force_keyframe(s.tracking, i, int(kf_every_rgbd))
+            states.append(s.state.value)
+        tr = s.tracking
+        m = tr.map
+        res = {"states": np.array(states), "twc": np.stack(s.trajectory_twc()),
+               "n_keyframes": np.int64(m.n_keyframes), "n_points": np.int64(m.n_points),
+               "n_alive": np.int64(m.pt_alive[:m.n_points].sum()),
+               "kf_frame_id": np.array(m.kf_frame_id[:m.n_keyframes]),
+               "chi2": np.asarray(tr.current.chi2), "chi2_dof": np.asarray(tr.current.chi2_dof),
+               "map_pt": np.array(tr.current.map_pt)}
+        out.update({f"{sensor}_{k}": v for k, v in res.items()})
+    return out
+
+
+def _task_mono_rgbd(img, cost_map, depth_f, depth_u16, imgs, depths, cam, n_features,
+                    n_levels, fused, kf_every_rgbd):
+    """_task_mono_frontend and _task_mono_rgbd_system in one process."""
+    out = _task_mono_frontend(img, cost_map, depth_f, depth_u16, cam, n_features, n_levels)
+    out.update(_task_mono_rgbd_system(imgs, depths, cam, n_features, n_levels, fused,
+                                      kf_every_rgbd))
+    return out
+
+
+def force_keyframe(tr, i, kf_every):
+    """A keyframe at frame i when i closes a group of kf_every frames (0:
+    never) and the frame tracks and is not one already (either package's
+    Tracking). The frame's trajectory entry, recorded against the previous
+    reference keyframe, is then recorded again against the new one, as the
+    tracker records a frame after its own keyframe decision: the next
+    frame's motion model starts from that entry."""
+    if (kf_every and i % kf_every == kf_every - 1 and tr.state.value == 2
+            and tr.current.frame_id != tr.last_kf_frame_id):
+        tr._create_new_keyframe()
+        fr = tr.current
+        tr.rel_poses[-1] = (fr.pose @ np.linalg.inv(tr.map.kf_pose[tr.ref_kf])).astype(
+            np.float32)
+        tr.rel_refs[-1] = tr.ref_kf
+
+
+def frame_arrays(fr, pre):
+    """The fields of a Frame (either package's) the data generator reads."""
+    out = {pre + f: np.asarray(getattr(fr, f)) for f in (
+        "xy", "octave", "valid", "u_right", "depth", "map_pt", "pose", "gt_pose", "desc",
+        "angle")}
+    out[pre + "img_name"] = np.array(fr.img_name)
+    out[pre + "frame_id"] = np.int64(fr.frame_id)
+    out[pre + "gt_depth"] = (np.asarray(fr.kp_gt_depth) if fr.kp_gt_depth is not None
+                             else np.full(len(fr.xy), -1.0, np.float32))
+    return out
+
+
+SUPERVISED_MODES = ("prev_frame", "prev_frame_and_ref_kf", "ref_kf", "prev_frame_epipolar",
+                    "ref_kf_epipolar", "prev_frame_epipolar_normalized",
+                    "ref_kf_epipolar_normalized")
+
+
+def _task_datagen(imgs_l, imgs_r, depths, gt, cam, n_features, n_levels, max_train_points,
+                  record_frame, map_path):
+    """The JAX package's System tracking stereo frames with GT poses and GT
+    depth maps and supervised training-data generation on (no files). At
+    frame `record_frame` its map is saved to map_path just before
+    process_frame_supervised, with the frame, the previous frame and every
+    keyframe's GT poses and depths; then that call runs in each implemented
+    training mode (<mode>_ keys: the result's arrays and numbers), and
+    process_frame_unsupervised on the frame's pose-LM chi2 record (unsup_
+    keys, its inputs and result). The run stops there."""
+    from iv_slam_tpu.introspection import datagen
+    from iv_slam_tpu.slam.system import System
+
+    cfg = _tracking_config(cam, n_features, n_levels)
+    cfg.iv.enabled = True
+    cfg.gp.max_train_points = int(max_train_points)
+    s = System(cfg, cfg.camera.height, cfg.camera.width)
+    s.enable_datagen(None)
+    orig = datagen.DataGenerator.process_frame_supervised
+    out = {}
+
+    def record(self, frame, img_hw, prev_frame=None):
+        if frame.frame_id == int(record_frame) and not out:
+            m = self.map
+            m.save(str(map_path))
+            out.update(frame_arrays(frame, "cur_"))
+            out.update(frame_arrays(prev_frame, "prev_"))
+            out["kf_gt_depth"] = np.stack([
+                np.asarray(m.kf_frames[k].kp_gt_depth) for k in range(m.n_keyframes)])
+            out["kf_gt_pose"] = np.stack([m.kf_gt_pose[k] for k in range(m.n_keyframes)])
+            for mode in SUPERVISED_MODES:
+                cfg.iv.training_mode = mode
+                r = orig(self, frame, img_hw, prev_frame)
+                out[mode + "_none"] = np.bool_(r is None)
+                if r is not None:
+                    for k in ("heatmap", "norm_err", "keep", "good", "bad_percent",
+                              "n_scored"):
+                        out[f"{mode}_{k}"] = np.asarray(r[k])
+            cfg.iv.training_mode = "ref_kf_epipolar_normalized"
+            found = np.where(frame.map_pt >= 0, m.pt_found[np.maximum(frame.map_pt, 0)], 0)
+            r = self.process_frame_unsupervised(frame, frame.chi2, frame.chi2_dof, found,
+                                                True, img_hw)
+            out.update(unsup_chi2=np.asarray(frame.chi2), unsup_dof=np.asarray(frame.chi2_dof),
+                       unsup_found=found, unsup_heatmap=r["heatmap"], unsup_mask=r["mask"],
+                       unsup_qual=r["qual"], unsup_good=np.bool_(r["good"]))
+        return orig(self, frame, img_hw, prev_frame)
+
+    datagen.DataGenerator.process_frame_supervised = record
+    for i in range(len(imgs_l)):
+        s.track_stereo(imgs_l[i], imgs_r[i], i * 0.1, gt_pose=gt[i], img_name=f"{i:06d}.png",
+                       gt_depth_map=depths[i])
+        if out:
+            break
+    assert out, "the frame was not recorded"
     return out
 
 
