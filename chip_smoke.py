@@ -96,17 +96,42 @@ It drives the port only (no JAX, nothing of ``iv_slam_tpu``):
      frames: no frame lost, masks and keypoint quality labels written, one
      constrained BA solve again on the CPU path (points within 1e-4 m,
      labels within 1e-3); K1-K3 counted in both (once a frame);
- 10. from torch.profiler, after every phase that times the host: each
+ 10. FCN training, the model zoo, export and the multi-process paths:
+     (a) a dataset from phase 9 (b)'s heatmaps and masks beside its left
+     images written as PNG, the last 8 frames as the validation session,
+     every PNG read back by the port's reader equal to what was written;
+     (b) the flagship recipe at full width on the card (MobileNetV2-dilated
+     + C1-DeepSup, 512x512, batch 8, lr 0.02, 3 epochs): per epoch the
+     train and validation loss, the step's median ms (CUDA events),
+     samples/s, peak memory, the step's convolution operations against 67
+     TFLOP/s; every loss finite, 10 steps on one batch lower its loss; (c)
+     one step at 512x512, batch 8, card against CPU path from the same
+     weights and batch (loss, parameters, running statistics), and a
+     checkpoint saved and restored into a fresh Trainer bit-equal; (d) the
+     trained net's cost-map inference exported to TorchScript at KITTI
+     geometry and loaded on the card, its map of a phase 9 frame bit-equal
+     to the eager one; (e) the trained net attached to System on phase 9's
+     world for 30 frames (0 lost, K1-K3 once a frame, ATE below 0.5 m);
+     (f) one training step of every zoo encoder with c1 and every decoder
+     on resnet50dilated at 512x512, batch 8 (step ms, peak memory), each
+     card against CPU path at 128x128, batch 2; (g) two ranks on the one
+     card through gloo, the split-batch step against the one-rank step;
+     (h) ShardedReplay over 16 frames of the full loop's world with phase
+     7's vocabulary, bit-equal to StereoFrontend.process, bow_nodes equal
+     to the host descent, K1-K3 once a frame; (i) ShardedDatagen over
+     phase 9's 60 frames, one pair card against CPU path;
+ 11. from torch.profiler, after every phase that times the host: each
      kernel's device time, the tracking step's device time and kernel
      launches, a profile of whole frames, one keyframe event (device ms,
      launches, host syncs), and the FCN's and a weighted frame's device
      time and launches;
- 11. prints one {"tracking": {...}} line, one {"full_loop": {...}} line, one
+ 12. prints one {"tracking": {...}} line, one {"full_loop": {...}} line, one
      {"introspection": {...}} line, one {"loop_closing": {...}} line, one
      {"mono_rgbd": {...}} line, one {"datagen": {...}} line, one
-     {"kernels": [...]} line (with each kernel's launches on the
-     introspection, loop-closing, mono, RGB-D and datagen runs too) and,
-     last, the status line.
+     {"training": {...}} line, one {"kernels": [...]} line (with each
+     kernel's launches on the introspection, loop-closing, mono, RGB-D,
+     datagen, replay and sharded-datagen runs too) and, last, the status
+     line.
 
 A phase that fails is reported and the script exits 1 without a result.
 With no CUDA device, or run outside a checkout, it exits 2 at once.
@@ -140,6 +165,7 @@ N_TRACK_A = 14          # frames tracked after frame 0 in part (a)
 KF_EVERY_B = 20         # part (b): a keyframe every 20 frames (16 m at 0.8 m/frame)
 N_KF_B, N_TRACK_B = 5, 14
 STEP_PROFILE_ITERS = 2
+PROFILE_TRIES = 4       # profiler sessions a kernel gets to show one event a call
 
 # full loop: bench.py's bench_full_loop (n_frames, ramp)
 N_LOOP, RAMP = 120, 15
@@ -187,6 +213,23 @@ DG_RECORD, DG_ERR_TOL, DG_BA_RECORD = 30, 1e-4, 1
 # 0.75 the first frames qualify (7 of 40) and the band's points are culled
 # after
 DG_BAND_ALPHA = 0.75
+
+# FCN training (phase 10): validation frames (one batch: a partial batch is
+# dropped), epochs and batch of the flagship recipe's run, frames of the
+# trained net's loop, frames of the replay. Card against CPU path on one
+# step: the tolerances tests/test_torch_train.py holds the port to against
+# JAX (loss 1e-5 relative, parameters 2e-3 after a step at lr 0.02,
+# running means 1e-5, running variances 1e-4 relative). The zoo's pairs at
+# 128x128, batch 2, compare in float64: in float32 the BatchNorms over
+# their small maps are ill-conditioned (on an "NVIDIA H100 80GB HBM3,
+# 700.00 W" the card and the CPU path parted by up to 1.8e-4 in the loss
+# and 9% in the update's largest entry for the C1 pairs), so float32 shows
+# mostly that noise; in float64 they agree to 2.1e-13 (loss, relative)
+# and 7.6e-12 (the update, of its largest entry), held to 1e-8 and 1e-6
+TR_VAL, TR_EPOCHS, TR_BATCH, TR_LOOP, N_REPLAY = 8, 3, 8, 30, 16
+TR_LOSS_RTOL, TR_PARAM_ATOL, TR_MEAN_ATOL, TR_VAR_RTOL = 1e-5, 2e-3, 1e-5, 1e-4
+TR_STATS_ATOL = 1e-5
+ZOO_LOSS_RTOL, ZOO_UPDATE_RTOL = 1e-8, 1e-6
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, and the float32
 # rate outside the tensor cores, used for these kernels' 32-bit scalar ops
@@ -383,6 +426,7 @@ class Smoke:
         self.lc = None
         self.mr = None
         self.dg = None
+        self.tr = None
 
     def phase(self, name, fn, *args):
         t0 = time.perf_counter()
@@ -699,12 +743,13 @@ class Smoke:
         phase that times the host (the host runs slower once the profiler
         has been active). Each wrapper call launches one kernel, so the
         profile must hold one kernel a call: fewer would mean lost events
-        and a time too low. The profiler has returned a session with no
-        kernel events at all (seen once on an H100, for the 2.5 us K3), so a
-        kernel is profiled again once before the check fails."""
+        and a time too low. The profiler has returned sessions with no
+        kernel events, or one kernel short of the count, on an H100 (for K3
+        once; for K2 twice in a row after phase 10), so a kernel is profiled
+        up to PROFILE_TRIES times before the check fails."""
         for k in self.kernels.values():
             kern, plain = k.pop("fns")
-            for attempt in range(2):
+            for attempt in range(PROFILE_TRIES):
                 k["ms"], per_call = device_ms(self.torch, kern)
                 if per_call == 1:
                     break
@@ -2018,6 +2063,7 @@ class Smoke:
         pairs = [world.render_stereo(T) for T in gt]
         gt_rel = [(np.linalg.inv(gt[0]) @ T).astype(np.float32) for T in gt]
         self.dg = SimpleNamespace(cfg=cfg, pairs=pairs, gt=gt_rel, band=world.bad_region_mask(),
+                                  dirs={},
                                   out=dict(render_s=time.perf_counter() - t0,
                                            max_train_points=cfg.gp.max_train_points))
         self.dg.out["band_alpha"] = DG_BAND_ALPHA
@@ -2088,6 +2134,7 @@ class Smoke:
             s, fps, launches, timer, out_dir = self._dg_run(N_DG_SUP, False)
         finally:
             DG.process_frame_supervised, gp.gp_grid_predict = orig, orig_gp
+        dg.dirs["supervised"] = out_dir
         tr = s.tracking
         gen = tr.datagen
         hm_dir = os.path.join(out_dir, "bad_region_heatmap")
@@ -2176,6 +2223,7 @@ class Smoke:
             s, fps, launches, timer, out_dir = self._dg_run(N_DG_UNSUP, True)
         finally:
             lba.constrained_local_bundle_adjustment, lba._solve = orig_c, orig_solve
+        dg.dirs["unsupervised"] = out_dir
         tr = s.tracking
         m = tr.map
         gen = tr.datagen
@@ -2229,6 +2277,486 @@ class Smoke:
             self.kernels[k]["launches_datagen"] = self.kernels[k].get("launches_datagen", 0) + v
 
 
+    # ---- phase 10: FCN training, zoo, export, multi-process paths -----------
+    def tr_setup(self):
+        """(a) A dataset from phase 9: run (b)'s heatmaps and masks, the last
+        TR_VAL of them as the validation session (one whole batch, since a
+        partial batch is dropped) and the rest as the training session,
+        beside the left images phase 9 rendered, written as PNG under
+        <raw>/<session>/image_0/<name>. Every PNG is read back by the port's
+        dataset reader and must equal what was written."""
+        import shutil
+        import tempfile
+
+        import cv2
+
+        port, dg = self.port, self.dg
+        tdata = port["train_data"]
+        src = dg.dirs["unsupervised"]
+        names = sorted(os.listdir(os.path.join(src, "bad_region_heatmap")))
+        require(len(names) >= TR_VAL + 8, f"only {len(names)} heatmaps from phase 9 (b)")
+        root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+        data_root, raw_root = os.path.join(root, "data"), os.path.join(root, "raw")
+        split = {0: names[:-TR_VAL], 1: names[-TR_VAL:]}
+        n_png = 0
+        for sess, sel in split.items():
+            gen = os.path.join(data_root, f"{sess:05d}", "generated_training_data")
+            raw = os.path.join(raw_root, f"{sess:05d}", "image_0")
+            os.makedirs(raw)
+            for sub in ("bad_region_heatmap", "bad_region_heatmap_mask"):
+                os.makedirs(os.path.join(gen, sub))
+                for nm in sel:
+                    shutil.copy(os.path.join(src, sub, nm), os.path.join(gen, sub, nm))
+                    got = tdata.read_png(os.path.join(gen, sub, nm))
+                    want = cv2.imread(os.path.join(src, sub, nm), cv2.IMREAD_UNCHANGED)
+                    require(np.array_equal(got, want), f"{sub}/{nm} read back differs")
+                    n_png += 1
+            for nm in sel:
+                left = dg.pairs[int(nm[:-4])][0]
+                port["dataset_creator"].write_png(os.path.join(raw, nm), left)
+                require(np.array_equal(tdata.read_png(os.path.join(raw, nm)), left),
+                        f"image_0/{nm} read back differs")
+                n_png += 1
+        train_ds = tdata.ImageQualityDataset(data_root, raw_root, [0], NET_HW)
+        val_ds = tdata.ImageQualityDataset(data_root, raw_root, [1], NET_HW)
+        self.tr = SimpleNamespace(root=root, train_ds=train_ds, val_ds=val_ds, out=dict(
+            train_frames=len(train_ds), val_frames=len(val_ds), pngs_read_back=n_png))
+        print(f"training (a): {len(train_ds)} training and {len(val_ds)} validation frames "
+              f"from phase 9 (b); {n_png} PNGs read back equal to what was written")
+
+    def _trainer(self, ckpt, **kw):
+        cfg = self.port["trainer"].TrainConfig(num_epochs=TR_EPOCHS, batch_size=TR_BATCH,
+                                               input_hw=NET_HW, ckpt_dir=ckpt, **kw)
+        return self.port["trainer"].Trainer(cfg)
+
+    def tr_flagship(self):
+        """(b) The flagship recipe at full width on the card: MobileNetV2-
+        dilated + C1-DeepSup, 512x512, batch 8, lr 0.02, TR_EPOCHS epochs.
+        Per epoch: train and validation loss, the step's median ms (CUDA
+        events), samples a second, peak memory; the step's operations from
+        the convolution shapes (forward x3) against the 67 TFLOP/s float32
+        peak. Gates: every loss finite; 10 steps on one fixed batch lower
+        its loss."""
+        torch, tr = self.torch, self.tr
+        trainer = self._trainer(os.path.join(tr.root, "ckpt"))
+        orig = trainer.step
+        events, epochs, logs = [], [], []
+
+        def timed(batch):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = orig(batch)
+            b.record()
+            events.append((a, b))
+            return out
+
+        def log(msg):
+            torch.cuda.synchronize()
+            epochs.append((len(events), time.perf_counter(), torch.cuda.max_memory_allocated()))
+            logs.append(msg)
+
+        trainer.step = timed
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = trainer.train(tr.train_ds, tr.val_ds, log_fn=log)
+        peak = torch.cuda.max_memory_allocated()
+        ms = [a.elapsed_time(b) for a, b in events]
+        per_epoch, start, t_prev = [], 0, t0
+        for e, (end, t_end, peak_e) in enumerate(epochs):
+            med = float(np.median(ms[start:end]))
+            per_epoch.append(dict(epoch=e, train_loss=hist.train_loss[e],
+                                  val_loss=hist.val_loss[e], steps=end - start,
+                                  step_ms_median=med, samples_per_s=TR_BATCH / med * 1e3,
+                                  wall_s=t_end - t_prev, peak_memory_bytes=peak_e))
+            start, t_prev = end, t_end
+        flops = self._step_flops(trainer.net)
+        med_all = float(np.median(ms[1:] if len(ms) > 1 else ms))
+        share = flops / (med_all * 1e-3) / PEAK_OPS
+        # 10 steps on one fixed batch of a fresh net lower its loss
+        fresh = self._trainer(os.path.join(tr.root, "ckpt_fixed"))
+        batch = next(tr.train_ds.batches(TR_BATCH, np.random.default_rng(0)))
+        fixed = [float(fresh.step(batch)["loss"]) for _ in range(10)]
+        tr.trainer, tr.batch = trainer, batch
+        tr.out.update(flagship=dict(
+            epochs=per_epoch, peak_memory_bytes=peak, step_flops=flops,
+            step_ms_median=med_all, flop_share_of_67_tflops=share,
+            fixed_batch_losses=fixed, best_epoch=hist.best_epoch, steps=trainer.state.step))
+        for row in per_epoch:
+            print(f"training (b) epoch {row['epoch']}: train {row['train_loss']:.5f} val "
+                  f"{row['val_loss']:.5f}, {row['steps']} steps, step {row['step_ms_median']:.2f} "
+                  f"ms median (CUDA events), {row['samples_per_s']:.1f} samples/s, "
+                  f"{row['wall_s']:.2f} s wall, peak memory so far "
+                  f"{row['peak_memory_bytes'] / 2**30:.3f} GiB")
+        print(f"training (b): peak memory {peak / 2**30:.3f} GiB; a step is {flops / 1e12:.4f} "
+              f"TFLOP (convolutions, forward x3), {share:.2%} of 67 TFLOP/s at "
+              f"{med_all:.2f} ms; 10 steps on one batch: loss {fixed[0]:.5f} -> {fixed[-1]:.5f}")
+        losses = hist.train_loss + hist.val_loss + fixed
+        require(all(np.isfinite(losses)), f"a loss is not finite: {losses}")
+        require(fixed[-1] < fixed[0], f"10 steps on one batch did not lower its loss: {fixed}")
+
+    def _step_flops(self, net):
+        """Multiply-adds x 2 of every convolution of one forward at the
+        training shape, x3 for forward and backward."""
+        torch = self.torch
+        total = [0]
+
+        def hook(mod, inp, out):
+            k = mod.weight[0].numel()           # (cin / groups) kh kw
+            total[0] += 2 * k * out.numel()
+
+        hs = [m.register_forward_hook(hook) for m in net.modules()
+              if isinstance(m, torch.nn.Conv2d)]
+        try:
+            with torch.no_grad():
+                net.eval()
+                net(torch.zeros((TR_BATCH, 3) + NET_HW, device=next(net.parameters()).device))
+        finally:
+            for h in hs:
+                h.remove()
+        return 3 * total[0]
+
+    def tr_card_vs_cpu(self):
+        """(c) One training step at 512x512 with batch 8 on the card and on
+        the CPU path from the trained weights and the same batch: loss,
+        every parameter, every running statistic; then save, and restore
+        into a fresh Trainer: bit-equal."""
+        torch, tr = self.torch, self.tr
+        ts = self.port["train_state"]
+        net = tr.trainer.net
+        out = {}
+        for dev in ("cuda", "cpu"):
+            m = copy.deepcopy(net).to(dev)
+            state = ts.TrainState(m, *ts.make_optimizer(m, max_iters=TR_EPOCHS * 1000))
+            loss = float(ts.train_step(state, tr.batch)["loss"])
+            out[dev] = loss, {k: v.detach().cpu() for k, v in m.state_dict().items()}
+        (l_card, card), (l_cpu, cpu) = out["cuda"], out["cpu"]
+        d_p = d_m = d_v = 0.0
+        for k, v in cpu.items():
+            if k.endswith("running_var"):
+                d_v = max(d_v, float(((card[k] - v).abs() / v.abs().clamp(min=1e-3)).max()))
+            elif k.endswith("running_mean"):
+                d_m = max(d_m, float((card[k] - v).abs().max()))
+            elif not k.endswith("num_batches_tracked"):
+                d_p = max(d_p, float((card[k] - v).abs().max()))
+        d_loss = abs(l_card - l_cpu) / abs(l_cpu)
+        path = os.path.join(tr.root, "roundtrip", "last")
+        tr.trainer.save(path)
+        back = self._trainer(os.path.join(tr.root, "ckpt2"))
+        back.restore(path)
+        a, b = tr.trainer.net.state_dict(), back.net.state_dict()
+        same = a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+        same = same and back.state.step == tr.trainer.state.step and back.history == \
+            tr.trainer.history
+        tr.out["card_vs_cpu"] = dict(loss_rel=d_loss, params_max_abs=d_p,
+                                     running_mean_max_abs=d_m, running_var_max_rel=d_v,
+                                     checkpoint_round_trip_bit_equal=same)
+        print(f"training (c): one step at 512x512, batch 8, card vs CPU path: loss "
+              f"{l_card:.7f} vs {l_cpu:.7f} ({d_loss:.3g} relative), params {d_p:.3g}, running "
+              f"means {d_m:.3g}, running variances {d_v:.3g} relative; checkpoint round trip "
+              f"bit-equal: {same}")
+        require(d_loss <= TR_LOSS_RTOL and d_p <= TR_PARAM_ATOL and d_m <= TR_MEAN_ATOL
+                and d_v <= TR_VAR_RTOL, "card and CPU path differ beyond the tolerance")
+        require(same, "the checkpoint did not come back bit-equal")
+
+    def tr_export(self):
+        """(d) The trained net's cost-map inference exported to TorchScript
+        at KITTI geometry, loaded on the card: its map of a phase 9 frame
+        equals the eager map bit for bit."""
+        torch, port, tr, dg = self.torch, self.port, self.tr, self.dg
+        exp = port["export"]
+        net = tr.trainer.net.eval()
+        path = os.path.join(tr.root, "export", "introspection.pt")
+        t0 = time.perf_counter()
+        blob = exp.export_inference(net, path, (H, W), NET_HW)
+        t_exp = time.perf_counter() - t0
+        run = exp.load_inference(path)
+        img = torch.from_numpy(np.ascontiguousarray(
+            np.stack([dg.pairs[DG_RECORD][0]] * 3, -1))).cuda()
+        got = run(img)
+        want = port["models"].inference_cost_map(net, img, (H, W), NET_HW)
+        same = torch_equal(got, want)
+        ms_exp = event_ms(torch, lambda: run(img), iters=10)
+        ms_eager = event_ms(torch, lambda: port["models"].inference_cost_map(
+            net, img, (H, W), NET_HW), iters=10)
+        tr.out["export"] = dict(bytes=len(blob), export_s=t_exp, bit_equal=same,
+                                exported_ms=ms_exp, eager_ms=ms_eager)
+        print(f"training (d): TorchScript export {len(blob)} bytes in {t_exp:.2f} s; cost map "
+              f"of frame {DG_RECORD} bit-equal to eager: {same}; {ms_exp:.3f} ms exported, "
+              f"{ms_eager:.3f} ms eager (CUDA events)")
+        require(same, "the exported cost map differs from the eager one")
+
+    def tr_loop(self):
+        """(e) The trained net attached to System on phase 9's
+        ReflectionWorld, TR_LOOP frames: 0 lost, K1-K3 once a frame, ATE
+        below 0.5 m; frames/s and the cost map's mean inside the band
+        against outside it (reported, not gated)."""
+        torch, port, tr, dg = self.torch, self.port, self.tr, self.dg
+        cfg = copy.deepcopy(dg.cfg)
+        cfg.iv.enabled = False
+        cam = cfg.camera
+        net = tr.trainer.net.eval()
+        s = port["system"].System(cfg, cam.height, cam.width)
+        s.tracking.frontend.attach_introspection(net, NET_HW)
+        for m in self.counters().values():
+            m.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(TR_LOOP):
+            s.track_stereo(*dg.pairs[i], timestamp=i / cam.fps)
+        torch.cuda.synchronize()
+        fps = TR_LOOP / (time.perf_counter() - t0)
+        launches = {k: m.launches for k, m in self.counters().items()}
+        lost = int(sum(s.tracking.lost_flags))
+        ate = port["trajectory"].ate_rmse(s.trajectory_twc(), dg.gt[:TR_LOOP])
+        img = torch.from_numpy(np.ascontiguousarray(np.stack([dg.pairs[0][0]] * 3, -1))).cuda()
+        cost = port["models"].inference_cost_map(net, img, (H, W), NET_HW).cpu().numpy()
+        pred = port["models"].predict(net, img[None], NET_HW)
+        pred = torch.nn.functional.interpolate(pred, size=(H, W), mode="bilinear")[0, 0]
+        pred = pred.cpu().numpy()
+        band = dg.band[:H, :W]
+        inside, outside = float(cost[band].mean()), float(cost[~band].mean())
+        p_in, p_out = float(pred[band].mean()), float(pred[~band].mean())
+        tr.out["loop"] = dict(frames=TR_LOOP, fps=fps, lost_frames=lost, ate_m=ate,
+                              frontend_launches=launches, cost_mean_in_band=inside,
+                              cost_mean_outside_band=outside, pred_mean_in_band=p_in,
+                              pred_mean_outside_band=p_out)
+        print(f"training (e): the trained net in System, {TR_LOOP} frames of phase 9's world: "
+              f"{lost} lost, ATE {ate:.4f} m, {fps:.3f} frames/s, K1-K3 launches {launches}; "
+              f"cost map mean {inside:.2f} inside the band, {outside:.2f} outside; the "
+              f"prediction before sharpening {p_in:.4f} inside, {p_out:.4f} outside")
+        want = {k: TR_LOOP for k in launches}
+        require(launches == want, f"launch counts {launches} != {want}")
+        require(lost == 0 and s.failure_count == 0, f"{lost} lost frames")
+        require(ate < 0.5, f"ATE {ate} m")
+
+    def tr_zoo(self):
+        """(f) One training step of every encoder with c1 and of every
+        decoder on resnet50dilated at 512x512, batch 8: step ms (CUDA
+        events, after one warm-up step) and peak memory. Then each pair
+        card against CPU path at 128x128, batch 2, from the same weights
+        and batch: the loss and the parameter update (the PPM decoders
+        with their dropout rate set to 0 there, so that both draw none).
+        That comparison runs in float64: at 128x128 and batch 2 the small
+        maps make BatchNorm ill-conditioned in float32 (see ZOO_*)."""
+        torch, port = self.torch, self.port
+        zoo, ts = port["zoo"], port["train_state"]
+        pairs = [(e, "c1") for e in zoo.ENCODER_FC_DIM] + [
+            ("resnet50dilated", d) for d in ("c1_deepsup", "ppm", "ppm_deepsup", "upernet",
+                                            "upernet_lite")]
+        rng = np.random.default_rng(0)
+
+        def batch(n, hw, stride):
+            """Targets at the prediction's size: 1/8 for the dilated
+            encoders, 1/32 for the plain ones, 1/4 for HRNet's map and for
+            UPerNet (fused at the encoder's finest map)."""
+            th, tw = hw[0] // stride, hw[1] // stride
+            return dict(image=rng.normal(size=(n,) + hw + (3,)).astype(np.float32),
+                        target=rng.uniform(size=(n, th, tw, 1)).astype(np.float32),
+                        mask=np.ones((n, th, tw, 1), np.float32))
+
+        rows = {}
+        for enc, dec in pairs:
+            stride = (4 if enc == "hrnetv2" or dec.startswith("upernet")
+                      else 8 if enc.endswith("dilated") else 32)
+            big, small = batch(TR_BATCH, NET_HW, stride), batch(2, (128, 128), stride)
+            gen = torch.Generator().manual_seed(0)
+            model = port["models"].flax_init_(zoo.SegmentationModel(enc, dec), gen)
+            init = copy.deepcopy(model.state_dict())
+            state = ts.TrainState(model.cuda(), *ts.make_optimizer(model, max_iters=1000))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            loss_big = float(ts.train_step(state, big)["loss"])
+            ms = event_ms(torch, lambda: ts.train_step(state, big), iters=1, warmup=0)
+            peak = torch.cuda.max_memory_allocated()
+            deltas, losses = {}, {}
+            small64 = {k: v.astype(np.float64) for k, v in small.items()}
+            for dev in ("cuda", "cpu"):
+                m = zoo.SegmentationModel(enc, dec)
+                m.load_state_dict(init)
+                if hasattr(m.decoder, "dropout"):
+                    m.decoder.dropout.p = 0.0
+                m.to(dev, torch.float64)
+                st = ts.TrainState(m, *ts.make_optimizer(m, max_iters=1000))
+                losses[dev] = float(ts.train_step(st, small64)["loss"])
+                sd = m.state_dict()
+                deltas[dev] = {k: sd[k].detach().cpu() - init[k].double() for k in init
+                               if not k.endswith(("num_batches_tracked", "running_mean",
+                                                  "running_var"))}
+            d_loss = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+            d_upd = max(float((deltas["cuda"][k] - deltas["cpu"][k]).abs().max())
+                        for k in deltas["cpu"])
+            scale = max(float(v.abs().max()) for v in deltas["cpu"].values())
+            rows[f"{enc}+{dec}"] = dict(step_ms=ms, peak_memory_bytes=peak,
+                                        loss=loss_big,
+                                        card_vs_cpu_loss_rel=d_loss,
+                                        card_vs_cpu_update_rel=d_upd / scale)
+            print(f"training (f) {enc}+{dec}: step {ms:.2f} ms, peak {peak / 2**30:.3f} GiB; "
+                  f"128x128 float64 card vs CPU: loss {d_loss:.3g} relative, update "
+                  f"{d_upd / scale:.3g} of its largest ({scale:.3g})", flush=True)
+            del state, model
+            torch.cuda.empty_cache()
+        self.tr.out["zoo"] = rows
+        bad = {k: v for k, v in rows.items() if not (np.isfinite(v["loss"])
+               and v["card_vs_cpu_loss_rel"] <= ZOO_LOSS_RTOL
+               and v["card_vs_cpu_update_rel"] <= ZOO_UPDATE_RTOL)}
+        require(not bad, f"zoo card vs CPU beyond tolerance: {bad}")
+
+    def tr_dp(self):
+        """(g) Two ranks on the one card through gloo: the trained net's
+        step on a split batch against the one-rank step on the whole batch
+        (same weights, same batch), within (c)'s tolerance."""
+        torch, tr = self.torch, self.tr
+        ts, mesh = self.port["train_state"], self.port["mesh"]
+        work = os.path.join(tr.root, "dp")
+        os.makedirs(work)
+        torch.save(tr.trainer.net.state_dict(), os.path.join(work, "init.pt"))
+        np.savez(os.path.join(work, "batch.npz"), **tr.batch)
+        t0 = time.perf_counter()
+        mesh.spawn(dp_rank_main, 2, work)
+        t_dp = time.perf_counter() - t0
+        got = torch.load(os.path.join(work, "rank0.pt"))
+        m = copy.deepcopy(tr.trainer.net)
+        m.load_state_dict(torch.load(os.path.join(work, "init.pt")))
+        state = ts.TrainState(m, *ts.make_optimizer(m, max_iters=TR_EPOCHS * 1000))
+        loss = float(ts.train_step(state, tr.batch)["loss"])
+        want = {k: v.detach().cpu() for k, v in m.state_dict().items()}
+        d_p = d_s = 0.0
+        for k, v in want.items():
+            if k.endswith(("running_mean", "running_var")):
+                d_s = max(d_s, float((got["sd"][k] - v).abs().max()))
+            elif not k.endswith("num_batches_tracked"):
+                d_p = max(d_p, float((got["sd"][k] - v).abs().max()))
+        d_loss = abs(got["loss"] - loss) / abs(loss)
+        tr.out["data_parallel"] = dict(ranks=2, backend="gloo", loss_rel=d_loss, params_max_abs=d_p,
+                                       running_stats_max_abs=d_s, wall_s=t_dp)
+        print(f"training (g): 2 gloo ranks on one card against one rank: loss {d_loss:.3g} "
+              f"relative, params {d_p:.3g}, running statistics {d_s:.3g} ({t_dp:.1f} s with "
+              f"the ranks' start)")
+        require(d_loss <= TR_LOSS_RTOL and d_p <= TR_PARAM_ATOL and d_s <= TR_STATS_ATOL,
+                "the two-rank step differs from the one-rank step")
+
+    def tr_replay(self):
+        """(h) ShardedReplay over N_REPLAY frames of the full loop's world at
+        KITTI geometry with phase 7's vocabulary: every frame bit-equal to
+        StereoFrontend.process, bow_nodes equal to the host descent, K1-K3
+        once a frame."""
+        torch, port, t = self.torch, self.port, self.trk
+        rep = port["replay"].ShardedReplay(t.cfg, H, W, vocabulary=self.lc.voc)
+        lefts = np.stack([p[0] for p in t.loop_pairs[:N_REPLAY]])
+        rights = np.stack([p[1] for p in t.loop_pairs[:N_REPLAY]])
+        for m in self.counters().values():
+            m.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        recs = rep.process_batch(lefts, rights)
+        fps = N_REPLAY / (time.perf_counter() - t0)
+        launches = {k: m.launches for k, m in self.counters().items()}
+        same = bow_same = True
+        for i, rec in enumerate(recs):
+            fr = rep.frontend.process(lefts[i], rights[i], 0.0)
+            want = dict(xy=fr.xy, octave=fr.octave, valid=fr.valid, desc=fr.desc,
+                        angle=fr.angle, u_right=fr.u_right, depth=fr.depth, qual=fr.qual_score)
+            same &= all(np.array_equal(rec[k], want[k]) for k in want)
+            v = rec["valid"]
+            bow_same &= bool(np.array_equal(rec["bow_nodes"][v],
+                                            self.lc.voc.transform_words(rec["desc"][v]))
+                             and (rec["bow_nodes"][~v] == -1).all())
+        self.tr.out["replay"] = dict(frames=N_REPLAY, fps=fps, bit_equal=same,
+                                     bow_equal_host=bow_same, frontend_launches=launches)
+        for k, v in launches.items():
+            self.kernels[k]["launches_replay"] = v
+        print(f"training (h): ShardedReplay, {N_REPLAY} frames at {H}x{W}: {fps:.3f} frames/s, "
+              f"bit-equal to StereoFrontend.process: {same}, bow_nodes equal to the host "
+              f"descent: {bow_same}, K1-K3 launches {launches}")
+        want = {k: N_REPLAY for k in launches}
+        require(launches == want, f"launch counts {launches} != {want}")
+        require(same and bow_same, "ShardedReplay differs from the per-frame frontend")
+
+    def tr_datagen(self):
+        """(i) ShardedDatagen over phase 9's frames and GT poses: pairs
+        scored, good frames, heatmaps written, pairs/s; one pair again on
+        the CPU path: heatmap within 1, errors within 1e-5. The pairs score
+        only keypoints with stereo depth in the previous frame, and the
+        world's band, blended at one image position in both views, has
+        none: the scored ground is clean (~0% bad). So, as
+        tests/test_sharded_datagen.py does for its clean world, the lower
+        bad-share gate of a training frame is lifted (MIN_BAD_PERCENT -1)
+        for this run, and frames are written."""
+        import tempfile
+
+        torch, port, dg = self.torch, self.port, self.dg
+        SD = port["sharded_datagen"].ShardedDatagen
+        fe = port["feature_evaluator"]
+        out = tempfile.mkdtemp(prefix="chip_smoke_sdg_")
+        sdg = SD(dg.cfg, H, W, out_path=out)
+        for m in self.counters().values():
+            m.launches = 0
+        gate = fe.MIN_BAD_PERCENT
+        fe.MIN_BAD_PERCENT = -1.0
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stats = sdg.process_session(dg.pairs[:N_DG_SUP], dg.gt[:N_DG_SUP])
+            pps = stats["n_pairs"] / (time.perf_counter() - t0)
+        finally:
+            fe.MIN_BAD_PERCENT = gate
+        launches = {k: m.launches for k, m in self.counters().items()}
+        hm_dir = os.path.join(out, "bad_region_heatmap")
+        written = len(os.listdir(hm_dir)) if os.path.isdir(hm_dir) else 0
+        k = DG_RECORD
+        card = sdg._pairs(dg.pairs, dg.gt, [k])[0]
+        cpu = SD(dg.cfg, H, W, device="cpu")._pairs(dg.pairs, dg.gt, [k])[0]
+        d_hm = int(np.abs(card["heatmap"].astype(int) - cpu["heatmap"].astype(int)).max())
+        d_err = float(np.abs(card["err"] - cpu["err"]).max())
+        same_sel = bool(np.array_equal(card["sel"], cpu["sel"]))
+        self.tr.out["sharded_datagen"] = dict(
+            frames=N_DG_SUP, pairs=stats["n_pairs"], good=stats["n_good"],
+            heatmaps_written=written, mean_bad_pct=stats["mean_bad_pct"], pairs_per_s=pps,
+            frontend_launches=launches, card_vs_cpu=dict(pair=k, heatmap_max_abs_diff=d_hm,
+                                                         err_max_abs_diff=d_err,
+                                                         same_rows=same_sel))
+        for kk, v in launches.items():
+            self.kernels[kk]["launches_sharded_datagen"] = v
+        print(f"training (i): ShardedDatagen over {N_DG_SUP} frames: {stats['n_pairs']} pairs "
+              f"scored, {stats['n_good']} good, {written} heatmaps written, mean bad share "
+              f"{stats['mean_bad_pct']:.3f}%, {pps:.3f} pairs/s, K1-K3 launches {launches}; pair "
+              f"{k - 1}->{k} card vs CPU: heatmap max |d| {d_hm}, errors max |d| {d_err:.3g}, "
+              f"same rows {same_sel}")
+        require(stats["n_pairs"] == N_DG_SUP - 1, f"{stats['n_pairs']} pairs scored")
+        require(written >= 1 and written == stats["n_good"], f"{written} heatmaps written")
+        require(d_hm <= 1 and d_err <= 1e-5 and same_sel, "card and CPU path differ")
+
+
+def dp_rank_main(rank, world, port_no, work):
+    """A rank of phase 10 (g): joins the gloo group on card 0, loads the
+    weights and the batch, takes one step on its half, and rank 0 saves the
+    loss and the weights."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from iv_slam_tpu_torch.models import IntrospectionNet, set_process_group
+    from iv_slam_tpu_torch.parallel import mesh
+    from iv_slam_tpu_torch.train import train_state as ts
+
+    dp = mesh.init_data_parallel(rank, world, port_no, torch.device("cuda", 0))
+    try:
+        net = IntrospectionNet()
+        net.load_state_dict(torch.load(os.path.join(work, "init.pt"), map_location="cpu"))
+        net.cuda()
+        set_process_group(net, dist.group.WORLD)
+        state = ts.TrainState(net, *ts.make_optimizer(net, max_iters=TR_EPOCHS * 1000))
+        with np.load(os.path.join(work, "batch.npz")) as z:
+            batch = {k: z[k] for k in z.files}
+        loss = float(ts.train_step(state, batch, dp)["loss"])
+        if rank == 0:
+            torch.save({"loss": loss, "sd": {k: v.cpu() for k, v in net.state_dict().items()}},
+                       os.path.join(work, "rank0.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
 def torch_equal(a, b) -> bool:
     """Tensors equal in shape and value, wherever each lives."""
     return bool(a.shape == b.shape and (a.cpu() == b.cpu()).all())
@@ -2257,6 +2785,12 @@ def main() -> int:
     from iv_slam_tpu_torch.slam import (device_map, frame, fused_track, keyframe_db,
                                         loop_closing, map_store, system, vocabulary)
     from iv_slam_tpu_torch.solvers import ba_core, initializer, local_ba
+    from iv_slam_tpu_torch.introspection import dataset_creator, feature_evaluator
+    from iv_slam_tpu_torch.models import export, zoo
+    from iv_slam_tpu_torch.parallel import datagen as sharded_datagen
+    from iv_slam_tpu_torch.parallel import mesh, replay
+    from iv_slam_tpu_torch.train import data as train_data
+    from iv_slam_tpu_torch.train import train_state, trainer
 
     ops = SimpleNamespace(brief=brief, fast=fast, fast_cuda=fast_cuda,
                           finish_cuda=finish_cuda, orient=orient, stereo_cuda=stereo_cuda)
@@ -2267,7 +2801,10 @@ def main() -> int:
             "models": models, "extractor": extractor, "bow": bow,
             "vocabulary": vocabulary, "keyframe_db": keyframe_db,
             "loop_closing": loop_closing, "initializer": initializer, "datagen": datagen,
-            "gp": gp}
+            "gp": gp, "dataset_creator": dataset_creator, "export": export, "zoo": zoo,
+            "sharded_datagen": sharded_datagen, "mesh": mesh, "replay": replay,
+            "train_data": train_data, "train_state": train_state, "trainer": trainer,
+            "feature_evaluator": feature_evaluator}
 
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -2354,6 +2891,26 @@ def main() -> int:
                 smoke.failures.append(f"{name}: skipped, an earlier phase failed")
             else:
                 smoke.phase(name, fn)
+    # phase 10: training, the zoo, export and the multi-process paths, also
+    # before any profiling; (c)-(e) and (g) need (b)'s trained net
+    n_fail = len(smoke.failures)
+    dg_ok = loop_ok and smoke.dg is not None and "unsupervised" in smoke.dg.dirs
+    for name, fn, needs in (("training (a) dataset from phase 9", smoke.tr_setup, "dg"),
+                            ("training (b) flagship recipe", smoke.tr_flagship, "a"),
+                            ("training (c) card vs CPU path", smoke.tr_card_vs_cpu, "b"),
+                            ("training (d) TorchScript export", smoke.tr_export, "b"),
+                            ("training (e) trained net in the loop", smoke.tr_loop, "b"),
+                            ("training (f) model zoo", smoke.tr_zoo, None),
+                            ("training (g) two ranks", smoke.tr_dp, "b"),
+                            ("training (h) ShardedReplay", smoke.tr_replay, "lc"),
+                            ("training (i) ShardedDatagen", smoke.tr_datagen, "dg")):
+        ok = {None: loop_ok, "dg": dg_ok, "lc": loop_ok and smoke.lc is not None,
+              "a": smoke.tr is not None,
+              "b": smoke.tr is not None and hasattr(smoke.tr, "trainer")}[needs]
+        if not ok:
+            smoke.failures.append(f"{name}: skipped, an earlier phase failed")
+        else:
+            smoke.phase(name, fn)
     if len(smoke.kernels) == 3:
         smoke.phase("kernel device times", smoke.device_times)
     if smoke.trk is not None and smoke.trk.record is not None:
@@ -2377,11 +2934,13 @@ def main() -> int:
               f"launches on the introspection loop, {k['launches_loop_closing']} on the "
               f"loop-closing loop, {k['launches_mono']} on the mono run, "
               f"{k['launches_rgbd']} on the RGB-D run, {k['launches_datagen']} on the datagen "
-              f"runs, on {card}")
+              f"runs, {k['launches_replay']} on the replay, {k['launches_sharded_datagen']} on "
+              f"the sharded datagen, on {card}")
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms", "event_ms", "plain_event_ms",
              "launches_introspection", "launches_loop_closing", "launches_mono",
-             "launches_rgbd", "launches_datagen")
+             "launches_rgbd", "launches_datagen", "launches_replay",
+             "launches_sharded_datagen")
     kernels = [{k: smoke.kernels[n][k] for k in order}
                for n in ("fast_score", "orient_brief", "sad_windows")]
     print(json.dumps({"frontend": smoke.fps,
@@ -2396,6 +2955,7 @@ def main() -> int:
         default=float))
     print(json.dumps({"mono_rgbd": dict(smoke.mr.out, card=card)}, default=float))
     print(json.dumps({"datagen": dict(smoke.dg.out, card=card)}, default=float))
+    print(json.dumps({"training": dict(smoke.tr.out, card=card)}, default=float))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -8,9 +8,11 @@ encoder/decoder snapshot (training/train_modular.py's encoder_*.pth /
 decoder_*.pth) loads with ``load_state_dict``: ``convert_checkpoint``.
 
 ``from_jax_variables`` carries a Flax variables tree of the JAX package's
-``IntrospectionNet`` across: HWIO kernels become OIHW (a depthwise
-(kH, kW, 1, C) becomes (C, 1, kH, kW)), and BatchNorm scale/bias/mean/var
-become weight/bias/running_mean/running_var.
+``IntrospectionNet`` or of a model-zoo network across: HWIO kernels become
+OIHW (a depthwise (kH, kW, 1, C) becomes (C, 1, kH, kW)), and BatchNorm
+scale/bias/mean/var become weight/bias/running_mean/running_var. The zoo's
+modules carry flax's own names (``models/zoo.py``), so their entries map
+by path.
 """
 
 from __future__ import annotations
@@ -44,33 +46,72 @@ def _put_convbn(sd, conv: str, bn: str, params, stats):
     sd[bn + ".num_batches_tracked"] = torch.tensor(0)
 
 
-def from_jax_variables(variables) -> Dict[str, torch.Tensor]:
-    """Flax variables ({"params", "batch_stats"} of models/introspection.py's
-    IntrospectionNet, as numpy or jax arrays) -> a state dict of the port's
-    ``IntrospectionNet``. The deep-supervision entries come along when the
-    Flax tree has them (a network initialized for training)."""
-    P, S = variables["params"], variables["batch_stats"]
-    pe, se = P["encoder"], S["encoder"]
-    sd: Dict[str, torch.Tensor] = {}
-    _put_convbn(sd, "encoder.features.0.0", "encoder.features.0.1",
-                pe["ConvBN_0"], se["ConvBN_0"])
+def _mobilenet(sd, prefix: str, pe, se) -> None:
+    _put_convbn(sd, f"{prefix}features.0.0", f"{prefix}features.0.1", pe["ConvBN_0"],
+                se["ConvBN_0"])
     for i, (_, _, t, _) in enumerate(_dilated_plan()):
-        blk = f"encoder.features.{i + 1}.conv"
+        blk = f"{prefix}features.{i + 1}.conv"
         name = f"InvertedResidual_{i}"
         # upstream's Sequential indices of the conv layers: [pw,] dw, pw-linear
         convs = (0, 3, 6) if t != 1 else (0, 3)
         for j, c in enumerate(convs):
             _put_convbn(sd, f"{blk}.{c}", f"{blk}.{c + 1}", pe[name][f"ConvBN_{j}"],
                         se[name][f"ConvBN_{j}"])
-    pd, sdec = P["decoder"], S["decoder"]
-    _put_convbn(sd, "decoder.cbr.0", "decoder.cbr.1", pd["ConvBN_0"], sdec["ConvBN_0"])
-    sd["decoder.conv_last.weight"] = _kernel(pd["conv_last"]["kernel"])
-    sd["decoder.conv_last.bias"] = _t(pd["conv_last"]["bias"])
+
+
+def _c1_deepsup(sd, prefix: str, pd, sdec) -> None:
+    _put_convbn(sd, f"{prefix}cbr.0", f"{prefix}cbr.1", pd["ConvBN_0"], sdec["ConvBN_0"])
+    sd[f"{prefix}conv_last.weight"] = _kernel(pd["conv_last"]["kernel"])
+    sd[f"{prefix}conv_last.bias"] = _t(pd["conv_last"]["bias"])
     if "ConvBN_1" in pd:
-        _put_convbn(sd, "decoder.cbr_deepsup.0", "decoder.cbr_deepsup.1", pd["ConvBN_1"],
+        _put_convbn(sd, f"{prefix}cbr_deepsup.0", f"{prefix}cbr_deepsup.1", pd["ConvBN_1"],
                     sdec["ConvBN_1"])
-        sd["decoder.conv_last_deepsup.weight"] = _kernel(pd["conv_last_deepsup"]["kernel"])
-        sd["decoder.conv_last_deepsup.bias"] = _t(pd["conv_last_deepsup"]["bias"])
+        sd[f"{prefix}conv_last_deepsup.weight"] = _kernel(pd["conv_last_deepsup"]["kernel"])
+        sd[f"{prefix}conv_last_deepsup.bias"] = _t(pd["conv_last_deepsup"]["bias"])
+
+
+def _by_path(sd, prefix: str, params, stats) -> None:
+    """The zoo's modules carry flax's names: a Conv leaf dict ({kernel,
+    bias}) and a BatchNorm's ({scale, bias} + stats {mean, var}) map to the
+    module at the same path."""
+    for k, v in params.items():
+        if "kernel" in v:
+            sd[f"{prefix}{k}.weight"] = _kernel(v["kernel"])
+            if "bias" in v:
+                sd[f"{prefix}{k}.bias"] = _t(v["bias"])
+        elif "scale" in v:
+            sd[f"{prefix}{k}.weight"] = _t(v["scale"])
+            sd[f"{prefix}{k}.bias"] = _t(v["bias"])
+            sd[f"{prefix}{k}.running_mean"] = _t(stats[k]["mean"])
+            sd[f"{prefix}{k}.running_var"] = _t(stats[k]["var"])
+            sd[f"{prefix}{k}.num_batches_tracked"] = torch.tensor(0)
+        else:
+            _by_path(sd, f"{prefix}{k}.", v, stats.get(k, {}))
+
+
+def _module(sd, prefix: str, params, stats) -> None:
+    if "InvertedResidual_0" in params:
+        _mobilenet(sd, prefix, params, stats)
+    elif "ConvBN_0" in params:
+        _c1_deepsup(sd, prefix, params, stats)
+    else:
+        _by_path(sd, prefix, params, stats)
+
+
+def from_jax_variables(variables) -> Dict[str, torch.Tensor]:
+    """Flax variables ({"params", "batch_stats"}, as numpy or jax arrays) of
+    the JAX package's ``IntrospectionNet`` or ``zoo.SegmentationModel`` (an
+    "encoder" and a "decoder"), or of one zoo encoder or decoder alone -> a
+    state dict of the port's counterpart. The deep-supervision entries come
+    along when the Flax tree has them (a network initialized for
+    training)."""
+    P, S = variables["params"], variables.get("batch_stats", {})
+    sd: Dict[str, torch.Tensor] = {}
+    if "encoder" in P or "decoder" in P:
+        for part in ("encoder", "decoder"):
+            _module(sd, f"{part}.", P[part], S.get(part, {}))
+    else:
+        _module(sd, "", P, S)
     return sd
 
 

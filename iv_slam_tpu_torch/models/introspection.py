@@ -1,6 +1,6 @@
 """Introspection FCN: MobileNetV2-dilated encoder + C1-DeepSup decoder.
 
-Port of ``iv_slam_tpu/models/introspection.py`` for inference. The network
+Port of ``iv_slam_tpu/models/introspection.py``. The network
 predicts a per-pixel cost map of feature unreliability from a raw image
 (the reference's jackal recipe: fc_dim=320, regression mode), and
 ``inference_cost_map`` is the TorchScript inference wrapper
@@ -8,9 +8,11 @@ predicts a per-pixel cost map of feature unreliability from a raw image
 resize to the network input, forward, resize to the image, sharpen with
 sigmoid(20 (x - 0.5)), scale to a uint8 cost map.
 
-The deep-supervision branch (``cbr_deepsup``, ``conv_last_deepsup``) is
-built so that a trained snapshot loads; the training forward that uses it
-is not ported yet (ROADMAP A13), so a network in training mode raises.
+In training mode (``net.train()``) the decoder also runs the
+deep-supervision branch (``cbr_deepsup``, ``conv_last_deepsup``) off the
+stage-14 tap and the network returns ``(pred, pred_deepsup)``, as the JAX
+package's ``IntrospectionNet(train=True)``; its BatchNorms then use flax's
+batch statistics (``layers.BatchNorm2d``).
 
 On the card the convolutions run in float32 without TF32 and with
 deterministic algorithms (``fcn_numerics``), so a cost map is bit-repeatable
@@ -24,15 +26,13 @@ from typing import Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from .layers import resize as _resize
 from .mobilenet import MobileNetV2Dilated, _conv_bn
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
-
-_TRAIN_TODO = "the FCN's training forward is not ported yet (ROADMAP A13)"
 
 
 class C1DeepSup(nn.Module):
@@ -49,14 +49,15 @@ class C1DeepSup(nn.Module):
         self.conv_last_deepsup = nn.Conv2d(fc_dim // 4, num_class, 1)
 
     def forward(self, conv_out):
-        if self.training:
-            raise NotImplementedError(_TRAIN_TODO)
-        return self.conv_last(self.cbr(conv_out[-1]))
+        x = self.conv_last(self.cbr(conv_out[-1]))
+        if not self.training:
+            return x
+        return x, self.conv_last_deepsup(self.cbr_deepsup(conv_out[-2]))
 
 
 class IntrospectionNet(nn.Module):
-    """(B, 3, H, W) normalized image -> (B, 1, H/8, W/8) prediction.
-    Built in eval mode."""
+    """(B, 3, H, W) normalized image -> (B, 1, H/8, W/8) prediction; in
+    training mode (pred, pred_deepsup). Built in eval mode."""
 
     def __init__(self):
         super().__init__()
@@ -64,9 +65,7 @@ class IntrospectionNet(nn.Module):
         self.decoder = C1DeepSup()
         self.eval()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(_TRAIN_TODO)
+    def forward(self, x: torch.Tensor):
         return self.decoder(self.encoder(x))
 
 
@@ -91,15 +90,6 @@ def fcn_numerics(device: torch.device):
         return contextlib.nullcontext()
     return torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
                                       allow_tf32=False)
-
-
-def _resize(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
-    """jax.image.resize(..., "bilinear") on NCHW: half-pixel centres, a
-    triangle kernel widened by the scale when shrinking (antialiasing)."""
-    if tuple(x.shape[-2:]) == tuple(hw):
-        return x
-    return F.interpolate(x, size=tuple(hw), mode="bilinear", align_corners=False,
-                         antialias=True)
 
 
 @torch.no_grad()

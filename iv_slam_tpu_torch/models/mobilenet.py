@@ -8,7 +8,8 @@ stages 14-17 at dilation 4, their stride-2 depthwise convs flattened to
 stride 1.
 
 Parameter names are the upstream PyTorch modules' (``features.N.conv.M``),
-so an upstream encoder snapshot loads with ``load_state_dict``.
+so an upstream encoder snapshot loads with ``load_state_dict``. Its
+BatchNorms are ``layers.BatchNorm2d``: flax's statistics in training mode.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from typing import List, Tuple
 
 import torch
 from torch import nn
+
+from .layers import conv_bn
 
 # (expansion t, channels c, repeats n, stride s) — standard MobileNetV2
 INVERTED_RESIDUAL_SETTING = (
@@ -34,10 +37,7 @@ DOWN_IDX = (2, 4, 7, 14)
 def _conv_bn(cin: int, cout: int, kernel: int = 1, stride: int = 1, dilation: int = 1,
              groups: int = 1, relu6: bool = True) -> List[nn.Module]:
     """[conv (no bias), BatchNorm(eps 1e-5)] + ReLU6 when relu6."""
-    pad = dilation * (kernel // 2)
-    layers = [nn.Conv2d(cin, cout, kernel, stride, pad, dilation=dilation, groups=groups,
-                        bias=False),
-              nn.BatchNorm2d(cout, eps=1e-5)]
+    layers = list(conv_bn(cin, cout, kernel, stride, dilation, groups))
     if relu6:
         layers.append(nn.ReLU6())
     return layers

@@ -1,0 +1,6 @@
+"""``python -m iv_slam_tpu_torch.train``: see ``cli.py``."""
+
+from .cli import main
+
+if __name__ == "__main__":
+    main()

@@ -164,9 +164,31 @@ def test_upstream_state_dict_loads_like_convert_torch(tmp_path):
             assert torch.equal(back[k], want), k
 
 
-def test_training_forward_is_refused():
+def test_training_forward_matches_flax(model):
+    """In training mode the network returns (pred, pred_deepsup) with
+    batch statistics, as the JAX package's IntrospectionNet(train=True),
+    and updates the running statistics as flax does (momentum 0.9, the
+    biased variance); eval mode is left as it was."""
+    v, _, _ = model
     net = tmodels.IntrospectionNet()
-    assert not net.training
+    net.load_state_dict(tmodels.from_jax_variables(v))
+    x = np.random.default_rng(6).normal(size=(2,) + NET_HW + (3,)).astype(np.float32)
+    (j_pred, j_aux), upd = jintro.IntrospectionNet().apply(v, jnp.asarray(x), train=True,
+                                                          mutable=["batch_stats"])
     net.train()
-    with pytest.raises(NotImplementedError, match="A13"):
-        net(torch.zeros(1, 3, 64, 64))
+    with torch.no_grad():
+        t_pred, t_aux = net(torch.from_numpy(x).permute(0, 3, 1, 2))
+    assert t_pred.shape == t_aux.shape == (2, 1, 8, 8)
+    for a, b in ((t_pred, j_pred), (t_aux, j_aux)):
+        scale = float(np.abs(np.asarray(b)).max())
+        np.testing.assert_allclose(a.permute(0, 2, 3, 1).numpy(), np.asarray(b),
+                                   atol=2e-4 * scale, rtol=2e-4)
+    want = tmodels.from_jax_variables({"params": v["params"], "batch_stats": upd["batch_stats"]})
+    got = net.state_dict()
+    for k, w in want.items():
+        if k.endswith(("running_mean", "running_var")):
+            np.testing.assert_allclose(got[k].numpy(), w.numpy(), rtol=1e-4, atol=1e-5,
+                                       err_msg=k)
+    net.eval()
+    with torch.no_grad():
+        assert net(torch.from_numpy(x).permute(0, 3, 1, 2)).shape == (2, 1, 8, 8)

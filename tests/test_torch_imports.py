@@ -66,7 +66,15 @@ def test_port_files_exist():
                  "iv_slam_tpu_torch/introspection/feature_evaluator.py",
                  "iv_slam_tpu_torch/introspection/unsupervised.py",
                  "iv_slam_tpu_torch/introspection/dataset_creator.py",
-                 "iv_slam_tpu_torch/introspection/datagen.py"):
+                 "iv_slam_tpu_torch/introspection/datagen.py",
+                 "iv_slam_tpu_torch/models/layers.py", "iv_slam_tpu_torch/models/zoo.py",
+                 "iv_slam_tpu_torch/models/export.py", "iv_slam_tpu_torch/train/__init__.py",
+                 "iv_slam_tpu_torch/train/losses.py", "iv_slam_tpu_torch/train/train_state.py",
+                 "iv_slam_tpu_torch/train/data.py", "iv_slam_tpu_torch/train/trainer.py",
+                 "iv_slam_tpu_torch/train/cli.py", "iv_slam_tpu_torch/train/__main__.py",
+                 "iv_slam_tpu_torch/parallel/__init__.py", "iv_slam_tpu_torch/parallel/mesh.py",
+                 "iv_slam_tpu_torch/parallel/replay.py",
+                 "iv_slam_tpu_torch/parallel/datagen.py"):
         assert must in names, must
 
 
