@@ -120,18 +120,36 @@ It drives the port only (no JAX, nothing of ``iv_slam_tpu``):
      7's vocabulary, bit-equal to StereoFrontend.process, bow_nodes equal
      to the host descent, K1-K3 once a frame; (i) ShardedDatagen over
      phase 9's 60 frames, one pair card against CPU path;
- 11. from torch.profiler, after every phase that times the host: each
+ 11. the dataset drivers, through the port alone (its PNG writer, no cv2):
+     (a) the full loop's 120 frames written as a KITTI layout (every row
+     Paeth-filtered, times.txt, a KITTI-format GT file), every file decoded
+     back equal to the rendered image, the decode's ms a pair, the row
+     unfilter's ms a pair beside its plain NumPy version's and its build
+     time; (b) run_stereo in process over them with --fused_tracking
+     --profile_stages: 0 failures, ATE < 0.5 m, every output file, its
+     Trajectory_KITTI_000.txt bit-equal to phase 5's in-memory trajectory,
+     K1-K3 once a frame; (c) --rectify_images with identity LEFT./RIGHT.
+     blocks bit-identical to no rectification over 20 frames, and remap's
+     ms a pair at settings/EuRoC_stereo.yaml's maps, host and card (equal);
+     (d) run_mono and run_rgbd on 30 frames of phase 8's worlds written as
+     TUM layouts (colour PNGs; 16-bit depth), each trajectory bit-equal to
+     System in memory on the rendered frames; (e) extract_octtree on a
+     KITTI frame, card against CPU path, K1 and K2 launched once; (f)
+     evaluate_batch over (b)'s and (d)'s outputs, its ATE equal to
+     stats.json's;
+ 12. from torch.profiler, after every phase that times the host: each
      kernel's device time, the tracking step's device time and kernel
      launches, a profile of whole frames, one keyframe event (device ms,
      launches, host syncs), and the FCN's and a weighted frame's device
      time and launches;
- 12. prints one {"tracking": {...}} line, one {"full_loop": {...}} line, one
+ 13. prints one {"tracking": {...}} line, one {"full_loop": {...}} line, one
      {"introspection": {...}} line, one {"loop_closing": {...}} line, one
      {"mono_rgbd": {...}} line, one {"datagen": {...}} line, one
-     {"training": {...}} line, one {"kernels": [...]} line (with each
-     kernel's launches on the introspection, loop-closing, mono, RGB-D,
-     datagen, replay and sharded-datagen runs too) and, last, the status
-     line.
+     {"training": {...}} line, one {"drivers": {...}} line, one
+     {"kernels": [...]} line (with each kernel's launches on the
+     introspection, loop-closing, mono, RGB-D, datagen, replay,
+     sharded-datagen, run_stereo, run_mono, run_rgbd and extract_octtree
+     runs too) and, last, the status line.
 
 A phase that fails is reported and the script exits 1 without a result.
 With no CUDA device, or run outside a checkout, it exits 2 at once.
@@ -139,7 +157,6 @@ With no CUDA device, or run outside a checkout, it exits 2 at once.
 
 from __future__ import annotations
 
-import contextlib
 import copy
 import hashlib
 import json
@@ -230,6 +247,15 @@ TR_VAL, TR_EPOCHS, TR_BATCH, TR_LOOP, N_REPLAY = 8, 3, 8, 30, 16
 TR_LOSS_RTOL, TR_PARAM_ATOL, TR_MEAN_ATOL, TR_VAR_RTOL = 1e-5, 2e-3, 1e-5, 1e-4
 TR_STATS_ATOL = 1e-5
 ZOO_LOSS_RTOL, ZOO_UPDATE_RTOL = 1e-8, 1e-6
+
+# the dataset drivers (phase 11): frames of the rectification runs and of
+# the mono and RGB-D driver runs; extract_octtree's card-vs-CPU angle limit
+# (degrees; kernel 2 is bit-equal to its plain version, so 0 is expected);
+# evaluate_batch against stats.json (m: evaluate_batch reads the trajectory
+# back from its 10-digit text)
+N_RECT, N_DRV_MR = 20, 30
+OCT_ANGLE_TOL = 5e-3
+EVAL_ATE_ATOL = 1e-6
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, and the float32
 # rate outside the tensor cores, used for these kernels' 32-bit scalar ops
@@ -376,24 +402,15 @@ def seeded_fcn(torch, models, seed):
     return net
 
 
-class StageTimer:
-    """Host milliseconds of each named stage (the stage_timer of Tracking and
-    LocalMapping)."""
+def stage_ms(timer, name):
+    """The host milliseconds of stage `name` in a utils.profiling.StageTimer
+    (the stage_timer of Tracking, LocalMapping and LoopClosing)."""
+    return [t * 1e3 for t in timer.samples.get(name, [])]
 
-    def __init__(self):
-        self.ms = {}
 
-    @contextlib.contextmanager
-    def time(self, name):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.ms.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
-
-    def median(self, name):
-        v = self.ms.get(name, [])
-        return float(np.median(v)) if v else None
+def median_ms(timer, name):
+    v = stage_ms(timer, name)
+    return float(np.median(v)) if v else None
 
 
 def clone(x):
@@ -427,6 +444,7 @@ class Smoke:
         self.mr = None
         self.dg = None
         self.tr = None
+        self.drv = None
 
     def phase(self, name, fn, *args):
         t0 = time.perf_counter()
@@ -450,6 +468,8 @@ class Smoke:
         kern = self.port["kernels"]
         dt = kern.build(verbose=True)
         print(f"build: {len(kern.SOURCES)} sources in {dt:.2f} s (nvcc, sm_90a, in parallel)")
+        self.unfilter_build_s = kern.build(kern.HOST_SOURCES)
+        print(f"build: the PNG row unfilter (host C compiler) in {self.unfilter_build_s:.2f} s")
         for name in kern.SOURCES:
             for ln in kern.build_log.get(name, "").splitlines():
                 if "registers" in ln or "spill" in ln:
@@ -1056,7 +1076,7 @@ class Smoke:
         cfg.system.fused_tracking = True
         s = port["system"].System(cfg, H, W)
         tr = s.tracking
-        timer = StageTimer()
+        timer = self.port["profiling"].StageTimer()
         tr.stage_timer = tr.local_mapping.stage_timer = timer
         rec, calls = {}, {}
         hooks = (("triangulate", port["triangulate"], "triangulate_event_compact"),
@@ -1110,8 +1130,8 @@ class Smoke:
         path_m = float(np.linalg.norm(np.diff(c, axis=0), axis=1).sum())
         lm = tr.local_mapping
         m = tr.map
-        fused = [a + b for a, b in zip(timer.ms.get("fused_dispatch", []),
-                                       timer.ms.get("fused_readback", []))]
+        fused = [a + b for a, b in zip(stage_ms(timer, "fused_dispatch"),
+                                       stage_ms(timer, "fused_readback"))]
         events = ("lm_cull_points", "lm_triangulate", "lm_fuse", "lm_local_ba",
                   "lm_cull_keyframes")
         out = dict(
@@ -1123,11 +1143,11 @@ class Smoke:
             path_m=path_m, frontend_launches=launches,
             host_ms_median=dict(
                 frame=float(np.median(frame_ms)), submit=float(np.median(submit_ms)),
-                frontend=timer.median("frontend"),
+                frontend=median_ms(timer, "frontend"),
                 fused_step=float(np.median(fused)) if fused else None,
-                keyframe_event=timer.median("keyframe_event"),
-                **{k[3:]: timer.median(k) for k in events}),
-            keyframe_events=len(timer.ms.get("keyframe_event", [])),
+                keyframe_event=median_ms(timer, "keyframe_event"),
+                **{k[3:]: median_ms(timer, k) for k in events}),
+            keyframe_events=len(stage_ms(timer, "keyframe_event")),
             fused_steps=len(fused), ba_rungs=[list(r) if r else None for r in lm.ba_rungs],
             cap_overflows=dict(lm.overflows), recorded=sorted(rec))
         t.loop = out
@@ -1407,7 +1427,7 @@ class Smoke:
         cfg.system.fused_tracking = True
         s = port["system"].System(cfg, H, W)
         s.tracking.frontend.attach_introspection(it.net, NET_HW)
-        timer = StageTimer()
+        timer = self.port["profiling"].StageTimer()
         s.tracking.stage_timer = s.tracking.local_mapping.stage_timer = timer
         pairs, gt = t.loop_pairs, t.loop_gt
         submit_ms = []
@@ -1435,13 +1455,13 @@ class Smoke:
         ate = port["trajectory"].ate_rmse(s.trajectory_twc(), gt)
         lm, m = s.tracking.local_mapping, s.tracking.map
         plain_ate = t.loop["full_loop_ate_m"]
-        fused = [a + b for a, b in zip(timer.ms.get("fused_dispatch", []),
-                                       timer.ms.get("fused_readback", []))]
+        fused = [a + b for a, b in zip(stage_ms(timer, "fused_dispatch"),
+                                       stage_ms(timer, "fused_readback"))]
         host = dict(submit=float(np.median(submit_ms)),
                     fused_step=float(np.median(fused)) if fused else None,
-                    keyframe_event=timer.median("keyframe_event"))
+                    keyframe_event=median_ms(timer, "keyframe_event"))
         out = dict(frames=N_LOOP, failures=int(s.failure_count), state=s.state.name,
-                   host_ms_median=host, keyframe_events=len(timer.ms.get("keyframe_event", [])),
+                   host_ms_median=host, keyframe_events=len(stage_ms(timer, "keyframe_event")),
                    fps=fps, ate_m=ate, ate_m_without_introspection=plain_ate,
                    keyframes=int(m.n_keyframes), map_points=int(m.n_points),
                    map_points_alive=int(m.pt_alive[:m.n_points].sum()),
@@ -1570,7 +1590,7 @@ class Smoke:
         cfg = copy.deepcopy(lc.cfg)
         cfg.system.use_bow = cfg.system.enable_loop_closing = voc is not None
         s = port["system"].System(cfg, LC_H, LC_W, device=device)
-        timer = StageTimer()
+        timer = self.port["profiling"].StageTimer()
         s.tracking.stage_timer = s.tracking.local_mapping.stage_timer = timer
         if voc is not None:
             s.attach_vocabulary(voc)
@@ -1626,11 +1646,10 @@ class Smoke:
                        kfdb_keyframes=len(tr.kfdb.bow) if loop_c else None,
                        frontend_launches=launches, cap_overflows=dict(lm.overflows),
                        host_ms_median=dict(
-                           frontend=timer.median("frontend"), track=timer.median("track"),
-                           keyframe_event=timer.median("keyframe_event"),
-                           **{k: timer.median(k) for k in ("lc_bow", "lc_detect", "lc_sim3",
-                                                            "lc_correct")}),
-                       lc_stage_calls={k: len(timer.ms.get(k, [])) for k in
+                           **{k: median_ms(timer, k) for k in (
+                               "frontend", "track", "keyframe_event", "lc_bow", "lc_detect",
+                               "lc_sim3", "lc_correct")}),
+                       lc_stage_calls={k: len(stage_ms(timer, k)) for k in
                                        ("lc_bow", "lc_detect", "lc_sim3", "lc_correct")})
             lc.runs[name] = run
             if voc is not None:
@@ -1689,7 +1708,7 @@ class Smoke:
             m, voc, cfg = self._revisit_map(dev)
             lc = port["loop_closing"].LoopClosing(
                 cfg, m, voc, port["keyframe_db"].KeyFrameDatabase(voc), dev)
-            lc.stage_timer = timer = StageTimer()
+            lc.stage_timer = timer = self.port["profiling"].StageTimer()
             for k in (0, 1):
                 lc.bow.ensure(k)
             with timer.time("lc_sim3"):
@@ -1713,16 +1732,18 @@ class Smoke:
             equal=same, max_abs_pose_diff=dT, max_abs_point_diff=dX,
             matched=len(gc[2]), points_alive=int(alive.sum()),
             card_repeatable=repeat,
-            card_first_ms=dict(sim3=t0.median("lc_sim3"), correct=t0.median("lc_correct")),
-            card_ms=dict(sim3=tc.median("lc_sim3"), correct=tc.median("lc_correct")),
-            cpu_ms=dict(sim3=tp.median("lc_sim3"), correct=tp.median("lc_correct")))
+            card_first_ms=dict(sim3=median_ms(t0, "lc_sim3"),
+                               correct=median_ms(t0, "lc_correct")),
+            card_ms=dict(sim3=median_ms(tc, "lc_sim3"), correct=median_ms(tc, "lc_correct")),
+            cpu_ms=dict(sim3=median_ms(tp, "lc_sim3"), correct=median_ms(tp, "lc_correct")))
         print(f"loop closing, correction on a revisit, card vs CPU path: equal {same}; max "
               f"|pose diff| {dT:.3g}, max |point diff| {dX:.3g}; {len(gc[2])} verified "
               f"matches, {int(alive.sum())} points alive after the fuse; two card runs "
-              f"bit-equal {repeat}; card ms sim3 {t0.median('lc_sim3'):.1f} (first call), "
-              f"{tc.median('lc_sim3'):.1f} (second), correct {t0.median('lc_correct'):.1f} / "
-              f"{tc.median('lc_correct'):.1f}; CPU path sim3 {tp.median('lc_sim3'):.1f}, "
-              f"correct {tp.median('lc_correct'):.1f}")
+              f"bit-equal {repeat}; card ms sim3 {median_ms(t0, 'lc_sim3'):.1f} (first "
+              f"call), {median_ms(tc, 'lc_sim3'):.1f} (second), correct "
+              f"{median_ms(t0, 'lc_correct'):.1f} / {median_ms(tc, 'lc_correct'):.1f}; CPU "
+              f"path sim3 {median_ms(tp, 'lc_sim3'):.1f}, correct "
+              f"{median_ms(tp, 'lc_correct'):.1f}")
         require(all(same.values()), f"correction differs: {same}")
         require(repeat, "two card runs of the correction differ")
         require(dT <= 1e-4 and dX <= 1e-3, f"correction poses {dT}, points {dX}")
@@ -1832,8 +1853,8 @@ class Smoke:
                   f"{cam.depth_map_factor}, {cfg.orb.n_features} features, "
                   f"{cfg.orb.n_levels} levels, FAST {cfg.orb.ini_th_fast}/"
                   f"{cfg.orb.min_th_fast}; distortion {dist} set to 0 (the synthetic "
-                  f"renderer is an ideal pinhole camera; camera.undistort_points is ROADMAP "
-                  f"A14)")
+                  f"renderer is an ideal pinhole camera, and neither package undistorts "
+                  f"keypoints while tracking)")
         cm, cr = mr.mono_cfg.camera, mr.rgbd_cfg.camera
         world = synth_world.TwoPlaneWorld(np.random.default_rng(MONO_SEED), fx=cm.fx, fy=cm.fy,
                                           cx=cm.cx, cy=cm.cy, w=cm.width, h=cm.height)
@@ -1896,7 +1917,7 @@ class Smoke:
         cfg = getattr(mr, sensor + "_cfg")
         cam = cfg.camera
         s = port["system"].System(cfg, cam.height, cam.width)
-        timer = StageTimer()
+        timer = self.port["profiling"].StageTimer()
         s.tracking.stage_timer = s.tracking.local_mapping.stage_timer = timer
         for m in self.counters().values():
             m.launches = 0
@@ -1980,9 +2001,9 @@ class Smoke:
                    direction_cosine=cos, ate_sim3_m=ate, keyframes=int(m.n_keyframes),
                    map_points=int(m.n_points), failures=int(s.failure_count),
                    frontend_launches=launches, init_calls_card_vs_cpu=diffs,
-                   host_ms_median=dict(frontend=timer.median("frontend"),
-                                       track=timer.median("track"),
-                                       keyframe_event=timer.median("keyframe_event")))
+                   host_ms_median=dict(frontend=median_ms(timer, "frontend"),
+                                       track=median_ms(timer, "track"),
+                                       keyframe_event=median_ms(timer, "keyframe_event")))
         mr.out["mono"] = out
         for k, v in launches.items():
             self.kernels[k]["launches_mono"] = v
@@ -2019,9 +2040,9 @@ class Smoke:
                    failures=int(s.failure_count), keyframes=int(m.n_keyframes),
                    map_points=int(m.n_points), frontend_launches=launches,
                    cap_overflows=dict(s.tracking.local_mapping.overflows),
-                   host_ms_median=dict(frontend=timer.median("frontend"),
-                                       track=timer.median("track"),
-                                       keyframe_event=timer.median("keyframe_event")))
+                   host_ms_median=dict(frontend=median_ms(timer, "frontend"),
+                                       track=median_ms(timer, "track"),
+                                       keyframe_event=median_ms(timer, "keyframe_event")))
         mr.out["rgbd"] = out
         for k, v in launches.items():
             self.kernels[k]["launches_rgbd"] = v
@@ -2086,7 +2107,7 @@ class Smoke:
         out = tempfile.mkdtemp(prefix="chip_smoke_datagen_")
         s = port["system"].System(cfg, cam.height, cam.width)
         s.enable_datagen(out)
-        timer = StageTimer()
+        timer = self.port["profiling"].StageTimer()
         s.tracking.stage_timer = s.tracking.local_mapping.stage_timer = timer
         for m in self.counters().values():
             m.launches = 0
@@ -2168,11 +2189,11 @@ class Smoke:
                                     norm_err_max=scale, heatmap_max_abs_diff=d_hm),
                    gp_device_ms=gp_ms, gp_points=int(args[0].shape[0]),
                    frontend_launches=launches,
-                   host_ms_median=dict(datagen=timer.median("datagen"),
-                                       frontend=timer.median("frontend"),
-                                       track=timer.median("track"),
-                                       keyframe_event=timer.median("keyframe_event")))
-        out["frames_scored"] = len(timer.ms.get("datagen", []))
+                   host_ms_median=dict(datagen=median_ms(timer, "datagen"),
+                                       frontend=median_ms(timer, "frontend"),
+                                       track=median_ms(timer, "track"),
+                                       keyframe_event=median_ms(timer, "keyframe_event")))
+        out["frames_scored"] = len(stage_ms(timer, "datagen"))
         dg.out["supervised"] = out
         print(f"datagen (a) supervised: {N_DG_SUP} frames, {fps:.3f} frames/s, {lost} lost, "
               f"{len(names)} heatmaps written ({gen.n_saved} saved), files {files}, heatmaps "
@@ -2254,10 +2275,10 @@ class Smoke:
                                                    max_abs_label_diff=d_lab,
                                                    poses_equal=poses_fixed),
                    frontend_launches=launches,
-                   host_ms_median=dict(datagen=timer.median("datagen"),
-                                       local_ba=timer.median("lm_local_ba"),
-                                       track=timer.median("track"),
-                                       keyframe_event=timer.median("keyframe_event")))
+                   host_ms_median=dict(datagen=median_ms(timer, "datagen"),
+                                       local_ba=median_ms(timer, "lm_local_ba"),
+                                       track=median_ms(timer, "track"),
+                                       keyframe_event=median_ms(timer, "keyframe_event")))
         dg.out["unsupervised_constrained"] = out
         print(f"datagen (b) unsupervised, constrained BA: {N_DG_UNSUP} frames, {fps:.3f} "
               f"frames/s, {lost} lost, {gen.n_saved} heatmaps and {n_masks} masks written, "
@@ -2727,6 +2748,351 @@ class Smoke:
         require(written >= 1 and written == stats["n_good"], f"{written} heatmaps written")
         require(d_hm <= 1 and d_err <= 1e-5 and same_sel, "card and CPU path differ")
 
+    # ---- phase 11: the dataset drivers ----------------------------------------
+    def drv_setup(self):
+        """(a) The full loop's 120 frames written as a KITTI layout by the
+        port's PNG writer, every row Paeth-filtered (the decoder's slow
+        case), with times.txt and a KITTI-format GT file; every file decoded
+        back equal to the rendered image; the decode's median ms a pair, the
+        row unfilter's ms a pair beside its plain NumPy version's."""
+        import tempfile
+        from concurrent.futures import ThreadPoolExecutor
+
+        port, t = self.port, self.trk
+        png = port["png"]
+        root = tempfile.mkdtemp(prefix="chip_smoke_drivers_")
+        seq = os.path.join(root, "kitti00")
+        for d in ("image_0", "image_1"):
+            os.makedirs(os.path.join(seq, d))
+        jobs = [(os.path.join(seq, d, f"{i:06d}.png"), img)
+                for i, pair in enumerate(t.loop_pairs)
+                for d, img in zip(("image_0", "image_1"), pair)]
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:
+            list(pool.map(lambda job: png.write_png(job[0], job[1], filter_type=4), jobs))
+        write_s = time.perf_counter() - t0
+        with open(os.path.join(seq, "times.txt"), "w") as f:
+            f.writelines(f"{0.1 * i!r}\n" for i in range(N_LOOP))
+        gt_file = os.path.join(root, "kitti00.txt")
+        np.savetxt(gt_file, np.stack([T[:3, :4].reshape(-1) for T in t.loop_gt]), fmt="%.9g")
+        pair_ms, same = [], True
+        for i in range(N_LOOP):
+            t0 = time.perf_counter()
+            dec = [port["datasets"].load_gray(p) for p, _ in jobs[2 * i:2 * i + 2]]
+            pair_ms.append((time.perf_counter() - t0) * 1e3)
+            same &= all(np.array_equal(a, b) for a, b in zip(dec, t.loop_pairs[i]))
+        with open(jobs[0][0], "rb") as f:
+            data = f.read()
+        import zlib
+        idat = b"".join(body for tag, body in png._chunks(data, jobs[0][0]) if tag == b"IDAT")
+        rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(H, W + 1)
+        filters = sorted(set(rows[:, 0].tolist()))
+        unf_ms = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            png.unfilter(rows, 1)
+            png.unfilter(rows, 1)
+            unf_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        plain = png.unfilter_plain(rows, 1)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        require(np.array_equal(plain, png.unfilter(rows, 1)), "unfilter != its plain version")
+        self.drv = SimpleNamespace(root=root, seq=seq, gt_file=gt_file, out={})
+        self.drv.out["decode"] = dict(
+            frames=N_LOOP, shape=[H, W], filter_types=filters, all_equal=bool(same),
+            write_s=write_s, decode_ms_pair_median=float(np.median(pair_ms)),
+            unfilter_ms_pair_median=float(np.median(unf_ms)),
+            unfilter_plain_ms_image=plain_ms,
+            unfilter_build_s=self.unfilter_build_s)
+        print(f"drivers (a): {2 * N_LOOP} PNGs of {W}x{H} (filter types {filters}) written in "
+              f"{write_s:.2f} s; decoded equal to the rendered images: {same}; decode "
+              f"{np.median(pair_ms):.3f} ms a pair (median, host), row unfilter "
+              f"{np.median(unf_ms):.3f} ms a Paeth pair (its plain NumPy version "
+              f"{plain_ms:.1f} ms an image); unfilter build {self.unfilter_build_s:.2f} s")
+        require(filters == [4], f"filter types {filters}")
+        require(same, "a decoded image differs from the rendered one")
+
+    def _settings(self, path, extra=""):
+        """The full loop's configuration as a reference settings YAML."""
+        cam, orb = self.trk.cfg.camera, self.trk.cfg.orb
+        keys = {"Camera.fx": cam.fx, "Camera.fy": cam.fy, "Camera.cx": cam.cx,
+                "Camera.cy": cam.cy, "Camera.k1": 0.0, "Camera.k2": 0.0, "Camera.p1": 0.0,
+                "Camera.p2": 0.0, "Camera.width": cam.width, "Camera.height": cam.height,
+                "Camera.fps": cam.fps, "Camera.bf": cam.bf, "ThDepth": cam.th_depth,
+                "ORBextractor.nFeatures": orb.n_features,
+                "ORBextractor.scaleFactor": orb.scale_factor,
+                "ORBextractor.nLevels": orb.n_levels,
+                "ORBextractor.iniThFAST": orb.ini_th_fast,
+                "ORBextractor.minThFAST": orb.min_th_fast}
+        with open(path, "w") as f:
+            f.write("%YAML:1.0\n" + "".join(f"{k}: {v!r}\n" for k, v in keys.items()) + extra)
+        return path
+
+    def _drive(self, mod, argv):
+        """A driver's main in process, K1-K3 counted: (stats, launches, s)."""
+        torch = self.torch
+        for m in self.counters().values():
+            m.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = mod.main(argv)
+        torch.cuda.synchronize()
+        return stats, {k: m.launches for k, m in self.counters().items()}, \
+            time.perf_counter() - t0
+
+    def drv_stereo(self):
+        """(b) run_stereo in process on the card over (a)'s files with
+        --fused_tracking --profile_stages: 0 failures, ATE < 0.5 m, every
+        output file; its configuration equal to the full loop's, and its
+        Trajectory_KITTI_000.txt bit-equal to the trajectory System gave
+        the full loop in memory (PNG is lossless: the same frames); K1-K3
+        once a frame."""
+        port, t, drv = self.port, self.trk, self.drv
+        rs = port["run_stereo"]
+        settings = self._settings(os.path.join(drv.root, "kitti.yaml"))
+        out = os.path.join(drv.root, "results", "PORT", "kitti00")
+        argv = ["--data_path", drv.seq, "--settings_path", settings,
+                "--ground_truth_path", drv.gt_file, "--out_visualization_path", out,
+                "--fused_tracking", "--profile_stages"]
+        dcfg = rs.make_config(rs.parse_args(argv))
+        dcfg.camera.height, dcfg.camera.width = H, W
+        require(dcfg == t.loop_sys.cfg, "run_stereo's configuration differs from the full "
+                f"loop's:\n{dcfg}\n{t.loop_sys.cfg}")
+        stats, launches, wall = self._drive(rs, argv)
+        files = {f: os.path.exists(os.path.join(out, f))
+                 for f in ("Trajectory_KITTI_000.txt", "KeyFrameTrajectory_TUM_000.txt",
+                           "failure_log.txt", "stats.json")}
+        mem = os.path.join(drv.root, "full_loop_in_memory.txt")
+        port["trajectory"].save_kitti(mem, t.loop_sys.trajectory_twc())
+        with open(mem, "rb") as a, open(os.path.join(out, "Trajectory_KITTI_000.txt"),
+                                         "rb") as b:
+            bit_equal = a.read() == b.read()
+        drv.stereo_stats, drv.stereo_out = stats, out
+        drv.out["run_stereo"] = dict(
+            frames=stats["frames"], failures=stats["failures"], ate_m=stats["ate_rmse"],
+            full_loop_ate_m=t.loop["full_loop_ate_m"], frames_per_s=stats["frames"] / wall,
+            median_track_s=stats["median_track_s"], files=files,
+            trajectory_bit_equal_to_full_loop=bit_equal, frontend_launches=launches)
+        for k, v in launches.items():
+            self.kernels[k]["launches_run_stereo"] = v
+        print(f"drivers (b): run_stereo over {stats['frames']} frames: {stats['failures']} "
+              f"failures, ATE {stats['ate_rmse']:.4f} m (full loop {t.loop['full_loop_ate_m']:.4f}"
+              f" m), {stats['frames'] / wall:.3f} frames/s (wall, decode-ahead loader), median "
+              f"track {stats['median_track_s'] * 1e3:.1f} ms; files {files}; trajectory "
+              f"bit-equal to the full loop's: {bit_equal}; K1-K3 launches {launches}")
+        require(all(files.values()), f"missing output files: {files}")
+        require(stats["failures"] == 0 and stats["ate_rmse"] < 0.5,
+                f"{stats['failures']} failures, ATE {stats['ate_rmse']}")
+        require(bit_equal, "run_stereo's trajectory differs from the full loop's")
+        require(launches == {k: N_LOOP for k in launches}, f"launches {launches}")
+
+    def drv_rectify(self):
+        """(c) --rectify_images with identity LEFT./RIGHT. blocks over the
+        first N_RECT frames: trajectory bit-identical to the run without the
+        flag; remap's ms a pair at settings/EuRoC_stereo.yaml's maps
+        (752x480) on the host (the loader's) and on the card, the card's
+        result equal to the host's."""
+        torch, port, drv = self.torch, self.port, self.drv
+        rs, rect, C = port["run_stereo"], port["rectify"], port["config"]
+        cam = self.trk.cfg.camera
+        K = [cam.fx, 0.0, cam.cx, 0.0, cam.fy, cam.cy, 0.0, 0.0, 1.0]
+        P = K[:3] + [0.0] + K[3:6] + [0.0] + K[6:] + [0.0]
+
+        def block(side):
+            def m(name, rows, cols, data):
+                return (f"{side}.{name}: !!opencv-matrix\n   rows: {rows}\n   cols: {cols}\n"
+                        f"   dt: d\n   data: [{', '.join(repr(float(v)) for v in data)}]\n")
+            return (f"{side}.height: {H}\n{side}.width: {W}\n" + m("D", 1, 5, [0] * 5)
+                    + m("K", 3, 3, K) + m("R", 3, 3, np.eye(3).ravel()) + m("P", 3, 4, P))
+
+        settings = self._settings(os.path.join(drv.root, "kitti_rect.yaml"),
+                                  block("LEFT") + block("RIGHT"))
+        trajs = {}
+        for flag in ([], ["--rectify_images"]):
+            out = os.path.join(drv.root, "rect" + "".join(flag))
+            stats, _, _ = self._drive(rs, ["--data_path", drv.seq, "--settings_path", settings,
+                                           "--out_visualization_path", out, "--fused_tracking",
+                                           "--end_frame", str(N_RECT), *flag])
+            with open(os.path.join(out, "Trajectory_KITTI_000.txt"), "rb") as f:
+                trajs[bool(flag)] = f.read()
+            require(stats["frames"] == N_RECT and stats["failures"] == 0, f"stats {stats}")
+        same = trajs[True] == trajs[False]
+        doc = C._parse_opencv_yaml(os.path.join(HERE, "settings", "EuRoC_stereo.yaml"))
+        maps = [rect.load_rectification_from_yaml(doc, s) for s in ("LEFT", "RIGHT")]
+        rng = np.random.default_rng(0)
+        pair = [rng.integers(0, 256, maps[0][0].shape, dtype=np.uint8) for _ in range(2)]
+        host_ms = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            host = [rect.remap(img, m) for img, m in zip(pair, maps)]
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        dev_pair = [torch.as_tensor(img).cuda() for img in pair]
+        dev_maps = [tuple(torch.as_tensor(a).cuda() for a in m) for m in maps]
+        card = [rect.remap(img, m) for img, m in zip(dev_pair, dev_maps)]
+        card_equal = all(np.array_equal(c.cpu().numpy(), h) for c, h in zip(card, host))
+        card_ms = event_ms(torch, lambda: [rect.remap(img, m)
+                                           for img, m in zip(dev_pair, dev_maps)], iters=20)
+        drv.out["rectify"] = dict(
+            frames=N_RECT, identity_bit_identical=same, euroc_shape=list(maps[0][0].shape),
+            remap_host_ms_pair_median=float(np.median(host_ms)), remap_card_ms_pair=card_ms,
+            card_equal_host=card_equal)
+        print(f"drivers (c): identity rectification over {N_RECT} frames bit-identical to no "
+              f"rectification: {same}; remap at EuRoC_stereo.yaml's maps "
+              f"({maps[0][0].shape[1]}x{maps[0][0].shape[0]}): host {np.median(host_ms):.3f} ms "
+              f"a pair (median), card {card_ms:.4f} ms a pair (CUDA events), card equal to "
+              f"host {card_equal}")
+        require(same, "identity rectification changed the trajectory")
+        require(card_equal, "remap on the card differs from the host")
+
+    def drv_mono_rgbd(self):
+        """(d) run_mono and run_rgbd on the first N_DRV_MR frames of phase 8's
+        worlds, written as a TUM mono layout (rgb.txt, colour PNGs) and a TUM
+        RGB-D layout (associations, 16-bit depth PNGs at 5000 a metre), at
+        phase 8's settings (distortion 0) without fused tracking (neither
+        driver has the flag); each trajectory bit-equal to a System run in
+        memory on the rendered frames with the driver's configuration."""
+        port, mr, drv = self.port, self.mr, self.drv
+        png = port["png"]
+        n = N_DRV_MR
+
+        def settings(name, yaml_name):
+            with open(os.path.join(HERE, "settings", yaml_name)) as f:
+                lines = [("%s: 0.0" % ln.split(":")[0]) if ln.split(":")[0].strip() in (
+                    "Camera.k1", "Camera.k2", "Camera.k3", "Camera.p1", "Camera.p2")
+                    else ln.rstrip("\n") for ln in f]
+            path = os.path.join(drv.root, name)
+            with open(path, "w") as f:
+                f.write("\n".join(lines) + "\n")
+            return path
+
+        res = {}
+        for sensor in ("mono", "rgbd"):
+            cam = getattr(mr, sensor + "_cfg").camera
+            seq = os.path.join(drv.root, "tum_" + sensor)
+            os.makedirs(os.path.join(seq, "rgb"))
+            imgs = (mr.mono_imgs if sensor == "mono" else mr.rgbd_imgs)[:n]
+            stamps = [i / cam.fps for i in range(n)]
+            for i, img in enumerate(imgs):
+                png.write_png(os.path.join(seq, "rgb", f"{i:04d}.png"),
+                              np.repeat(img[..., None], 3, axis=-1), filter_type=4)
+            if sensor == "mono":
+                with open(os.path.join(seq, "rgb.txt"), "w") as f:
+                    f.write("# timestamp filename\n")
+                    f.writelines(f"{s!r} rgb/{i:04d}.png\n" for i, s in enumerate(stamps))
+                mod = port["run_mono"]
+                yaml_path = settings("mono.yaml", "EuRoC_mono.yaml")
+                out = os.path.join(drv.root, "results", "PORT", "tum_mono")
+                argv = ["--dataset", "tum", "--data_path", seq, "--settings_path", yaml_path,
+                        "--out_visualization_path", out]
+                traj_name = "Trajectory_KITTI_000.txt"
+            else:
+                os.makedirs(os.path.join(seq, "depth"))
+                for i, dep in enumerate(mr.rgbd_depth[:n]):
+                    png.write_png(os.path.join(seq, "depth", f"{i:04d}.png"), dep,
+                                  filter_type=4)
+                assoc = os.path.join(seq, "associations.txt")
+                with open(assoc, "w") as f:
+                    f.writelines(f"{s!r} rgb/{i:04d}.png {s!r} depth/{i:04d}.png\n"
+                                 for i, s in enumerate(stamps))
+                mod = port["run_rgbd"]
+                yaml_path = settings("rgbd.yaml", "TUM1.yaml")
+                out = os.path.join(drv.root, "rgbd_out")
+                argv = ["--data_path", seq, "--association_file", assoc,
+                        "--settings_path", yaml_path, "--out_visualization_path", out]
+                traj_name = "CameraTrajectory.txt"
+            stats, launches, wall = self._drive(mod, argv)
+            cfg = mod.make_config(mod.parse_args(argv))
+            cfg.camera.height, cfg.camera.width = imgs[0].shape
+            s = port["system"].System(cfg, *imgs[0].shape)
+            for i, img in enumerate(imgs):
+                if sensor == "mono":
+                    s.track_mono(img, stamps[i], img_name=f"{i:04d}.png")
+                else:
+                    s.track_rgbd(img, mr.rgbd_depth[i], stamps[i],
+                                 depth_scale=1.0 / cfg.camera.depth_map_factor,
+                                 img_name=f"{i:04d}.png")
+            mem = os.path.join(drv.root, f"{sensor}_in_memory.txt")
+            (s.save_trajectory_kitti if sensor == "mono" else s.save_trajectory_tum)(mem)
+            with open(mem, "rb") as a, open(os.path.join(out, traj_name), "rb") as b:
+                equal = a.read() == b.read()
+            res[sensor] = dict(frames=stats["frames"], failures=stats["failures"],
+                               frames_per_s=stats["frames"] / wall, state=s.state.name,
+                               trajectory_bit_equal_in_memory=equal, frontend_launches=launches)
+            for k, v in launches.items():
+                self.kernels[k]["launches_run_" + sensor] = v
+            print(f"drivers (d): run_{sensor} over {n} frames of phase 8's world: "
+                  f"{stats['frames']} frames, {stats['failures']} failures, "
+                  f"{stats['frames'] / wall:.3f} frames/s, state {s.state.name}; trajectory "
+                  f"bit-equal to System in memory: {equal}; K1-K3 launches {launches}")
+            require(equal, f"run_{sensor}'s trajectory differs from the in-memory run")
+            require(launches == {"fast_score": n, "orient_brief": n, "sad_windows": 0},
+                    f"launches {launches}")
+        np.savetxt(os.path.join(drv.root, "tum_mono.txt"),
+                   np.stack([T[:3, :4].reshape(-1) for T in mr.mono_gt[:n]]), fmt="%.9g")
+        drv.out.update(res)
+
+    def drv_octtree(self):
+        """(e) extract_octtree on the full loop's first left image on the
+        card against the CPU path: keypoints, order, responses, descriptors
+        equal, angles within OCT_ANGLE_TOL degrees; K1 and K2 launched once."""
+        torch, port = self.torch, self.port
+        ex = port["extractor"].OrbExtractor(self.trk.cfg.orb, H, W)
+        img = self.trk.loop_pairs[0][0]
+        cpu = ex.extract_octtree(torch.as_tensor(img))
+        for m in self.counters().values():
+            m.launches = 0
+        dev_img = torch.as_tensor(img).cuda()
+        card = ex.extract_octtree(dev_img)
+        torch.cuda.synchronize()
+        launches = {k: m.launches for k, m in self.counters().items()}
+        card_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            ex.extract_octtree(dev_img)
+            torch.cuda.synchronize()
+            card_ms.append((time.perf_counter() - t0) * 1e3)
+        diffs = {}
+        for f in card._fields:
+            a, b = getattr(card, f).cpu(), getattr(cpu, f)
+            diffs[f] = (float((a.double() - b.double()).abs().max()) if f == "angle"
+                        else bool(torch.equal(a, b)))
+        n_valid = int(cpu.valid.sum())
+        self.drv.out["extract_octtree"] = dict(
+            capacity=int(cpu.valid.numel()), valid=n_valid, fields=diffs,
+            card_ms_median=float(np.median(card_ms)), launches=launches)
+        for k, v in launches.items():
+            self.kernels[k]["launches_octree"] = v
+        print(f"drivers (e): extract_octtree at {W}x{H}, {n_valid} of {cpu.valid.numel()} "
+              f"slots valid, card vs CPU path {diffs}, {np.median(card_ms):.2f} ms a call "
+              f"(host clock, synced), K1-K3 launches {launches}")
+        require(all(v for f, v in diffs.items() if f != "angle"), f"fields differ: {diffs}")
+        require(diffs["angle"] <= OCT_ANGLE_TOL, f"angles differ by {diffs['angle']}")
+        require(launches == {"fast_score": 1, "orient_brief": 1, "sad_windows": 0},
+                f"launches {launches}")
+
+    def drv_evaluate(self):
+        """(f) evaluate_batch over (b)'s and (d)'s mono output directories:
+        (b)'s ATE equal to its stats.json's (within EVAL_ATE_ATOL m: the
+        trajectory passes through text)."""
+        import shutil
+
+        port, drv = self.port, self.drv
+        out = os.path.join(drv.root, "evaluation.json")
+        report = port["evaluate_batch"].main([
+            "--results_root", os.path.join(drv.root, "results"), "--gt_root", drv.root,
+            "--modes", "PORT", "--sessions", "kitti00", "tum_mono", "--out", out])
+        with open(os.path.join(drv.stereo_out, "stats.json")) as f:
+            want = json.load(f)["ate_rmse"]
+        got = report["PORT"]["kitti00"]["ate_rmse"]
+        drv.out["evaluate_batch"] = dict(ate_m=got, stats_json_ate_m=want,
+                                         abs_diff=abs(got - want),
+                                         mono_se3_ate_m=report["PORT"]["tum_mono"]["ate_rmse"])
+        print(f"drivers (f): evaluate_batch ATE {got!r} m, stats.json {want!r} m "
+              f"(|d| {abs(got - want):.3g}); mono (SE3, no scale) "
+              f"{report['PORT']['tum_mono']['ate_rmse']:.4f} m")
+        shutil.rmtree(drv.root, ignore_errors=True)
+        require(abs(got - want) <= EVAL_ATE_ATOL, f"ATE {got} != stats.json's {want}")
+
 
 def dp_rank_main(rank, world, port_no, work):
     """A rank of phase 10 (g): joins the gloo group on card 0, loads the
@@ -2791,6 +3157,9 @@ def main() -> int:
     from iv_slam_tpu_torch.parallel import mesh, replay
     from iv_slam_tpu_torch.train import data as train_data
     from iv_slam_tpu_torch.train import train_state, trainer
+    from iv_slam_tpu_torch.io import datasets, png, rectify
+    from iv_slam_tpu_torch.examples import evaluate_batch, run_mono, run_rgbd, run_stereo
+    from iv_slam_tpu_torch.utils import profiling
 
     ops = SimpleNamespace(brief=brief, fast=fast, fast_cuda=fast_cuda,
                           finish_cuda=finish_cuda, orient=orient, stereo_cuda=stereo_cuda)
@@ -2804,7 +3173,9 @@ def main() -> int:
             "gp": gp, "dataset_creator": dataset_creator, "export": export, "zoo": zoo,
             "sharded_datagen": sharded_datagen, "mesh": mesh, "replay": replay,
             "train_data": train_data, "train_state": train_state, "trainer": trainer,
-            "feature_evaluator": feature_evaluator}
+            "feature_evaluator": feature_evaluator, "datasets": datasets, "png": png,
+            "rectify": rectify, "run_stereo": run_stereo, "run_mono": run_mono,
+            "run_rgbd": run_rgbd, "evaluate_batch": evaluate_batch, "profiling": profiling}
 
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -2911,6 +3282,21 @@ def main() -> int:
             smoke.failures.append(f"{name}: skipped, an earlier phase failed")
         else:
             smoke.phase(name, fn)
+    # phase 11: the dataset drivers, on phase 5's frames and phase 8's
+    # worlds, also before any profiling
+    n_fail = len(smoke.failures)
+    mr_ok = loop_ok and smoke.mr is not None and hasattr(smoke.mr, "rgbd_depth")
+    for name, fn, ok in (("drivers (a) PNG decode", smoke.drv_setup, loop_ok),
+                         ("drivers (b) run_stereo", smoke.drv_stereo, True),
+                         ("drivers (c) rectification", smoke.drv_rectify, True),
+                         ("drivers (d) run_mono, run_rgbd", smoke.drv_mono_rgbd, mr_ok),
+                         ("drivers (e) extract_octtree", smoke.drv_octtree, loop_ok),
+                         ("drivers (f) evaluate_batch", smoke.drv_evaluate, mr_ok)):
+        if not ok or smoke.drv is None and fn != smoke.drv_setup \
+                or len(smoke.failures) > n_fail:
+            smoke.failures.append(f"{name}: skipped, an earlier phase failed")
+        else:
+            smoke.phase(name, fn)
     if len(smoke.kernels) == 3:
         smoke.phase("kernel device times", smoke.device_times)
     if smoke.trk is not None and smoke.trk.record is not None:
@@ -2935,12 +3321,15 @@ def main() -> int:
               f"loop-closing loop, {k['launches_mono']} on the mono run, "
               f"{k['launches_rgbd']} on the RGB-D run, {k['launches_datagen']} on the datagen "
               f"runs, {k['launches_replay']} on the replay, {k['launches_sharded_datagen']} on "
-              f"the sharded datagen, on {card}")
+              f"the sharded datagen, {k['launches_run_stereo']} on run_stereo, "
+              f"{k['launches_run_mono']} on run_mono, {k['launches_run_rgbd']} on run_rgbd, "
+              f"{k['launches_octree']} on extract_octtree, on {card}")
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms", "event_ms", "plain_event_ms",
              "launches_introspection", "launches_loop_closing", "launches_mono",
              "launches_rgbd", "launches_datagen", "launches_replay",
-             "launches_sharded_datagen")
+             "launches_sharded_datagen", "launches_run_stereo", "launches_run_mono",
+             "launches_run_rgbd", "launches_octree")
     kernels = [{k: smoke.kernels[n][k] for k in order}
                for n in ("fast_score", "orient_brief", "sad_windows")]
     print(json.dumps({"frontend": smoke.fps,
@@ -2956,6 +3345,7 @@ def main() -> int:
     print(json.dumps({"mono_rgbd": dict(smoke.mr.out, card=card)}, default=float))
     print(json.dumps({"datagen": dict(smoke.dg.out, card=card)}, default=float))
     print(json.dumps({"training": dict(smoke.tr.out, card=card)}, default=float))
+    print(json.dumps({"drivers": dict(smoke.drv.out, card=card)}, default=float))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

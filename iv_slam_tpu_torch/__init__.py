@@ -7,12 +7,15 @@ or anything from ``iv_slam_tpu``.
 
 Layout (mirrors the JAX package):
   config.py      copy of the dataclass config tree
-  _kernels.py    nvcc build + ctypes loading of csrc/*.cu (first use)
-  csrc/          hand-written CUDA C++ kernels for sm_90a
+  _kernels.py    nvcc build + ctypes loading of csrc/*.cu (first use), and
+                 of the host C source csrc/png_unfilter.c
+  csrc/          hand-written CUDA C++ kernels for sm_90a; the PNG row
+                 unfilter (host C)
   numerics.py    float32 arithmetic that rounds alike on the CPU and the GPU
   geometry/      SE(3), Sim(3), camera projection
   ops/           image, pyramid, FAST, orientation, BRIEF, Hamming, stereo,
-                 extractor; each kernel has a ``*_cuda.py`` wrapper beside
+                 extractor (and its quadtree path, octtree.py); each kernel
+                 has a ``*_cuda.py`` wrapper beside
                  its plain PyTorch version; projection matching and fuse,
                  the monocular initialization search, triangulation;
                  vocabulary-tree descent, BoW and Sim3 matching; the GP
@@ -28,7 +31,11 @@ Layout (mirrors the JAX package):
                  for cost-map inference, and its weight loaders
   introspection/ training-data generation: feature scoring, unsupervised
                  quality labels, the dataset writer, the per-frame orchestrator
-  io/            trajectory writers and metrics
+  train/, parallel/  FCN training; data-parallel training, replay, datagen
+  io/            PNG and PFM codecs, dataset readers, rectification, the
+                 decode-ahead loader, trajectory writers and metrics
+  utils/         per-stage timers
+  examples/      the dataset drivers (``python -m iv_slam_tpu_torch.examples.<name>``)
 
 Device rule: functions follow the device of the tensors they are given. A
 wrapper handed a CPU tensor runs the plain PyTorch version; handed a CUDA

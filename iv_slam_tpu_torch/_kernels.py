@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels in ``csrc/``.
+"""Build and load the hand-written CUDA kernels in ``csrc/``, and the
+host C sources beside them.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface (raw pointers, ints and
 the CUDA stream; it returns ``cudaGetLastError()``). At first use it is
@@ -7,6 +8,10 @@ compiled by ``nvcc`` for ``sm_90a`` into a shared library under
 named by a hash of their source and flags, so an unchanged source is not
 rebuilt within one checkout. No header of PyTorch is included: a file
 builds in seconds rather than minutes.
+
+A ``csrc/<name>.c`` is host code (the PNG row unfilter of ``io/png.py``):
+it is built the same way with the host C compiler (``$CC``, else ``cc``,
+``gcc``, ``clang`` or ``g++``) and loaded with ``ctypes``.
 
 A failed build raises. Nothing falls back to the plain PyTorch versions.
 """
@@ -18,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from typing import Dict, Iterable
 
@@ -29,9 +35,13 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
 
+CC_FLAGS = ["-O2", "-shared", "-fPIC"]
+
 SOURCES = ("fast_score", "orient_brief", "sad_windows")
+HOST_SOURCES = ("png_unfilter",)
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()  # loader threads may ask for one library together
 build_log: Dict[str, str] = {}
 
 
@@ -46,32 +56,50 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _cc() -> str:
+    for cand in (os.environ.get("CC", ""), "cc", "gcc", "clang", "g++"):
+        path = shutil.which(cand) if cand else None
+        if path:
+            return path
+    raise RuntimeError("no host C compiler found: set CC or put cc on PATH")
+
+
+def _source(name: str) -> str:
+    return os.path.join(CSRC, name + (".c" if name in HOST_SOURCES else ".cu"))
+
+
+def _flags(name: str):
+    return CC_FLAGS if name in HOST_SOURCES else NVCC_FLAGS
+
+
 def _lib_path(name: str) -> str:
-    src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
+    with open(_source(name), "rb") as f:
         h = hashlib.sha256(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(name)).encode())
     return os.path.join(BUILD, f"lib{name}_{h.hexdigest()[:12]}.so")
 
 
 def build(names: Iterable[str] = SOURCES, verbose: bool = False) -> float:
-    """Compile the named sources that are not built yet, one ``nvcc`` per
-    source, all started together. Returns the wall seconds it took; raises
+    """Compile the named sources that are not built yet, one compiler
+    (``nvcc``, or the host C compiler for a ``.c`` source) per source, all
+    started together. Returns the wall seconds it took; raises
     RuntimeError with the compiler's output when any build fails."""
     todo = [n for n in names if n not in _libs and not os.path.exists(_lib_path(n))]
     t0 = time.perf_counter()
     if todo:
         os.makedirs(BUILD, exist_ok=True)
-        nvcc = _nvcc()
         procs = []
         for n in todo:
             out = _lib_path(n)
-            cmd = [nvcc, *NVCC_FLAGS]
-            if verbose:
-                cmd += ["-Xptxas", "-v"]
+            if n in HOST_SOURCES:
+                cmd = [_cc(), *CC_FLAGS]
+            else:
+                cmd = [_nvcc(), *NVCC_FLAGS]
+                if verbose:
+                    cmd += ["-Xptxas", "-v"]
             # a per-process temporary name: concurrent builders never
             # load a half-written library
-            cmd += ["-o", f"{out}.{os.getpid()}.tmp", os.path.join(CSRC, n + ".cu")]
+            cmd += ["-o", f"{out}.{os.getpid()}.tmp", _source(n)]
             procs.append((n, out, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
@@ -80,21 +108,25 @@ def build(names: Iterable[str] = SOURCES, verbose: bool = False) -> float:
             log, _ = p.communicate()
             build_log[n] = log
             if p.returncode != 0:
-                failed.append(f"--- {n}.cu (nvcc exit {p.returncode}) ---\n{log}")
+                failed.append(f"--- {os.path.basename(_source(n))} (exit {p.returncode}) "
+                              f"---\n{log}")
             else:
                 os.replace(f"{out}.{os.getpid()}.tmp", out)
         if failed:
-            raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+            raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    """The loaded library for ``csrc/<name>.cu`` (or ``.c``), built on first
+    use."""
     lib = _libs.get(name)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(_lib_path(name))
-        _libs[name] = lib
+        with _lock:
+            lib = _libs.get(name)
+            if lib is None:
+                build([name])
+                lib = _libs[name] = ctypes.CDLL(_lib_path(name))
     return lib
 
 

@@ -3,9 +3,6 @@
 Port of ``iv_slam_tpu/geometry/camera.py``. Stereo observations follow the
 reference convention: ``(u_left, v_left, u_right)`` with
 ``u_right = u_left - bf / z``.
-
-Not ported in this slice: ``undistort_points`` (ROADMAP A14, with the
-dataset readers that call it).
 """
 
 from __future__ import annotations
@@ -80,3 +77,29 @@ def proj_jacobian_stereo(K: Intrinsics, pc: torch.Tensor) -> torch.Tensor:
         [K.fx * invz, zeros, -K.fx * x * invz2 + K.bf * invz2], dim=-1
     )
     return torch.stack([row_u, row_v, row_r], dim=-2)
+
+
+def undistort_points(
+    pts: torch.Tensor,
+    fx: float,
+    fy: float,
+    cx: float,
+    cy: float,
+    dist,
+    iterations: int = 5,
+) -> torch.Tensor:
+    """Iterative undistortion of (..., 2) pixel points (cv::undistortPoints
+    semantics with k1,k2,p1,p2,k3; Frame.cc:696-737 UndistortKeyPoints).
+    `dist`: the five coefficients, a sequence or a tensor."""
+    k1, k2, p1, p2, k3 = (dist[i] for i in range(5))
+    x0 = (pts[..., 0] - cx) / fx
+    y0 = (pts[..., 1] - cy) / fy
+    x, y = x0, y0
+    for _ in range(iterations):
+        r2 = x * x + y * y
+        radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+        dx = 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+        dy = p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+        x = (x0 - dx) / radial
+        y = (y0 - dy) / radial
+    return torch.stack([x * fx + cx, y * fy + cy], dim=-1)

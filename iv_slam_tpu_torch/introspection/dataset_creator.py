@@ -10,38 +10,18 @@ the output unchanged:
   img_names.json: {img_name, corresponding_keypt_id, corresponding_descriptor_id}
   descriptors.csv / descriptors_2.csv: one CSV row block per image
 
-The PNGs are 8-bit grayscale, written by ``write_png`` with the standard
-library's zlib (the reference writes them with imageio): any PNG reader
-gets the same pixels.
+The PNGs are 8-bit grayscale, written by ``io/png.py::write_png`` (the
+reference writes them with imageio): any PNG reader gets the same pixels.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import struct
-import zlib
 
 import numpy as np
 
-
-def write_png(path: str, img: np.ndarray) -> None:
-    """An (H, W) uint8 image as an 8-bit grayscale PNG, rows unfiltered."""
-    img = np.ascontiguousarray(img, np.uint8)
-    if img.ndim != 2:
-        raise ValueError(f"write_png: need an (H, W) image, got shape {img.shape}")
-    h, w = img.shape
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), img], axis=1)
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0)))
-        f.write(chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
-        f.write(chunk(b"IEND", b""))
+from ..io.png import write_png
 
 
 class DatasetCreator:

@@ -1,1 +1,2 @@
-"""Trajectory output and error metrics."""
+"""Dataset readers, the PNG and PFM codecs, stereo rectification, the
+decode-ahead loader, trajectory output and error metrics."""

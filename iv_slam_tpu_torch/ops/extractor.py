@@ -22,8 +22,9 @@ Everything is static-shaped: each level emits exactly
 device value on the host, so a frame's work is queued without a sync.
 The left/right pair is an explicit batch dimension B.
 
-Not ported yet (raises NotImplementedError): ``extract_octtree`` (ROADMAP
-A14).
+``extract_octtree`` is the reference's quadtree-distributed alternative
+(ops/octtree.py): kernel 1 scores every active level, the quadtree runs on
+the host, kernel 2 describes the selected keypoints on the pyramid canvas.
 """
 
 from __future__ import annotations
@@ -438,9 +439,59 @@ class OrbExtractor:
                    if quality is not None else None)
         return self.extract_from_pyramid(levels, qlevels)
 
-    def extract_octtree(self, img) -> Keypoints:
-        raise NotImplementedError(
-            "quadtree extraction (extract_octtree) is not ported yet (ROADMAP A14)")
+    def extract_octtree(self, img: torch.Tensor) -> Keypoints:
+        """Quadtree-distributed extraction of one (H, W) uint8 image
+        (ComputeKeyPointsOctTree + DistributeOctTree, ORBextractor.cc:545-878;
+        present but inactive in the reference, whose call site is commented
+        out at ORBextractor.cc:1247), on the image's device.
+
+        Kernel 1 scores every active level in one launch; the score maps go
+        to the host for the quadtree (ops/octtree.py); kernel 2 orients and
+        describes the kept keypoints on the pyramid canvas in one launch,
+        as the main path does (level coordinates plus the level's row
+        offset; a kept keypoint lies >= 19 px from its level's borders, so
+        its patches read only its level). If distribution retains more than
+        a level's budget (it may overshoot by ~2), the best-response extras
+        are kept; each level pads to its budget with invalid slots at
+        (EDGE_THRESHOLD, EDGE_THRESHOLD), as the reference does."""
+        from . import octtree
+
+        dev = img.device
+        levels = pyramid.build_pyramid(img, self.shapes)
+        active = [(lvl, lay) for lvl, lay in enumerate(self.layouts) if lay.active]
+        scores = fast_cuda.fast_score_levels(
+            [levels[lvl][None].contiguous() for lvl, _ in active], self.cfg.min_th_fast)
+        score_maps = [s[0].cpu().numpy() for s in scores]
+        yx, xy0, resp, octv, valid = [], [], [], [], []
+        for (lvl, lay), smap in zip(active, score_maps):
+            y, x, r = octtree.compute_keypoints_octtree(smap, self.cfg.ini_th_fast,
+                                                        lay.n_desired)
+            if y.size > lay.n_desired:  # overshoot: keep best-response
+                order = np.argsort(-r)[: lay.n_desired]
+                y, x, r = y[order], x[order], r[order]
+            n, cap = y.size, lay.n_desired
+            yx_l = np.full((cap, 2), EDGE_THRESHOLD, np.int32)
+            yx_l[:n, 0], yx_l[:n, 1] = y, x
+            rr = np.zeros(cap, np.float32)
+            rr[:n] = r
+            scale = float(self.scale_factors[lvl])
+            yx.append(yx_l)
+            xy0.append(np.stack([yx_l[:, 1], yx_l[:, 0]], axis=1).astype(np.float32) * scale)
+            resp.append(rr)
+            octv.append(np.full(cap, lvl, np.int32))
+            valid.append(np.arange(cap) < n)
+        yx_level = torch.as_tensor(np.concatenate(yx), device=dev)
+        octave = torch.as_tensor(np.concatenate(octv), device=dev)
+        _, flat_raw, flat_blur, yx_flat = self.finish_inputs(
+            [lv[None] for lv in levels], yx_level[None], octave[None])
+        ang, desc = finish_cuda.orient_brief(flat_raw, flat_blur, yx_flat)
+        return Keypoints(
+            xy=torch.as_tensor(np.concatenate(xy0), device=dev),
+            response=torch.as_tensor(np.concatenate(resp), device=dev),
+            octave=octave, angle=ang, desc=desc,
+            valid=torch.as_tensor(np.concatenate(valid), device=dev),
+            yx_level=yx_level,
+        )
 
     def _const(self, dev, name: str, make) -> torch.Tensor:
         """A static table made by ``make()`` on the host, cached per device

@@ -8,15 +8,14 @@ cropped size, resizes it to the network input and the targets to 1/8 of
 it (TARGET_DOWNSAMPLING), grey -> 3 channels, ImageNet normalization;
 optional binarization at 180 (load_images.py:38).
 
-The package reads images with the standard library alone (``read_png``:
-zlib and the five PNG row filters, 8-bit grey, grey+alpha, RGB and RGBA),
+The package reads images with ``io/png.py::read_png`` (imageio's arrays),
 and resizes uint8 images with ``resize_linear``: OpenCV's INTER_LINEAR
 geometry (half-pixel centres, edge pixels repeated, no antialiasing),
 computed in float64 and rounded half up. OpenCV computes in fixed point
 (11-bit weights), so a pixel may come out one grey level from cv2's (the
 JAX package resizes with cv2): ``tests/test_torch_train_data.py`` bounds
-it. JPEG decoding needs a package: the post-processing dataset's ``.jpg``
-network outputs are ROADMAP A14.
+it. JPEG decoding needs a decoder the port does not have yet: the
+post-processing dataset's ``.jpg`` network outputs are ROADMAP A14b.
 """
 
 from __future__ import annotations
@@ -24,87 +23,17 @@ from __future__ import annotations
 import json
 import os
 import queue as queue_mod
-import struct
 import threading
-import zlib
 from dataclasses import dataclass
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..io.png import read_png
 from ..models.introspection import IMAGENET_MEAN, IMAGENET_STD
 
 TARGET_DOWNSAMPLING = 8
 BINARIZE_THRESH = 180
-
-_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}     # colour type -> samples a pixel
-
-
-def _unfilter_row(ft: int, line: np.ndarray, prev: np.ndarray, bpp: int) -> np.ndarray:
-    """One PNG scanline without its filter (PNG spec, section 9)."""
-    if ft == 0:
-        return line.copy()
-    if ft == 1:                                 # Sub: a running sum per sample
-        out = np.empty_like(line)
-        for c in range(bpp):
-            out[c::bpp] = np.cumsum(line[c::bpp], dtype=np.uint8)
-        return out
-    if ft == 2:                                 # Up
-        return line + prev
-    if ft not in (3, 4):
-        raise ValueError(f"read_png: unknown filter type {ft}")
-    cur = bytearray(line.tobytes())
-    up = prev.tobytes()
-    for x in range(len(cur)):
-        a = cur[x - bpp] if x >= bpp else 0
-        b = up[x]
-        if ft == 3:                             # Average
-            pred = (a + b) >> 1
-        else:                                   # Paeth
-            c = up[x - bpp] if x >= bpp else 0
-            p = a + b - c
-            pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-            pred = a if pa <= pb and pa <= pc else b if pb <= pc else c
-        cur[x] = (cur[x] + pred) & 0xFF
-    return np.frombuffer(bytes(cur), np.uint8)
-
-
-def read_png(path: str) -> np.ndarray:
-    """An 8-bit, non-interlaced PNG -> (H, W) uint8 for grey, else
-    (H, W, C) (grey+alpha, RGB, RGBA): imageio's arrays."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:8] != _PNG_SIGNATURE:
-        raise ValueError(f"read_png: {path} is not a PNG file")
-    pos, idat, hdr = 8, [], None
-    while pos + 8 <= len(data):
-        (n,) = struct.unpack(">I", data[pos:pos + 4])
-        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
-        pos += 12 + n
-        if tag == b"IHDR":
-            hdr = struct.unpack(">IIBBBBB", body)
-        elif tag == b"IDAT":
-            idat.append(body)
-        elif tag == b"IEND":
-            break
-    if hdr is None:
-        raise ValueError(f"read_png: {path} has no IHDR chunk")
-    w, h, depth, ctype, _comp, _filt, interlace = hdr
-    if depth != 8 or ctype not in _PNG_CHANNELS or interlace != 0:
-        raise NotImplementedError(
-            f"read_png: {path}: bit depth {depth}, colour type {ctype}, interlace "
-            f"{interlace}; only 8-bit non-interlaced grey, grey+alpha, RGB and RGBA "
-            "are read")
-    bpp = _PNG_CHANNELS[ctype]
-    stride = w * bpp
-    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)[:h * (stride + 1)]
-    rows = rows.reshape(h, stride + 1)
-    out = np.empty((h, stride), np.uint8)
-    prev = np.zeros(stride, np.uint8)
-    for y in range(h):
-        prev = out[y] = _unfilter_row(int(rows[y, 0]), rows[y, 1:], prev, bpp)
-    return out.reshape(h, w) if bpp == 1 else out.reshape(h, w, bpp)
 
 
 def _linear_taps(src: int, dst: int):
@@ -301,7 +230,7 @@ class ImageQualityDatasetPP:
             # the reference stores network outputs as .jpg
             raise NotImplementedError(
                 f"{net_path} is missing and its .jpg form needs a JPEG decoder, which "
-                "the port does not have yet (ROADMAP A14)")
+                "the port does not have yet (ROADMAP A14b)")
         net = read_png(net_path)
         if net.ndim == 3:
             net = net[..., 0]

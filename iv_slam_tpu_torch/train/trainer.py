@@ -79,6 +79,14 @@ def build_net(cfg: TrainConfig) -> torch.nn.Module:
                              cfg.regression_mode)
 
 
+def load_snapshot(net: torch.nn.Module, path: str, device) -> int:
+    """The weights and BatchNorm statistics of the snapshot at `path` into
+    `net` (on `device`); returns the snapshot's step."""
+    snap = torch.load(path, map_location=device)
+    net.load_state_dict(snap["model"])
+    return int(snap["step"])
+
+
 def _mean(losses) -> float:
     """The float64 mean of 0-d loss tensors (one download), NaN for none."""
     if not losses:
@@ -151,9 +159,7 @@ class Trainer:
         optimizer's state, as the reference), and the history when it is
         there."""
         path = os.path.abspath(path)
-        snap = torch.load(path, map_location=self.device)
-        self.net.load_state_dict(snap["model"])
-        self.state.step = int(snap["step"])
+        self.state.step = load_snapshot(self.net, path, self.device)
         hist = path + ".history.json"
         if os.path.exists(hist):
             with open(hist) as f:

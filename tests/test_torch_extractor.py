@@ -103,10 +103,17 @@ def test_layouts_match_jax():
 
 
 def test_unported_paths_raise():
+    """The quadtree path, once refused (A14), is ported: it gives a full
+    keypoint bundle (its parity with JAX is tests/test_torch_octtree.py).
+    An unknown selection path still raises."""
     tx = text.OrbExtractor(ORBConfig(n_features=300, n_levels=4), 120, 160)
     img = torch.from_numpy(_texture(1, 120, 160))
-    with pytest.raises(NotImplementedError, match="A14"):
-        tx.extract_octtree(img)
+    kp = tx.extract_octtree(img)
+    assert tuple(kp.desc.shape) == (tx.capacity, 32) and int(kp.valid.sum()) > 0
+    bad = text.OrbExtractor(ORBConfig(n_features=300, n_levels=4, select_path="grid"),
+                            120, 160)
+    with pytest.raises(ValueError, match="select_path"):
+        bad(img)
 
 
 # ---- top-k and introspection-weighted selection ----------------------------
