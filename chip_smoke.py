@@ -60,8 +60,10 @@ It drives the port only (no JAX, nothing of ``iv_slam_tpu``):
      port (k=10, L=6, seed 0) on the descriptors of every third frame;
      K1-K3 held bit for bit against their plain versions on the inputs of
      LC-world frames 0 and 120 (320x240, levels down to 89x67) and FAST on
-     noise at 320x240, before the runs; (a) 240 frames without a vocabulary, the control, and (b) 240 frames with
-     it attached and use_bow and loop closing on, each failing on a lost
+     noise at 320x240, before the runs; (a) the first 60 frames without a
+     vocabulary, the control (beside (b)'s ATE over the same frames), and
+     (b) 240 frames with it attached and use_bow and loop closing on, each
+     failing on a lost
      frame, an ATE above 0.5 m or a cap overflow, K1-K3 counted; the first
      60 frames of (b) again on the CPU path (the same keyframes, points,
      observations, keyframe database and loop-closing state, poses within
@@ -137,19 +139,36 @@ It drives the port only (no JAX, nothing of ``iv_slam_tpu``):
      KITTI frame, card against CPU path, K1 and K2 launched once; (f)
      evaluate_batch over (b)'s and (d)'s outputs, its ATE equal to
      stats.json's;
- 12. from torch.profiler, after every phase that times the host: each
+ 12. the product's claims (tests/torch_claims.py, the JAX package's four
+     end-to-end checks with their inputs and gates), K1-K3 first held bit
+     for bit against their plain versions on the inputs of the IV world's
+     first frame (320x240, 4 levels), every run counting K1-K3 once a
+     frame: (a) the IV cycle of tests/test_introspection_helps.py on its
+     pinned case (ReflectionWorld seed 5: the vanilla run, datagen, the
+     flagship FCN trained 12 epochs at 240x320, the band response of its
+     cost map, the introspective run on the same pixels; ATE ON < 0.90
+     OFF, band response >= 50/255 and the test's other gates); (b) the C++
+     oracle of tests/test_parity_ate.py (seqA written by the port, the
+     port's vocabulary, run_stereo classic and single-threaded: ATE <=
+     1.05 x 0.2485 m, 0 failures, keyframes beside the reference's 6; and
+     with --fused_tracking, ungated); (c) tests/test_full_cycle.py; (d)
+     tests/test_kitti_e2e.py (run_stereo at 1241x376, everything on). A
+     gate that the JAX package misses too on the same pixels
+     (torch_claims.JAX_MISSES) is left to claims_smoke.py, which also runs
+     the three robustness IV cases and seqB;
+ 13. from torch.profiler, after every phase that times the host: each
      kernel's device time, the tracking step's device time and kernel
      launches, a profile of whole frames, one keyframe event (device ms,
      launches, host syncs), and the FCN's and a weighted frame's device
      time and launches;
- 13. prints one {"tracking": {...}} line, one {"full_loop": {...}} line, one
+ 14. prints one {"tracking": {...}} line, one {"full_loop": {...}} line, one
      {"introspection": {...}} line, one {"loop_closing": {...}} line, one
      {"mono_rgbd": {...}} line, one {"datagen": {...}} line, one
      {"training": {...}} line, one {"drivers": {...}} line, one
-     {"kernels": [...]} line (with each kernel's launches on the
-     introspection, loop-closing, mono, RGB-D, datagen, replay,
-     sharded-datagen, run_stereo, run_mono, run_rgbd and extract_octtree
-     runs too) and, last, the status line.
+     {"claims": {...}} line, one {"kernels": [...]} line (with each
+     kernel's launches on the introspection, loop-closing, mono, RGB-D,
+     datagen, replay, sharded-datagen, run_stereo, run_mono, run_rgbd,
+     extract_octtree and claims runs too) and, last, the status line.
 
 A phase that fails is reported and the script exits 1 without a result.
 With no CUDA device, or run outside a checkout, it exits 2 at once.
@@ -199,6 +218,10 @@ N_INTRO_FRAMES = 10
 # loop closing: bench.py's LC world (bench.py:378-413) and configuration
 # (bench.py:463-471), frames of each run, frames held card against CPU
 N_LC, N_LC_CPU = 240, 60
+# frames of the control run (a), without a vocabulary: the first N_LC_CPU
+# (240 until the claims phase needed the time; no loop closes on this
+# world, and the control stands beside run (b)'s first N_LC_CPU frames)
+N_LC_CONTROL = N_LC_CPU
 LC_H, LC_W = 240, 320
 LC_POSE_ATOL = 2e-3     # card vs CPU path over N_LC_CPU frames (translation m, rotation)
 
@@ -256,6 +279,11 @@ ZOO_LOSS_RTOL, ZOO_UPDATE_RTOL = 1e-8, 1e-6
 N_RECT, N_DRV_MR = 20, 30
 OCT_ANGLE_TOL = 5e-3
 EVAL_ATE_ATOL = 1e-6
+
+# the product's claims (phase 12, tests/torch_claims.py): the pinned IV
+# case of tests/test_introspection_helps.py; its three robustness cases and
+# seqB run in claims_smoke.py
+CLAIMS_CASE = "reflection-seed5"
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, and the float32
 # rate outside the tensor cores, used for these kernels' 32-bit scalar ops
@@ -445,6 +473,7 @@ class Smoke:
         self.dg = None
         self.tr = None
         self.drv = None
+        self.cl = None
 
     def phase(self, name, fn, *args):
         t0 = time.perf_counter()
@@ -1622,23 +1651,27 @@ class Smoke:
             twc=np.stack(tr.trajectory_poses()))
 
     def lc_loops(self):
-        """(a) the control run, no vocabulary; (b) the vocabulary attached
-        and loop closing on. Each fails on a lost frame, an ATE above 0.5 m
-        or a cap overflow; K1-K3 are counted over each run."""
+        """(a) the control run, no vocabulary, over the first N_LC_CONTROL
+        frames; (b) the vocabulary attached and loop closing on, all N_LC
+        frames, with its ATE over the control's frames beside. Each fails on
+        a lost frame, an ATE above 0.5 m or a cap overflow; K1-K3 are
+        counted over each run."""
         port, lc = self.port, self.lc
+        ate_rmse = port["trajectory"].ate_rmse
         lc.runs = {}
-        for name, voc in (("a_control", None), ("b_loop_closing", lc.voc)):
+        for name, voc, n in (("a_control", None, N_LC_CONTROL),
+                             ("b_loop_closing", lc.voc, N_LC)):
             for m in self.counters().values():
                 m.launches = 0
             s, fps, snap, timer = self._lc_drive(
-                voc, snapshot_at=N_LC_CPU if voc is not None else None)
+                voc, n=n, snapshot_at=N_LC_CPU if voc is not None else None)
             launches = {k: m.launches for k, m in self.counters().items()}
             tr = s.tracking
             est = s.trajectory_twc()
-            ate = port["trajectory"].ate_rmse(est, lc.gt[-len(est):])
+            ate = ate_rmse(est, lc.gt[:n][-len(est):])
             lm, m = tr.local_mapping, tr.map
             loop_c = getattr(tr, "loop_closing", None)
-            run = dict(frames=N_LC, fps=fps, ate_m=ate, lost_frames=int(sum(tr.lost_flags)),
+            run = dict(frames=n, fps=fps, ate_m=ate, lost_frames=int(sum(tr.lost_flags)),
                        failures=int(s.failure_count), keyframes=int(m.n_keyframes),
                        map_points=int(m.n_points),
                        map_points_alive=int(m.pt_alive[:m.n_points].sum()),
@@ -1654,15 +1687,19 @@ class Smoke:
             lc.runs[name] = run
             if voc is not None:
                 lc.snap_card = snap
+                twc = list(snap["twc"])
+                run["ate_m_control_frames"] = ate_rmse(twc, lc.gt[:N_LC_CONTROL][-len(twc):])
                 for k, v in launches.items():
                     self.kernels[k]["launches_loop_closing"] = v
-            print(f"loop closing ({name}): {N_LC} frames, {run['fps']:.3f} frames/s, ATE "
-                  f"{ate:.4f} m, {run['lost_frames']} lost, {run['keyframes']} keyframes, "
+            print(f"loop closing ({name}): {n} frames, {run['fps']:.3f} frames/s, ATE "
+                  f"{ate:.4f} m (over the first {N_LC_CONTROL} frames "
+                  f"{run.get('ate_m_control_frames', ate):.4f} m), {run['lost_frames']} lost, "
+                  f"{run['keyframes']} keyframes, "
                   f"{run['map_points']} map points, loops closed {run['lc_loops_closed']}, "
                   f"K1-K3 launches {launches}; host ms (median) "
                   f"{json.dumps(run['host_ms_median'])}; LC stage calls "
                   f"{run['lc_stage_calls']}; overflows {run['cap_overflows']}")
-            want = {k: N_LC for k in launches}
+            want = {k: n for k in launches}
             require(launches == want, f"{name}: launch counts {launches} != {want}")
             require(run["lost_frames"] == 0 and s.failure_count == 0,
                     f"{name}: {run['lost_frames']} lost frames, {s.failure_count} failures")
@@ -3094,6 +3131,166 @@ class Smoke:
         require(abs(got - want) <= EVAL_ATE_ATOL, f"ATE {got} != stats.json's {want}")
 
 
+    # ---- phase 12: the product's claims --------------------------------------
+    def cl_setup(self):
+        """The claims' helper (tests/torch_claims.py), a work directory, and
+        K1-K3 held bit for bit against their plain versions on the inputs
+        that the pinned IV world's first eval frame hands each wrapper
+        (320x240, 4 levels, 600 features) and FAST on noise at 320x240."""
+        import tempfile
+
+        sys.path.insert(0, os.path.join(HERE, "tests"))
+        import torch_claims as tc
+
+        self.cl = SimpleNamespace(tc=tc, work=tempfile.mkdtemp(prefix="chip_smoke_claims_"),
+                                  out={}, launches={k: 0 for k in self.counters()})
+        (pair,), _ = tc.make_frames(tc.iv_world(CLAIMS_CASE), 1, tc.STEP)
+        fe = self.port["frame"].StereoFrontend(tc.iv_config(), tc.H, tc.W)
+        rec = self.record_inputs(lambda: fe.process(*pair, 0.0))
+        print(f"claims, K1-K3 on the inputs of {CLAIMS_CASE}'s first eval frame:")
+        errs = {"fast_score": self.check_fast(rec, noise_hw=(tc.H, tc.W), main=False),
+                "orient_brief": self.check_orient_brief(rec, main=False),
+                "sad_windows": self.check_sad(rec, main=False)}
+        self.cl.out["kernels_at_claims_shapes"] = dict(max_abs_err=errs, bit_equal=True)
+        for name, e in errs.items():
+            self.kernels[name]["max_abs_err"] = max(self.kernels[name]["max_abs_err"], e)
+
+    def _cl_check(self, key, res, runs):
+        """Count the K1-K3 launches of `res`'s sub-results `runs` (None: res
+        itself) into the claims' total, and require every gate of `res`
+        (K1-K3 once a frame among them) but those that the JAX package
+        misses too (torch_claims.JAX_MISSES)."""
+        tc = self.cl.tc
+        for name in runs:
+            for k, n in (res[name] if name else res)["launches"].items():
+                self.cl.launches[k] += n
+        missed = tc.JAX_MISSES.get(key, ())
+        bad = [g for g in tc.failed(res) if g not in missed]
+        res["gates_left_to_claims_smoke"] = [g for g in tc.failed(res) if g in missed]
+        require(not bad, f"{key}: " + "; ".join(
+            f"{g} ({json.dumps(res['gates'][g][1], default=float)})" for g in bad))
+
+    def cl_iv(self):
+        """(a) The IV cycle of tests/test_introspection_helps.py on the pinned
+        case, on the card: OFF on 40 eval frames, datagen on 60 training
+        frames, the flagship FCN trained 12 epochs at 240x320, the band
+        response, ON on the same eval pixels; the JAX test's gates (ATE OFF
+        above 0.15 m, heat in > 1.5 out, >= 4 samples, band response >=
+        50/255, fails ON <= OFF, ATE ON < 0.90 OFF), K1-K3 once a frame."""
+        cl = self.cl
+        res = cl.tc.iv_case(CLAIMS_CASE, os.path.join(cl.work, "iv"), None)
+        cl.out["iv"] = res
+        if "on" in res:
+            print(f"claims (a) {CLAIMS_CASE}: ATE OFF {res['off']['ate_m']:.4f} m -> ON "
+                  f"{res['on']['ate_m']:.4f} m (gate ON < {res['margin']} OFF), failures "
+                  f"{res['off']['failures']} -> {res['on']['failures']}; heat in/out "
+                  f"{res['heat_in']:.2f}/{res['heat_out']:.2f}; band response "
+                  f"{res['band_response']:.2f}/255 (gate {res['band_gate']}); {res['dataset']} "
+                  f"samples; OFF {res['off']['frames_per_s']:.3f}, datagen "
+                  f"{res['datagen']['frames_per_s']:.3f}, ON {res['on']['frames_per_s']:.3f} "
+                  f"frames/s, training {res['train']['seconds']:.1f} s; frames sha1 "
+                  f"{res['frames_sha1'][:16]}")
+        self._cl_check("iv_case", res, [k for k in ("off", "datagen", "on") if k in res])
+
+    def cl_oracle(self):
+        """(b) The C++ oracle (tools/parity_reference.py's protocol) on seqA:
+        its KITTI layout written by the port, the vocabulary trained by the
+        port (k=9, L=4 on every 4th frame), run_stereo in process with the
+        tool's flags (classic tracking, single-threaded, the vocabulary
+        attached): ATE <= 1.05 x 0.2485 m, 0 failures, keyframes printed
+        beside the reference's 6; again with --fused_tracking (ungated)."""
+        cl, tc = self.cl, self.cl.tc
+        digests = json.loads(tc.write_sequences(cl.work, ["seqA"]))
+        voc = tc.train_vocab(cl.work, None)
+        classic = tc.oracle(cl.work, "seqA", None)
+        fused = tc.oracle(cl.work, "seqA", None, fused=True)
+        cl.out["oracle"] = dict(classic=classic, fused=fused, vocabulary=voc,
+                                frames_sha1=digests["seqA"])
+        print(f"claims (b) oracle seqA: classic ATE {classic['ate_m']:.4f} m (reference C++ "
+              f"{tc.REF_ATE['seqA']} m, gate {classic['gate_m']:.4f} m), {classic['failures']} "
+              f"failures, {classic['keyframes']} keyframes (reference "
+              f"{tc.REF_KEYFRAMES_SEQA}), {classic['frames_per_s']:.3f} frames/s; fused ATE "
+              f"{fused['ate_m']:.4f} m, {fused['failures']} failures, {fused['keyframes']} "
+              f"keyframes, {fused['frames_per_s']:.3f} frames/s; vocabulary "
+              f"{voc['nodes']} nodes from {voc['descriptors']} descriptors; frames sha1 "
+              f"{digests['seqA'][:16]}")
+        for k, n in voc["launches"].items():
+            cl.launches[k] += n
+        require(voc["launches"] == {"fast_score": voc["images"], "orient_brief": voc["images"],
+                                    "sad_windows": 0}, f"vocabulary launches {voc['launches']}")
+        self._cl_check("oracle", classic, [None])
+        self._cl_check("oracle_fused", fused, [None])
+
+    def cl_cycle(self):
+        """(c) tests/test_full_cycle.py on the card: datagen on 12 frames,
+        2 epochs, 8 frames with the trained FCN at net_hw 256x256."""
+        cl = self.cl
+        res = cl.tc.full_cycle(os.path.join(cl.work, "cycle"), None)
+        cl.out["full_cycle"] = res
+        q = res.get("quality", {})
+        print(f"claims (c) whole cycle: {res['heatmaps']} heatmaps, {res['dataset']} samples, "
+              f"train losses {res.get('train', {}).get('train_loss')}, ON "
+              f"{res.get('on', {}).get('failures')} failures; keypoint quality "
+              f"{q.get('not_one')} of {q.get('n')} below 1 (min {q.get('min')}); gates "
+              f"failed {cl.tc.failed(res)}; frames sha1 {res['frames_sha1'][:16]}")
+        self._cl_check("full_cycle", res, [k for k in ("datagen", "on") if k in res])
+
+    def cl_kitti(self):
+        """(d) tests/test_kitti_e2e.py on the card: run_stereo at KITTI-00
+        geometry with fused tracking, introspection, datagen and a k=8 L=3
+        vocabulary at once; the JAX test's asserts."""
+        cl = self.cl
+        res = cl.tc.kitti_all_on(os.path.join(cl.work, "kitti"), None)
+        cl.out["kitti_all_on"] = res
+        print(f"claims (d) KITTI all on: {res['frames']} frames, {res['failures']} failures, "
+              f"ATE {res['ate_m']:.4f} m, {res['frames_per_s']:.3f} frames/s; "
+              f"{res['keypoints']} scored keypoints, {res['training_images']} training "
+              f"images, {res['heatmaps']} heatmaps; gates failed {cl.tc.failed(res)}; frames "
+              f"sha1 {res['frames_sha1'][:16]}")
+        self._cl_check("kitti_all_on", res, [None])
+
+    def claims_line(self):
+        """The numbers of the {"claims": ...} line."""
+        o = self.cl.out
+        iv, orc, cyc, kit = o["iv"], o["oracle"], o["full_cycle"], o["kitti_all_on"]
+
+        def rate(r):
+            return dict(frames_per_s=r["frames_per_s"], seconds=r["seconds"])
+
+        return {
+            "iv_case": dict(case=iv["case"], ate_off_m=iv["off"]["ate_m"],
+                            ate_on_m=iv["on"]["ate_m"], fails_off=iv["off"]["failures"],
+                            fails_on=iv["on"]["failures"], heat_in=iv["heat_in"],
+                            heat_out=iv["heat_out"], band_response=iv["band_response"],
+                            band_gate=iv["band_gate"], margin=iv["margin"],
+                            dataset=iv["dataset"], heatmaps=iv["heatmaps"],
+                            off=rate(iv["off"]), datagen=rate(iv["datagen"]), on=rate(iv["on"]),
+                            train_s=iv["train"]["seconds"], frames_sha1=iv["frames_sha1"]),
+            "oracle_seqA": dict(ate_m=orc["classic"]["ate_m"],
+                                reference_ate_m=orc["classic"]["reference_ate_m"],
+                                gate_m=orc["classic"]["gate_m"],
+                                failures=orc["classic"]["failures"],
+                                keyframes=orc["classic"]["keyframes"],
+                                reference_keyframes=self.cl.tc.REF_KEYFRAMES_SEQA,
+                                classic=rate(orc["classic"]), fused_ate_m=orc["fused"]["ate_m"],
+                                fused_failures=orc["fused"]["failures"],
+                                fused_keyframes=orc["fused"]["keyframes"],
+                                fused=rate(orc["fused"]), frames_sha1=orc["frames_sha1"]),
+            "full_cycle": dict(heatmaps=cyc["heatmaps"], dataset=cyc["dataset"],
+                               train_loss=cyc["train"]["train_loss"],
+                               on_failures=cyc["on"]["failures"], quality=cyc["quality"],
+                               gates_left_to_claims_smoke=cyc["gates_left_to_claims_smoke"],
+                               datagen=rate(cyc["datagen"]), on=rate(cyc["on"]),
+                               train_s=cyc["train"]["seconds"], frames_sha1=cyc["frames_sha1"]),
+            "kitti_all_on": dict(frames=kit["frames"], failures=kit["failures"],
+                                 ate_m=kit["ate_m"], keypoints=kit["keypoints"],
+                                 training_images=kit["training_images"],
+                                 heatmaps=kit["heatmaps"],
+                                 gates_left_to_claims_smoke=kit["gates_left_to_claims_smoke"],
+                                 **rate(kit), frames_sha1=kit["frames_sha1"]),
+            "launches": self.cl.launches}
+
+
 def dp_rank_main(rank, world, port_no, work):
     """A rank of phase 10 (g): joins the gloo group on card 0, loads the
     weights and the batch, takes one step on its half, and rank 0 saves the
@@ -3297,6 +3494,17 @@ def main() -> int:
             smoke.failures.append(f"{name}: skipped, an earlier phase failed")
         else:
             smoke.phase(name, fn)
+    # phase 12: the product's claims, also before any profiling; each run
+    # stands alone
+    for name, fn in (("claims setup", smoke.cl_setup),
+                     (f"claims (a) IV cycle, {CLAIMS_CASE}", smoke.cl_iv),
+                     ("claims (b) C++ oracle, seqA", smoke.cl_oracle),
+                     ("claims (c) whole cycle", smoke.cl_cycle),
+                     ("claims (d) KITTI all on", smoke.cl_kitti)):
+        if len(smoke.kernels) != 3 or smoke.cl is None and fn != smoke.cl_setup:
+            smoke.failures.append(f"{name}: skipped, an earlier phase failed")
+        else:
+            smoke.phase(name, fn)
     if len(smoke.kernels) == 3:
         smoke.phase("kernel device times", smoke.device_times)
     if smoke.trk is not None and smoke.trk.record is not None:
@@ -3312,6 +3520,8 @@ def main() -> int:
     if smoke.failures:
         print("\n".join(["FAILED"] + smoke.failures))
         return 1
+    for name, n in smoke.cl.launches.items():
+        smoke.kernels[name]["launches_claims"] = n
     for k in smoke.kernels.values():
         print(f"{k['name']}: max abs err {k['max_abs_err']}, {k['launches']} launches, "
               f"device {k['ms']:.4f} ms/frame (events {k['event_ms']:.4f}), plain "
@@ -3323,13 +3533,14 @@ def main() -> int:
               f"runs, {k['launches_replay']} on the replay, {k['launches_sharded_datagen']} on "
               f"the sharded datagen, {k['launches_run_stereo']} on run_stereo, "
               f"{k['launches_run_mono']} on run_mono, {k['launches_run_rgbd']} on run_rgbd, "
-              f"{k['launches_octree']} on extract_octtree, on {card}")
+              f"{k['launches_octree']} on extract_octtree, {k['launches_claims']} on the "
+              f"claims runs, on {card}")
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms", "event_ms", "plain_event_ms",
              "launches_introspection", "launches_loop_closing", "launches_mono",
              "launches_rgbd", "launches_datagen", "launches_replay",
              "launches_sharded_datagen", "launches_run_stereo", "launches_run_mono",
-             "launches_run_rgbd", "launches_octree")
+             "launches_run_rgbd", "launches_octree", "launches_claims")
     kernels = [{k: smoke.kernels[n][k] for k in order}
                for n in ("fast_score", "orient_brief", "sad_windows")]
     print(json.dumps({"frontend": smoke.fps,
@@ -3346,6 +3557,7 @@ def main() -> int:
     print(json.dumps({"datagen": dict(smoke.dg.out, card=card)}, default=float))
     print(json.dumps({"training": dict(smoke.tr.out, card=card)}, default=float))
     print(json.dumps({"drivers": dict(smoke.drv.out, card=card)}, default=float))
+    print(json.dumps({"claims": dict(smoke.claims_line(), card=card)}, default=float))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -117,8 +117,13 @@ def test_png_errors(tmp_path):
     data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])) & 0xFFFFFFFF)
     with open(path, "wb") as f:
         f.write(data)
-    with pytest.raises(NotImplementedError, match="interlaced"):
+    with pytest.raises(ValueError, match="ends early"):   # Adam7 needs more rows
         png.read_png(path)
+    data[24:26] = bytes([16, 3])    # a 16-bit palette, which the format does not define
+    data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])) & 0xFFFFFFFF)
+    (tmp_path / "d.png").write_bytes(bytes(data))
+    with pytest.raises(NotImplementedError, match="bit depth 16, colour type 3"):
+        png.read_png(str(tmp_path / "d.png"))
     (tmp_path / "n.png").write_bytes(b"not a png")
     with pytest.raises(ValueError, match="not a PNG"):
         png.read_png(str(tmp_path / "n.png"))
@@ -126,6 +131,167 @@ def test_png_errors(tmp_path):
         datasets.load_gray(str(tmp_path / "missing.png"))
     with pytest.raises(ValueError, match="filter type 5"):
         png.unfilter(np.array([[5, 1, 2]], np.uint8), 1)
+
+
+def _chunk(tag, body):
+    return struct.pack(">I", len(body)) + tag + body + struct.pack(
+        ">I", zlib.crc32(tag + body) & 0xFFFFFFFF)
+
+
+def _gama(g):
+    return _chunk(b"gAMA", struct.pack(">I", g))
+
+
+SRGB = _chunk(b"sRGB", b"\x00")
+
+
+def _png_bytes(samples, ctype, depth, interlace=0, before=b"", plte=None, ft=4, after=b""):
+    """A PNG of (h, w, c) `samples` written by hand: chunks `before` ahead of
+    PLTE and IDAT and `after` behind IDAT, Adam7 passes (an empty pass
+    writes nothing) when `interlace`, every row under filter `ft`."""
+    h, w, ch = samples.shape
+    parts = []
+    for x0, y0, dx, dy in png.ADAM7 if interlace else ((0, 0, 1, 1),):
+        sub = samples[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        if depth == 16:
+            px = np.ascontiguousarray(sub.astype(">u2")).view(np.uint8).reshape(sub.shape[0], -1)
+        else:
+            v = sub.reshape(sub.shape[0], -1)
+            bits = (v[..., None] >> np.arange(depth - 1, -1, -1)) & 1
+            px = np.packbits(bits.astype(np.uint8).reshape(v.shape[0], -1), axis=1)
+        rows = png._filter(px, ft, max(1, ch * depth // 8))
+        parts.append(np.concatenate([np.full((px.shape[0], 1), ft, np.uint8), rows], 1))
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, interlace)
+    body = b"".join(p.tobytes() for p in parts)
+    return (png.SIGNATURE + _chunk(b"IHDR", ihdr) + before
+            + (b"" if plte is None else _chunk(b"PLTE", plte.tobytes()))
+            + _chunk(b"IDAT", zlib.compress(body)) + after + _chunk(b"IEND", b""))
+
+
+def _samples(rng, ctype, depth, h=40, w=60):
+    """Random samples of a colour type and depth, some colour pixels grey;
+    with a palette (colour type 3) of 2**depth random entries."""
+    ch = png.CHANNELS[ctype]
+    img = rng.integers(0, 1 << depth, (h, w, ch)).astype(np.uint16 if depth == 16 else np.uint8)
+    if ch >= 3:
+        img[::7, ::5, 1:3] = img[::7, ::5, :1]
+    plte = None
+    if ctype == 3:
+        plte = rng.integers(0, 256, (1 << depth, 3), dtype=np.uint8)
+        plte[::4, 1:] = plte[::4, :1]
+    return img, plte
+
+
+def _check_bytes(tmp_path, data):
+    """The port's two modes on the file `data` against imageio and cv2."""
+    path = str(tmp_path / "c.png")
+    with open(path, "wb") as f:
+        f.write(data)
+    _check_read(path)
+    return path
+
+
+FILE_GAMMAS = {"none": b"", "gAMA45455": _gama(45455), "gAMA94000": _gama(94000),
+               "gAMA96000": _gama(96000), "gAMA100000": _gama(100000),
+               "gAMA220000": _gama(220000), "sRGB": SRGB}
+
+
+@pytest.mark.parametrize("chunk", list(FILE_GAMMAS))
+@pytest.mark.parametrize("ctype,depth", [(2, 8), (2, 16), (3, 8), (6, 8), (6, 16)])
+def test_png_gamma_gray(tmp_path, ctype, depth, chunk):
+    """Colour files with a file gamma or none: the grey equals cv2's
+    IMREAD_GRAYSCALE exactly (libpng converts in linear light when the
+    gamma is significant: 0.05 or more from 1.0), the unchanged image
+    imageio's (which ignores the gamma)."""
+    img, plte = _samples(np.random.default_rng(ctype * 100 + depth), ctype, depth)
+    path = _check_bytes(tmp_path, _png_bytes(img, ctype, depth, before=FILE_GAMMAS[chunk],
+                                             plte=plte))
+    plain = png.decode_png(_png_bytes(img, ctype, depth, plte=plte), "gray")
+    moved = int((png.read_png(path, "gray") != plain).sum())
+    if chunk in ("gAMA45455", "gAMA94000", "gAMA220000", "sRGB"):
+        assert moved > img.shape[0] * img.shape[1] // 2, moved
+    else:
+        assert moved == 0, moved
+
+
+def _icc_profile():
+    from PIL import ImageCms
+
+    prof = ImageCms.ImageCmsProfile(ImageCms.createProfile("sRGB")).tobytes()
+    return _chunk(b"iCCP", b"sRGB\x00\x00" + zlib.compress(prof))
+
+
+def _chrm(*xy):
+    return _chunk(b"cHRM", b"".join(struct.pack(">I", round(v * 100000)) for v in xy))
+
+
+CHUNK_RULES = {
+    # sRGB wins over gAMA, whichever comes first
+    "sRGB_then_gAMA1.0": (SRGB + _gama(100000), b"", 45455),
+    "gAMA1.0_then_sRGB": (_gama(100000) + SRGB, b"", 45455),
+    # the first gAMA wins; one of 2**31 or more is not read, and one whose
+    # reciprocal leaves 32 bits (1) is libpng's edge case
+    "gAMA_twice": (_gama(100000) + _gama(45455), b"", 0),
+    "gAMA_2**31": (_gama(2 ** 31), b"", 0),
+    "gAMA_1": (_gama(1), b"", 1),
+    # gAMA and sRGB count only ahead of PLTE and IDAT
+    "gAMA_after_IDAT": (b"", _gama(45455), 0),
+    "sRGB_after_IDAT": (b"", SRGB, 0),
+    # cHRM, iCCP and cICP leave the grey alone
+    "cHRM": (_chrm(0.3457, 0.3585, 0.7347, 0.2653, 0.1596, 0.8404, 0.0366, 0.0001), b"", 0),
+    "iCCP": ("icc", b"", 0),
+    "cICP": (_chunk(b"cICP", bytes([1, 8, 0, 1])), b"", 0),
+    "gAMA_and_cICP": (_gama(45455) + _chunk(b"cICP", bytes([1, 8, 0, 1])), b"", 45455),
+    # 16-bit tables keep the top 16 - max(sBIT) bits (at most 11, at least 8)
+    "sBIT10": (_chunk(b"sBIT", bytes([10, 9, 7])) + _gama(45455), b"", 45455),
+    "sBIT4": (_chunk(b"sBIT", bytes([4, 4, 4])) + _gama(45455), b"", 45455),
+}
+
+
+@pytest.mark.parametrize("rule", list(CHUNK_RULES))
+def test_png_gamma_chunk_rules(tmp_path, rule):
+    """Which chunk sets the file gamma, as cv2 (libpng) reads it: 16-bit
+    RGB, grey through the port equal to cv2's; the gamma it implies."""
+    before, after, gamma = CHUNK_RULES[rule]
+    before = _icc_profile() if before == "icc" else before
+    img, _ = _samples(np.random.default_rng(7), 2, 16)
+    path = _check_bytes(tmp_path, _png_bytes(img, 2, 16, before=before, after=after))
+    bits = {"sBIT10": 10, "sBIT4": 4}.get(rule, 0)
+    want = (png._to_gray(img, 16, gamma, bits) >> 8).astype(np.uint8)
+    np.testing.assert_array_equal(png.read_png(path, "gray"), want)
+
+
+DEPTHS = [(0, 1), (0, 2), (0, 4), (0, 8), (0, 16), (2, 8), (2, 16), (3, 1), (3, 2), (3, 4),
+          (3, 8), (4, 8), (4, 16), (6, 8), (6, 16)]
+
+
+@pytest.mark.parametrize("hw", [(3, 5), (13, 18)], ids=lambda hw: f"{hw[0]}x{hw[1]}")
+@pytest.mark.parametrize("ctype,depth", DEPTHS)
+def test_png_adam7(tmp_path, ctype, depth, hw):
+    """Adam7-interlaced files (written by hand: neither cv2 nor PIL writes
+    them) of every colour type and depth, at 3x5 (several passes empty) and
+    13x18: equal to cv2's grey and imageio's image, and to the same image
+    not interlaced."""
+    img, plte = _samples(np.random.default_rng(depth * 10 + ctype), ctype, depth, *hw)
+    before = _gama(45455) if ctype in (2, 3, 6) else b""
+    path = _check_bytes(tmp_path, _png_bytes(img, ctype, depth, 1, before, plte))
+    flat = _png_bytes(img, ctype, depth, 0, before, plte, ft=1)
+    for mode in ("gray", "unchanged"):
+        np.testing.assert_array_equal(png.read_png(path, mode), png.decode_png(flat, mode))
+
+
+@pytest.mark.parametrize("chunk", ["none", "gAMA45455"])
+@pytest.mark.parametrize("depth", [1, 2, 4])
+def test_png_sub_byte_gray(tmp_path, depth, chunk):
+    """1-, 2- and 4-bit grey: cv2 scales to 8 bits (x255, x85, x17, as
+    libpng's expand_gray_1_2_4_to_8), imageio gives bool for 1 bit and the
+    same scaled uint8 for 2 and 4; a gamma changes neither."""
+    img, _ = _samples(np.random.default_rng(depth), 0, depth, 21, 29)
+    path = _check_bytes(tmp_path, _png_bytes(img, 0, depth, before=FILE_GAMMAS[chunk]))
+    np.testing.assert_array_equal(png.read_png(path, "gray"),
+                                  img[..., 0] * (255 // ((1 << depth) - 1)))
 
 
 @pytest.mark.parametrize("bpp", [1, 2, 3, 4, 6, 8])
