@@ -60,12 +60,12 @@ It drives the port only (no JAX, nothing of ``iv_slam_tpu``):
      port (k=10, L=6, seed 0) on the descriptors of every third frame;
      K1-K3 held bit for bit against their plain versions on the inputs of
      LC-world frames 0 and 120 (320x240, levels down to 89x67) and FAST on
-     noise at 320x240, before the runs; (a) the first 60 frames without a
+     noise at 320x240, before the runs; (a) the first 30 frames without a
      vocabulary, the control (beside (b)'s ATE over the same frames), and
      (b) 240 frames with it attached and use_bow and loop closing on, each
      failing on a lost
      frame, an ATE above 0.5 m or a cap overflow, K1-K3 counted; the first
-     60 frames of (b) again on the CPU path (the same keyframes, points,
+     30 frames of (b) again on the CPU path (the same keyframes, points,
      observations, keyframe database and loop-closing state, poses within
      2e-3); the correction path (Sim3 RANSAC and LM, loop fuse, essential
      graph, deferred global BA) on a manufactured revisit, card against
@@ -131,9 +131,9 @@ It drives the port only (no JAX, nothing of ``iv_slam_tpu``):
      --profile_stages: 0 failures, ATE < 0.5 m, every output file, its
      Trajectory_KITTI_000.txt bit-equal to phase 5's in-memory trajectory,
      K1-K3 once a frame; (c) --rectify_images with identity LEFT./RIGHT.
-     blocks bit-identical to no rectification over 20 frames, and remap's
+     blocks bit-identical to no rectification over 12 frames, and remap's
      ms a pair at settings/EuRoC_stereo.yaml's maps, host and card (equal);
-     (d) run_mono and run_rgbd on 30 frames of phase 8's worlds written as
+     (d) run_mono and run_rgbd on 20 frames of phase 8's worlds written as
      TUM layouts (colour PNGs; 16-bit depth), each trajectory bit-equal to
      System in memory on the rendered frames; (e) extract_octtree on a
      KITTI frame, card against CPU path, K1 and K2 launched once; (f)
@@ -150,25 +150,41 @@ It drives the port only (no JAX, nothing of ``iv_slam_tpu``):
      OFF, band response >= 50/255 and the test's other gates); (b) the C++
      oracle of tests/test_parity_ate.py (seqA written by the port, the
      port's vocabulary, run_stereo classic and single-threaded: ATE <=
-     1.05 x 0.2485 m, 0 failures, keyframes beside the reference's 6; and
-     with --fused_tracking, ungated); (c) tests/test_full_cycle.py; (d)
+     1.05 x 0.2485 m, 0 failures, keyframes beside the reference's 6; the
+     --fused_tracking run is claims_smoke.py's); (c) tests/test_full_cycle.py; (d)
      tests/test_kitti_e2e.py (run_stereo at 1241x376, everything on). A
      gate that the JAX package misses too on the same pixels
      (torch_claims.JAX_MISSES) is left to claims_smoke.py, which also runs
      the three robustness IV cases and seqB;
- 13. from torch.profiler, after every phase that times the host: each
+ 13. the drawing half, on phase 11's KITTI layout: (a) run_stereo over its
+     first 30 frames without a viewer flag and with --enable_viewer
+     --live_viewer_port, while client threads read 5 MJPEG parts of
+     frame.mjpg and of map.mjpg (each decoded by the port's decoder to its
+     drawer's size) and POST a show_points toggle to /control: the two
+     trajectories bit-equal, 0 failures, K1-K3 once a frame; both runs'
+     frames/s, FrameDrawer's and MapDrawer's host ms and the encode ms of a
+     1241x376 frame and of the 800x800 map; (b) training-data generation
+     with --logging_level 1 over phase 9's first 10 ReflectionWorld frames
+     written as a KITTI layout: a debug .jpg in each supervised debug
+     directory for each qualifying frame (at least 3), each decoding, and
+     save_frame's ms; (c) the JPEG codec on every 4th pair of phase 11's frames (encode
+     at quality 95, decode, mean abs error within 3 grey levels), the ms a
+     pair, the C entropy coder's decode beside its plain Python version's
+     (bit-equal);
+ 14. from torch.profiler, after every phase that times the host: each
      kernel's device time, the tracking step's device time and kernel
      launches, a profile of whole frames, one keyframe event (device ms,
      launches, host syncs), and the FCN's and a weighted frame's device
      time and launches;
- 14. prints one {"tracking": {...}} line, one {"full_loop": {...}} line, one
+ 15. prints one {"tracking": {...}} line, one {"full_loop": {...}} line, one
      {"introspection": {...}} line, one {"loop_closing": {...}} line, one
      {"mono_rgbd": {...}} line, one {"datagen": {...}} line, one
      {"training": {...}} line, one {"drivers": {...}} line, one
-     {"claims": {...}} line, one {"kernels": [...]} line (with each
-     kernel's launches on the introspection, loop-closing, mono, RGB-D,
-     datagen, replay, sharded-datagen, run_stereo, run_mono, run_rgbd,
-     extract_octtree and claims runs too) and, last, the status line.
+     {"claims": {...}} line, one {"drawing": {...}} line, one {"kernels":
+     [...]} line (with each kernel's launches on the introspection,
+     loop-closing, mono, RGB-D, datagen, replay, sharded-datagen, run_stereo,
+     run_mono, run_rgbd, extract_octtree, claims and viewer runs too) and,
+     last, the status line.
 
 A phase that fails is reported and the script exits 1 without a result.
 With no CUDA device, or run outside a checkout, it exits 2 at once.
@@ -217,10 +233,11 @@ N_INTRO_FRAMES = 10
 
 # loop closing: bench.py's LC world (bench.py:378-413) and configuration
 # (bench.py:463-471), frames of each run, frames held card against CPU
-N_LC, N_LC_CPU = 240, 60
+N_LC, N_LC_CPU = 240, 30
 # frames of the control run (a), without a vocabulary: the first N_LC_CPU
 # (240 until the claims phase needed the time; no loop closes on this
-# world, and the control stands beside run (b)'s first N_LC_CPU frames)
+# world, and the control stands beside run (b)'s first N_LC_CPU frames;
+# N_LC_CPU was 60 until the drawing phase needed the time)
 N_LC_CONTROL = N_LC_CPU
 LC_H, LC_W = 240, 320
 LC_POSE_ATOL = 2e-3     # card vs CPU path over N_LC_CPU frames (translation m, rotation)
@@ -276,9 +293,19 @@ ZOO_LOSS_RTOL, ZOO_UPDATE_RTOL = 1e-8, 1e-6
 # (degrees; kernel 2 is bit-equal to its plain version, so 0 is expected);
 # evaluate_batch against stats.json (m: evaluate_batch reads the trajectory
 # back from its 10-digit text)
-N_RECT, N_DRV_MR = 20, 30
+N_RECT, N_DRV_MR = 12, 20
 OCT_ANGLE_TOL = 5e-3
 EVAL_ATE_ATOL = 1e-6
+
+# the drawing half (phase 13): frames of the viewer runs over phase 11's
+# KITTI layout, MJPEG parts each client reads from each stream, frames of
+# the debug-image run on phase 9's world (the fewest that give
+# DBG_MIN_QUALIFYING training frames there), the JPEG quality of the codec's
+# round trip (cv2.imwrite's default) and its limit on the mean absolute
+# error of a decoded frame (grey levels)
+N_VIEW, N_PARTS = 20, 5
+N_DBG, DBG_MIN_QUALIFYING = 10, 3
+CODEC_QUALITY, CODEC_MAE = 95, 3.0
 
 # the product's claims (phase 12, tests/torch_claims.py): the pinned IV
 # case of tests/test_introspection_helps.py; its three robustness cases and
@@ -321,6 +348,13 @@ def card_line() -> str:
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     return out.stdout.strip() or f"nvidia-smi failed: {out.stderr.strip()}"
+
+
+def host_ms(fn) -> float:
+    """Host ms of one call of a host function."""
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
 
 
 def event_ms(torch, fn, iters=50, warmup=3) -> float:
@@ -474,6 +508,7 @@ class Smoke:
         self.tr = None
         self.drv = None
         self.cl = None
+        self.vw = None
 
     def phase(self, name, fn, *args):
         t0 = time.perf_counter()
@@ -498,7 +533,8 @@ class Smoke:
         dt = kern.build(verbose=True)
         print(f"build: {len(kern.SOURCES)} sources in {dt:.2f} s (nvcc, sm_90a, in parallel)")
         self.unfilter_build_s = kern.build(kern.HOST_SOURCES)
-        print(f"build: the PNG row unfilter (host C compiler) in {self.unfilter_build_s:.2f} s")
+        print(f"build: the host C sources {list(kern.HOST_SOURCES)} (PNG row unfilter, JPEG "
+              f"entropy coder; host C compiler, in parallel) in {self.unfilter_build_s:.2f} s")
         for name in kern.SOURCES:
             for ln in kern.build_log.get(name, "").splitlines():
                 if "registers" in ln or "spill" in ln:
@@ -2365,14 +2401,14 @@ class Smoke:
                 os.makedirs(os.path.join(gen, sub))
                 for nm in sel:
                     shutil.copy(os.path.join(src, sub, nm), os.path.join(gen, sub, nm))
-                    got = tdata.read_png(os.path.join(gen, sub, nm))
+                    got = tdata.read_image(os.path.join(gen, sub, nm))
                     want = cv2.imread(os.path.join(src, sub, nm), cv2.IMREAD_UNCHANGED)
                     require(np.array_equal(got, want), f"{sub}/{nm} read back differs")
                     n_png += 1
             for nm in sel:
                 left = dg.pairs[int(nm[:-4])][0]
                 port["dataset_creator"].write_png(os.path.join(raw, nm), left)
-                require(np.array_equal(tdata.read_png(os.path.join(raw, nm)), left),
+                require(np.array_equal(tdata.read_image(os.path.join(raw, nm)), left),
                         f"image_0/{nm} read back differs")
                 n_png += 1
         train_ds = tdata.ImageQualityDataset(data_root, raw_root, [0], NET_HW)
@@ -3110,9 +3146,7 @@ class Smoke:
     def drv_evaluate(self):
         """(f) evaluate_batch over (b)'s and (d)'s mono output directories:
         (b)'s ATE equal to its stats.json's (within EVAL_ATE_ATOL m: the
-        trajectory passes through text)."""
-        import shutil
-
+        trajectory passes through text). The layout stays for phase 13."""
         port, drv = self.port, self.drv
         out = os.path.join(drv.root, "evaluation.json")
         report = port["evaluate_batch"].main([
@@ -3127,7 +3161,6 @@ class Smoke:
         print(f"drivers (f): evaluate_batch ATE {got!r} m, stats.json {want!r} m "
               f"(|d| {abs(got - want):.3g}); mono (SE3, no scale) "
               f"{report['PORT']['tum_mono']['ate_rmse']:.4f} m")
-        shutil.rmtree(drv.root, ignore_errors=True)
         require(abs(got - want) <= EVAL_ATE_ATOL, f"ATE {got} != stats.json's {want}")
 
 
@@ -3198,20 +3231,17 @@ class Smoke:
         port (k=9, L=4 on every 4th frame), run_stereo in process with the
         tool's flags (classic tracking, single-threaded, the vocabulary
         attached): ATE <= 1.05 x 0.2485 m, 0 failures, keyframes printed
-        beside the reference's 6; again with --fused_tracking (ungated)."""
+        beside the reference's 6 (the --fused_tracking run is
+        claims_smoke.py's since the drawing phase needed the time)."""
         cl, tc = self.cl, self.cl.tc
         digests = json.loads(tc.write_sequences(cl.work, ["seqA"]))
         voc = tc.train_vocab(cl.work, None)
         classic = tc.oracle(cl.work, "seqA", None)
-        fused = tc.oracle(cl.work, "seqA", None, fused=True)
-        cl.out["oracle"] = dict(classic=classic, fused=fused, vocabulary=voc,
-                                frames_sha1=digests["seqA"])
+        cl.out["oracle"] = dict(classic=classic, vocabulary=voc, frames_sha1=digests["seqA"])
         print(f"claims (b) oracle seqA: classic ATE {classic['ate_m']:.4f} m (reference C++ "
               f"{tc.REF_ATE['seqA']} m, gate {classic['gate_m']:.4f} m), {classic['failures']} "
               f"failures, {classic['keyframes']} keyframes (reference "
-              f"{tc.REF_KEYFRAMES_SEQA}), {classic['frames_per_s']:.3f} frames/s; fused ATE "
-              f"{fused['ate_m']:.4f} m, {fused['failures']} failures, {fused['keyframes']} "
-              f"keyframes, {fused['frames_per_s']:.3f} frames/s; vocabulary "
+              f"{tc.REF_KEYFRAMES_SEQA}), {classic['frames_per_s']:.3f} frames/s; vocabulary "
               f"{voc['nodes']} nodes from {voc['descriptors']} descriptors; frames sha1 "
               f"{digests['seqA'][:16]}")
         for k, n in voc["launches"].items():
@@ -3219,7 +3249,6 @@ class Smoke:
         require(voc["launches"] == {"fast_score": voc["images"], "orient_brief": voc["images"],
                                     "sad_windows": 0}, f"vocabulary launches {voc['launches']}")
         self._cl_check("oracle", classic, [None])
-        self._cl_check("oracle_fused", fused, [None])
 
     def cl_cycle(self):
         """(c) tests/test_full_cycle.py on the card: datagen on 12 frames,
@@ -3272,10 +3301,7 @@ class Smoke:
                                 failures=orc["classic"]["failures"],
                                 keyframes=orc["classic"]["keyframes"],
                                 reference_keyframes=self.cl.tc.REF_KEYFRAMES_SEQA,
-                                classic=rate(orc["classic"]), fused_ate_m=orc["fused"]["ate_m"],
-                                fused_failures=orc["fused"]["failures"],
-                                fused_keyframes=orc["fused"]["keyframes"],
-                                fused=rate(orc["fused"]), frames_sha1=orc["frames_sha1"]),
+                                classic=rate(orc["classic"]), frames_sha1=orc["frames_sha1"]),
             "full_cycle": dict(heatmaps=cyc["heatmaps"], dataset=cyc["dataset"],
                                train_loss=cyc["train"]["train_loss"],
                                on_failures=cyc["on"]["failures"], quality=cyc["quality"],
@@ -3289,6 +3315,204 @@ class Smoke:
                                  gates_left_to_claims_smoke=kit["gates_left_to_claims_smoke"],
                                  **rate(kit), frames_sha1=kit["frames_sha1"]),
             "launches": self.cl.launches}
+
+
+    # ---- phase 13: the drawing half ------------------------------------------
+    def vw_viewer(self):
+        """(a) run_stereo in process on the card over the first N_VIEW frames
+        of phase 11's KITTI layout, once with no viewer flag and once with
+        --enable_viewer --live_viewer_port, while client threads read
+        N_PARTS parts of frame.mjpg and of map.mjpg (each decoded by the
+        port's decoder to its drawer's size) and POST a show_points toggle to
+        /control: the two trajectories bit-equal, 0 failures, K1-K3 once a
+        frame in each run; both runs' frames/s, the drawers' and the
+        encoding's host ms."""
+        import socket
+        import threading
+        import urllib.request
+
+        port, drv = self.port, self.drv
+        rs, jpeg = port["run_stereo"], port["jpeg"]
+        settings = self._settings(os.path.join(drv.root, "kitti_view.yaml"))
+        base = ["--data_path", drv.seq, "--settings_path", settings, "--ground_truth_path",
+                drv.gt_file, "--fused_tracking", "--end_frame", str(N_VIEW)]
+        outs = {k: os.path.join(drv.root, "view", k) for k in ("plain", "viewer")}
+        plain, l_plain, s_plain = self._drive(rs, base + ["--out_visualization_path",
+                                                          outs["plain"]])
+        with socket.socket() as so:
+            so.bind(("127.0.0.1", 0))
+            live_port = so.getsockname()[1]
+        parts = {"frame": [], "map": []}
+        posted = []
+
+        def client(key):
+            deadline = time.monotonic() + 120
+            while time.monotonic() < deadline and len(parts[key]) < N_PARTS:
+                try:
+                    with urllib.request.urlopen(f"http://127.0.0.1:{live_port}/{key}.mjpg",
+                                                timeout=30) as r:
+                        while len(parts[key]) < N_PARTS:
+                            if r.readline().strip() != b"--ivframe":
+                                raise ValueError("no multipart boundary")
+                            head = {}
+                            while (line := r.readline().strip()):
+                                k, v = line.decode().split(":", 1)
+                                head[k.strip().lower()] = v.strip()
+                            parts[key].append(r.read(int(head["content-length"])))
+                            r.readline()
+                except OSError:
+                    time.sleep(0.05)
+            if key == "frame":
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{live_port}/control",
+                    data=json.dumps({"action": "show_points", "value": False}).encode(),
+                    headers={"Content-Type": "application/json"}, method="POST")
+                with urllib.request.urlopen(req, timeout=30) as r:
+                    posted.append((r.status, json.loads(r.read())))
+
+        threads = [threading.Thread(target=client, args=(k,), daemon=True) for k in parts]
+        for t in threads:
+            t.start()
+        view, l_view, s_view = self._drive(
+            rs, base + ["--out_visualization_path", outs["viewer"], "--enable_viewer",
+                        "--live_viewer_port", str(live_port)])
+        for t in threads:
+            t.join(timeout=60)
+        trajs = []
+        for k in ("plain", "viewer"):
+            with open(os.path.join(outs[k], "Trajectory_KITTI_000.txt"), "rb") as f:
+                trajs.append(f.read())
+        shapes = {k: sorted({jpeg.decode(p, "bgr").shape for p in v}) for k, v in parts.items()}
+        want = {"frame": [(H, W, 3)], "map": [(800, 800, 3)]}
+        enc = {}
+        for k in parts:
+            img = jpeg.decode(parts[k][-1], "bgr") if parts[k] else None
+            enc[k] = float(np.median([host_ms(lambda: jpeg.encode(img, 80))
+                                      for _ in range(5)])) if img is not None else None
+        v = view.get("viewer", {})
+        self.vw = SimpleNamespace(out={})
+        self.vw.out["viewer"] = dict(
+            frames=N_VIEW, plain_frames_per_s=N_VIEW / s_plain,
+            viewer_frames_per_s=N_VIEW / s_view,
+            plain_median_track_ms=plain["median_track_s"] * 1e3,
+            viewer_median_track_ms=view["median_track_s"] * 1e3,
+            frame_drawer_ms_median=v.get("frame_ms_median"),
+            map_drawer_ms_median=v.get("map_ms_median"), map_draws=v.get("map_calls"),
+            publish_ms_median=v.get("publish_ms_median"),
+            encode_ms_frame_1241x376=enc["frame"], encode_ms_map_800x800=enc["map"],
+            parts_read={k: len(p) for k, p in parts.items()},
+            part_shapes={k: [list(x) for x in sh] for k, sh in shapes.items()},
+            control_post=posted[0][0] if posted else None,
+            trajectory_bit_equal=trajs[0] == trajs[1],
+            failures=[plain["failures"], view["failures"]],
+            launches_plain=l_plain, launches_viewer=l_view)
+        for k, n in l_view.items():
+            self.kernels[k]["launches_viewer"] = n
+        print(f"drawing (a): run_stereo over {N_VIEW} frames: {N_VIEW / s_plain:.3f} frames/s "
+              f"plain, {N_VIEW / s_view:.3f} with --enable_viewer --live_viewer_port (wall); "
+              f"FrameDrawer {v.get('frame_ms_median', float('nan')):.2f} ms, MapDrawer "
+              f"{v.get('map_ms_median', float('nan')):.2f} ms ({v.get('map_calls')} maps), "
+              f"publish (encoding) {v.get('publish_ms_median', float('nan')):.2f} ms (host "
+              f"medians); encode {enc['frame']} ms a 1241x376 BGR frame, {enc['map']} ms the "
+              f"800x800 map; parts read {self.vw.out['viewer']['parts_read']}, shapes {shapes}; "
+              f"/control POST {posted[0][0] if posted else None}; trajectories bit-equal: "
+              f"{trajs[0] == trajs[1]}; K1-K3 launches {l_plain} / {l_view}; on {card_line()}")
+        require(trajs[0] == trajs[1], "the viewer run's trajectory differs from the plain run's")
+        require(plain["failures"] == 0 and view["failures"] == 0,
+                f"failures {plain['failures']}, {view['failures']}")
+        require(all(len(p) >= N_PARTS for p in parts.values()), f"parts {parts.keys()}")
+        require(shapes == want, f"streamed JPEGs decode to {shapes}, not {want}")
+        require(posted and posted[0][0] == 200 and posted[0][1]["options"]["show_points"] is False,
+                f"/control POST {posted}")
+        for launches in (l_plain, l_view):
+            require(launches == {k: N_VIEW for k in launches}, f"launches {launches}")
+
+    def vw_debug(self):
+        """(b) run_stereo with --create_ivslam_dataset --logging_level 1 on
+        the card over phase 9's first N_DBG ReflectionWorld frames written
+        as a KITTI layout with GT poses: each debug subdirectory that the
+        supervised mode fills holds a .jpg for each qualifying frame (at
+        least DBG_MIN_QUALIFYING), each decoding to its image's size;
+        save_frame's host ms."""
+        port, dg = self.port, self.dg
+        png, jpeg = port["png"], port["jpeg"]
+        root = os.path.join(self.drv.root, "debug")
+        seq = os.path.join(root, "seq")
+        for d in ("image_0", "image_1"):
+            os.makedirs(os.path.join(seq, d))
+        for i in range(N_DBG):
+            for d, img in zip(("image_0", "image_1"), dg.pairs[i]):
+                png.write_png(os.path.join(seq, d, f"{i:06d}.png"), img)
+        with open(os.path.join(seq, "times.txt"), "w") as f:
+            f.writelines(f"{i / dg.cfg.camera.fps!r}\n" for i in range(N_DBG))
+        gt_file = os.path.join(root, "gt.txt")
+        np.savetxt(gt_file, np.stack([T[:3, :4].reshape(-1) for T in dg.gt[:N_DBG]]), fmt="%.9g")
+        out = os.path.join(root, "out")
+        stats, launches, wall = self._drive(port["run_stereo"], [
+            "--data_path", seq, "--settings_path", os.path.join(HERE, "settings",
+                                                               "KITTI00-02.yaml"),
+            "--ground_truth_path", gt_file, "--out_visualization_path", out, "--fused_tracking",
+            "--create_ivslam_dataset", "--logging_level", "1"])
+        v = stats.get("viewer", {})
+        n_q = v.get("debug_calls", 0)
+        files, shapes = {}, set()
+        for d in ("bad_region_heatmap_vis", "epipolar_err_vec"):
+            names = sorted(os.listdir(os.path.join(out, d)))
+            files[d] = len(names)
+            for nm in names:
+                shapes.add((d, jpeg.read_jpeg(os.path.join(out, d, nm), "bgr").shape))
+        self.vw.out["debug_images"] = dict(
+            frames=N_DBG, qualifying=n_q, files=files, shapes=sorted(map(list, shapes)),
+            save_frame_ms_median=v.get("debug_ms_median"), failures=stats["failures"],
+            frames_per_s=N_DBG / wall, launches=launches)
+        print(f"drawing (b): datagen run_stereo --logging_level 1 over {N_DBG} ReflectionWorld "
+              f"frames: {n_q} qualifying frames, files {files}, decoded shapes {sorted(shapes)}, "
+              f"save_frame {v.get('debug_ms_median', float('nan')):.2f} ms a frame (host "
+              f"median), {stats['failures']} failures, K1-K3 launches {launches}; on "
+              f"{card_line()}")
+        require(n_q >= DBG_MIN_QUALIFYING, f"{n_q} qualifying frames")
+        require(all(n == n_q for n in files.values()), f"debug files {files} for {n_q} frames")
+        require(stats["failures"] == 0, f"{stats['failures']} failures")
+        require(launches == {k: N_DBG for k in launches}, f"launches {launches}")
+
+    def vw_codec(self):
+        """(c) the JPEG codec on every 4th pair of phase 11's frames: each image encoded at
+        CODEC_QUALITY and decoded again (shape kept, mean absolute error
+        within CODEC_MAE grey levels); the ms a pair of encoding and of
+        decoding with the C entropy coder, and of decoding with its plain
+        Python version (one pair; bit-equal to the C coder's)."""
+        port, t = self.port, self.trk
+        jpeg = port["jpeg"]
+        enc_ms, dec_ms, maes = [], [], []
+        pairs = t.loop_pairs[::4]
+        for left, right in pairs:
+            t0 = time.perf_counter()
+            data = [jpeg.encode(im, CODEC_QUALITY) for im in (left, right)]
+            t1 = time.perf_counter()
+            dec = [jpeg.decode(d, "gray") for d in data]
+            t2 = time.perf_counter()
+            enc_ms.append((t1 - t0) * 1e3)
+            dec_ms.append((t2 - t1) * 1e3)
+            maes += [float(np.abs(a.astype(np.int16) - b).mean()) for a, b in
+                     zip(dec, (left, right))]
+            require(all(a.shape == b.shape for a, b in zip(dec, (left, right))), "shape")
+        t0 = time.perf_counter()
+        plain = [jpeg.decode(d, "gray", coder="plain") for d in data]
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        same = all(np.array_equal(a, b) for a, b in zip(plain, dec))
+        self.vw.out["codec"] = dict(
+            images=2 * len(pairs), quality=CODEC_QUALITY, shape=[H, W],
+            bytes_per_image=float(np.mean([len(d) for d in data])),
+            encode_ms_pair_median=float(np.median(enc_ms)),
+            decode_ms_pair_median=float(np.median(dec_ms)), plain_decode_ms_pair=plain_ms,
+            plain_equal_to_c=same, mae_max=max(maes))
+        print(f"drawing (c): {2 * len(pairs)} KITTI frames through the JPEG codec at "
+              f"quality {CODEC_QUALITY}: encode {np.median(enc_ms):.2f} ms a pair, decode "
+              f"{np.median(dec_ms):.2f} ms a pair with the C entropy coder, {plain_ms:.1f} ms "
+              f"with its plain Python version (equal: {same}); mean abs error at most "
+              f"{max(maes):.3f} grey levels; host clock, on {card_line()}")
+        require(same, "the plain coder's decode differs from the C coder's")
+        require(max(maes) <= CODEC_MAE, f"mean abs error {max(maes)}")
 
 
 def dp_rank_main(rank, world, port_no, work):
@@ -3354,7 +3578,7 @@ def main() -> int:
     from iv_slam_tpu_torch.parallel import mesh, replay
     from iv_slam_tpu_torch.train import data as train_data
     from iv_slam_tpu_torch.train import train_state, trainer
-    from iv_slam_tpu_torch.io import datasets, png, rectify
+    from iv_slam_tpu_torch.io import datasets, jpeg, png, rectify
     from iv_slam_tpu_torch.examples import evaluate_batch, run_mono, run_rgbd, run_stereo
     from iv_slam_tpu_torch.utils import profiling
 
@@ -3371,6 +3595,7 @@ def main() -> int:
             "sharded_datagen": sharded_datagen, "mesh": mesh, "replay": replay,
             "train_data": train_data, "train_state": train_state, "trainer": trainer,
             "feature_evaluator": feature_evaluator, "datasets": datasets, "png": png,
+            "jpeg": jpeg,
             "rectify": rectify, "run_stereo": run_stereo, "run_mono": run_mono,
             "run_rgbd": run_rgbd, "evaluate_batch": evaluate_batch, "profiling": profiling}
 
@@ -3505,6 +3730,20 @@ def main() -> int:
             smoke.failures.append(f"{name}: skipped, an earlier phase failed")
         else:
             smoke.phase(name, fn)
+    # phase 13: the drawing half, on phase 11's layout and phase 9's world,
+    # also before any profiling; then phase 11's layout goes
+    for name, fn in (("drawing (a) viewer runs", smoke.vw_viewer),
+                     ("drawing (b) debug images", smoke.vw_debug),
+                     ("drawing (c) JPEG codec", smoke.vw_codec)):
+        if smoke.drv is None or smoke.vw is None and fn != smoke.vw_viewer \
+                or fn == smoke.vw_debug and smoke.dg is None:
+            smoke.failures.append(f"{name}: skipped, an earlier phase failed")
+        else:
+            smoke.phase(name, fn)
+    if smoke.drv is not None:
+        import shutil
+
+        shutil.rmtree(smoke.drv.root, ignore_errors=True)
     if len(smoke.kernels) == 3:
         smoke.phase("kernel device times", smoke.device_times)
     if smoke.trk is not None and smoke.trk.record is not None:
@@ -3534,13 +3773,13 @@ def main() -> int:
               f"the sharded datagen, {k['launches_run_stereo']} on run_stereo, "
               f"{k['launches_run_mono']} on run_mono, {k['launches_run_rgbd']} on run_rgbd, "
               f"{k['launches_octree']} on extract_octtree, {k['launches_claims']} on the "
-              f"claims runs, on {card}")
+              f"claims runs, {k['launches_viewer']} on the viewer run, on {card}")
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms", "event_ms", "plain_event_ms",
              "launches_introspection", "launches_loop_closing", "launches_mono",
              "launches_rgbd", "launches_datagen", "launches_replay",
              "launches_sharded_datagen", "launches_run_stereo", "launches_run_mono",
-             "launches_run_rgbd", "launches_octree", "launches_claims")
+             "launches_run_rgbd", "launches_octree", "launches_claims", "launches_viewer")
     kernels = [{k: smoke.kernels[n][k] for k in order}
                for n in ("fast_score", "orient_brief", "sad_windows")]
     print(json.dumps({"frontend": smoke.fps,
@@ -3558,6 +3797,7 @@ def main() -> int:
     print(json.dumps({"training": dict(smoke.tr.out, card=card)}, default=float))
     print(json.dumps({"drivers": dict(smoke.drv.out, card=card)}, default=float))
     print(json.dumps({"claims": dict(smoke.claims_line(), card=card)}, default=float))
+    print(json.dumps({"drawing": dict(smoke.vw.out, card=card)}, default=float))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

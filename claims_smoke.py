@@ -18,7 +18,9 @@ card:
     at least 20/255, no more failures ON than OFF, ATE ON below OFF;
   * the oracle on seqB (tools/parity_reference.py's second sequence, seed
     23, with the vocabulary trained on seqA): its ATE within 5% of the
-    reference C++ system's 0.2460 m (PARITY_ATE.md), no failure;
+    reference C++ system's 0.2460 m (PARITY_ATE.md), no failure; then seqA
+    with --fused_tracking (its ATE reported, ungated; chip_smoke.py ran it
+    until the drawing phase needed the time);
   * the whole cycle (tests/test_full_cycle.py) and the KITTI all-on run
     (tests/test_kitti_e2e.py) with every gate of their JAX tests, those
     that the JAX package misses too on the same pixels included
@@ -111,6 +113,13 @@ def main() -> int:
               f" gate {res['gate_m']:.4f} m), {res['failures']} failures, {res['keyframes']} "
               f"keyframes, {res['frames_per_s']:.3f} frames/s; frames sha1 "
               f"{res['frames_sha1'][:16]}; on {card}", flush=True)
+        # seqA with fused tracking (reported, its ATE ungated), beside
+        # chip_smoke.py's classic seqA run
+        res = run("oracle seqA fused", tc.oracle, work, "seqA", None, True)
+        if res is not None:
+            print(f"oracle seqA fused: ATE {res['ate_m']:.4f} m, {res['failures']} failures, "
+                  f"{res['keyframes']} keyframes, {res['frames_per_s']:.3f} frames/s; on "
+                  f"{card}", flush=True)
     shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"claims_smoke": dict(results, card=card)}, default=float))
     if failures:

@@ -9,7 +9,8 @@ named by a hash of their source and flags, so an unchanged source is not
 rebuilt within one checkout. No header of PyTorch is included: a file
 builds in seconds rather than minutes.
 
-A ``csrc/<name>.c`` is host code (the PNG row unfilter of ``io/png.py``):
+A ``csrc/<name>.c`` is host code (the PNG row unfilter of ``io/png.py``, the
+JPEG entropy coder of ``io/jpeg.py``):
 it is built the same way with the host C compiler (``$CC``, else ``cc``,
 ``gcc``, ``clang`` or ``g++``) and loaded with ``ctypes``.
 
@@ -38,7 +39,7 @@ NVCC_FLAGS = [
 CC_FLAGS = ["-O2", "-shared", "-fPIC"]
 
 SOURCES = ("fast_score", "orient_brief", "sad_windows")
-HOST_SOURCES = ("png_unfilter",)
+HOST_SOURCES = ("png_unfilter", "jpeg_huffman")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()  # loader threads may ask for one library together

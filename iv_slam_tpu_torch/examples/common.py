@@ -1,5 +1,5 @@
-"""What the port's dataset drivers share: the --device flag, the flags whose
-feature is not ported yet, the introspection model, and the SIGINT flush."""
+"""What the port's dataset drivers share: the --device flag, the
+introspection model, and the SIGINT flush."""
 
 from __future__ import annotations
 
@@ -28,15 +28,6 @@ def device_of(args) -> torch.device:
     from ..slam import resolve_device
 
     return resolve_device(None if args.device == "cuda" else args.device, "--device")
-
-
-def refuse_viewer_flags(args) -> None:
-    """The drawing half of the drivers is ROADMAP A14b."""
-    for on, flag in ((getattr(args, "enable_viewer", False), "--enable_viewer"),
-                     (getattr(args, "live_viewer_port", 0), "--live_viewer_port"),
-                     (getattr(args, "logging_level", 0) >= 1, "--logging_level >= 1")):
-        if on:
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP A14b)")
 
 
 def _is_torchscript(path: str) -> bool:

@@ -3,9 +3,8 @@ eval_model_outputs}.py equivalents).
 
 Port of the JAX package's ``examples/eval_introspection.py``. Modes:
   inference: run the FCN over session images, write predicted cost maps
-      (+ optional overlays) as PNG — inference_modular.py; an image whose
-      name is not .png would be written in its own format, and the port's
-      only encoder is PNG's (JPEG: ROADMAP A14b);
+      (+ optional overlays) in each image's own format, PNG or JPEG (at
+      imageio's default JPEG quality, 75) — inference_modular.py;
   eval: masked-MSE against generated heatmaps on held-out sessions —
       test_modular.py;
   retention: sort keypoints by predicted cost and report mean ground-truth
@@ -26,6 +25,21 @@ import numpy as np
 from . import common
 
 
+def _write_jpeg(path, img):
+    from ..io.jpeg import write_jpeg
+
+    write_jpeg(path, img, quality=75)      # imageio's (PIL's) default quality
+
+
+def _write_png(path, img):
+    from ..io.png import write_png
+
+    write_png(path, img)
+
+
+WRITERS = {".png": _write_png, ".jpg": _write_jpeg, ".jpeg": _write_jpeg}
+
+
 def main(argv=None):
     """Run the mode; returns its report (inference: the names written)."""
     p = argparse.ArgumentParser(prog="python -m iv_slam_tpu_torch.examples.eval_introspection")
@@ -44,25 +58,25 @@ def main(argv=None):
     device = common.device_of(args)
 
     if args.mode == "inference":
-        from ..io.png import read_png, write_png
+        from ..io.datasets import read_image
 
         names = sorted(os.listdir(args.img_dir))
-        bad = [n for n in names if not n.lower().endswith(".png")]
+        bad = [n for n in names if os.path.splitext(n)[1].lower() not in WRITERS]
         if bad:
-            raise NotImplementedError(
-                f"{bad[0]}: only PNG images are read and written; JPEG is ROADMAP A14b")
+            raise ValueError(f"{bad[0]}: only PNG and JPEG images are read and written")
         _, _, cost_fn = common.load_introspection(args.ckpt, device)
         os.makedirs(args.out_dir, exist_ok=True)
         for name in names:
-            img = read_png(os.path.join(args.img_dir, name))
+            img = read_image(os.path.join(args.img_dir, name))
             if img.ndim == 2:
                 img = np.stack([img] * 3, axis=-1)
             img = np.ascontiguousarray(img[..., :3])
             cost = cost_fn(img).cpu().numpy()
-            write_png(os.path.join(args.out_dir, name), cost)
+            write = WRITERS[os.path.splitext(name)[1].lower()]
+            write(os.path.join(args.out_dir, name), cost)
             if args.save_overlays:
                 overlay = (0.6 * img[..., 0] + 0.4 * cost).astype(np.uint8)
-                write_png(os.path.join(args.out_dir, "overlay_" + name), overlay)
+                write(os.path.join(args.out_dir, "overlay_" + name), overlay)
         print(f"wrote {len(names)} cost maps to {args.out_dir}")
         return names
 

@@ -5,9 +5,10 @@ evaluation protocol over a set of sessions, SE3-aligned ATE RMSE and
 translational and rotational RPE at a frame or metric delta (evo_ape /
 evo_rpe equivalents, evaluate_batch.py:43-55), per-session trajectory
 length and failure counts, aggregated per mode (e.g. ORB_SLAM vs IV_SLAM
-runs) like evaluate_batch_postproc.py. The same flags and evaluation.json.
---viz (the evaluate_batch_viz.py figures) needs a plotting library the port
-does not use: ROADMAP A14b.
+runs) like evaluate_batch_postproc.py. The same flags and evaluation.json;
+--viz writes the evaluate_batch_viz.py figures (rpe_trans.png, rpe_rot.png,
+failure_counts.png beside the report), drawn by ``examples/figures.py``
+rather than matplotlib.
 
   python -m iv_slam_tpu_torch.examples.evaluate_batch --results_root results \\
       --gt_root /data/gt --sessions 00019 00020 --modes ORB_SLAM IV_SLAM
@@ -43,12 +44,10 @@ def main(argv=None) -> dict:
                         "--rpe_delta (the reference's protocol: 2.0 m Jackal "
                         "/ 20 m AirSim / 1 m EuRoC, evaluate_batch.py:43-55)")
     p.add_argument("--viz", action="store_true",
-                   help="the evaluate_batch_viz.py figures (not ported yet: "
-                        "ROADMAP A14b)")
+                   help="also render the evaluate_batch_viz.py figures "
+                        "(per-session grouped bars, SORT_TRAJ order)")
     p.add_argument("--out", default="evaluation.json")
     args = p.parse_args(argv)
-    if args.viz:
-        raise NotImplementedError("--viz is not ported yet (ROADMAP A14b)")
 
     from ..io import trajectory
 
@@ -92,7 +91,34 @@ def main(argv=None) -> dict:
     print(json.dumps(report, indent=2))
     with open(args.out, "w") as f:
         json.dump(report, f, indent=2)
+    if args.viz:
+        render_viz(report, args.modes, os.path.dirname(args.out) or ".")
     return report
+
+
+PANELS = (("rpe_trans", "Translational RPE (m, RMSE)", "rpe_trans.png"),
+          ("rpe_rot_deg", "Rotational RPE (deg, RMSE)", "rpe_rot.png"),
+          ("failures", "Tracking failures per session", "failure_counts.png"))
+
+
+def render_viz(report, modes, out_dir) -> dict:
+    """The evaluate_batch_viz.py figures: per-session grouped bars for
+    trans/rot RPE and failure counts, sessions sorted descending by the
+    first mode's failure count (SORT_TRAJ, evaluate_batch_viz.py:31-33),
+    one measure a figure (7 x 4 in at 150 dpi: 1050 x 600). Returns each
+    file's bars."""
+    from . import figures
+
+    sessions = figures.sessions_by_failures(report, modes) if modes[0] in report else []
+    if not sessions:
+        return {}
+    out = {}
+    for key, title, fname in PANELS:
+        path = os.path.join(out_dir, fname)
+        out[fname] = figures.figure([dict(sessions=sessions, modes=list(modes), title=title,
+                                          values=figures.values(report, modes, sessions, key))],
+                                    1050, 600, path)[0]
+    return out
 
 
 if __name__ == "__main__":

@@ -1,0 +1,10 @@
+#!/bin/bash
+# Training-data generation over Jackal sessions (the reference's
+# scripts/run_stereo_jackal_train_data_gen.bash analogue), on the
+# PyTorch/CUDA port. Extra flags (e.g. --device cpu) pass through.
+cd "$(dirname "$0")/../../.." || exit 1
+python -m iv_slam_tpu_torch.examples.run_batch --mode datagen \
+  --sessions_root "${IVSLAM_SESSIONS_ROOT:?set IVSLAM_SESSIONS_ROOT}" \
+  --sessions ${IVSLAM_SESSIONS:-00000} \
+  --settings settings/jackal_stereo.yaml \
+  --out jackal_training_data --dataset jackal "$@"

@@ -13,9 +13,15 @@ KITTI / EuRoC / Jackal / AirSim via --dataset.
       --ground_truth_path /data/kitti/poses/00.txt \\
       --out_visualization_path /tmp/out
 
-Not ported yet, and refused with NotImplementedError: the viewer flags
-(--enable_viewer, --live_viewer_port, --logging_level >= 1: ROADMAP A14b)
-and the threaded configurations (--no-run_single_threaded, --prewarm,
+The viewer flags draw after each tracked frame, as the reference's driver
+does (examples/run_stereo.py:245-380): --enable_viewer saves FrameDrawer's
+overlays (frames/) and, every 10th frame, MapDrawer's map (map/);
+--live_viewer_port serves both as MJPEG (slam/live_viewer.py) with the
+/control menu wired to localization mode and reset; --logging_level >= 1
+saves the training-data debug images (introspection/vis.py). Drawing reads
+the frame after track_stereo returns and changes nothing the system
+computes. Not ported yet, and refused with NotImplementedError: the
+threaded configurations (--no-run_single_threaded, --prewarm,
 --chained_tracking: ROADMAP A7, through tracking.check_config).
 """
 
@@ -64,7 +70,8 @@ def parse_args(argv=None):
                         "stereo_kitti.cc:577-585)")
     p.add_argument("--logging_level", type=int, default=0,
                    help=">=1 saves the training-data debug visualizations "
-                        "(not ported yet: ROADMAP A14b)")
+                        "(bad_region_heatmap_vis/, epipolar_err_vec/, ... — "
+                        "SaveImagesToFile, Tracking.cc:722-726)")
     p.add_argument("--sync_loader", action="store_true",
                    help="decode images synchronously in the frame loop "
                         "instead of the decode-ahead loader")
@@ -72,10 +79,11 @@ def parse_args(argv=None):
     p.add_argument("--ivslam_enabled", action="store_true")
     p.add_argument("--inference_mode", action="store_true")
     p.add_argument("--introspection_func_enabled", action="store_true")
-    p.add_argument("--enable_viewer", action="store_true",
-                   help="not ported yet (ROADMAP A14b)")
+    p.add_argument("--enable_viewer", action="store_true")
     p.add_argument("--live_viewer_port", type=int, default=0,
-                   help="not ported yet (ROADMAP A14b)")
+                   help="serve the frame/map renders live over HTTP "
+                        "(MJPEG; the Pangolin-window analogue, "
+                        "src/Viewer.cc:56-70). Implies --enable_viewer.")
     p.add_argument("--gt_pose_available", action="store_true")
     p.add_argument("--timestamps_file", default="",
                    help="EuRoC timestamp list")
@@ -98,6 +106,92 @@ def parse_args(argv=None):
                         "(stereo_kitti.cc:286-343)")
     common.add_device_flag(p)
     return p.parse_args(argv)
+
+
+class Viewers:
+    """The driver's drawing after each tracked frame (the reference's
+    examples/run_stereo.py:245-380): FrameDrawer and, every 10th frame,
+    MapDrawer (their PNGs with --enable_viewer, MJPEG with
+    --live_viewer_port), and the training-data debug images with
+    --logging_level >= 1. It reads the frame after track_stereo returned
+    and the host map; it writes nothing the system reads. Host ms of each
+    drawer and of the live viewer's encoding are kept for the stats."""
+
+    def __init__(self, args, sys_, seq):
+        self.sys, self.seq = sys_, seq
+        self.frame_drawer = self.map_drawer = self.live = self.eval_vis = None
+        self.draw_ms = {"frame": [], "map": [], "publish": [], "debug": []}
+        out = args.out_visualization_path
+        if args.enable_viewer or args.live_viewer_port:
+            from ..slam.viewer import FrameDrawer, MapDrawer
+
+            save = args.enable_viewer      # live-only mode skips the PNG writes
+            self.frame_drawer = FrameDrawer(os.path.join(out, "frames") if save else None)
+            self.map_drawer = MapDrawer(os.path.join(out, "map") if save else None)
+        if args.live_viewer_port:
+            from ..slam.live_viewer import LiveViewer
+
+            self.live = LiveViewer(port=args.live_viewer_port).start()
+            # the reference Viewer's menu actions (menuLocalizationMode /
+            # menuReset, src/Viewer.cc:101-102 -> 123-141)
+            self.live.register_control(
+                "localization_mode",
+                lambda on: (sys_.activate_localization_mode() if on
+                            else sys_.deactivate_localization_mode()))
+            self.live.register_control("reset", lambda _v: sys_.reset())
+            print(f"live viewer: http://localhost:{self.live.port}/")
+        # iLoggingLevel >= 1 -> per-frame heatmap/error-vector debug images
+        # (FeatureEvaluator::SaveImagesToFile via Tracking.cc:722-726)
+        if args.logging_level >= 1 and sys_.tracking.datagen is not None:
+            from ..introspection.vis import FeatureEvalVisualizer
+
+            self.eval_vis = FeatureEvalVisualizer(out)
+
+    def _timed(self, key, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        self.draw_ms[key].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def after_frame(self, i, left, name):
+        s = self.sys
+        dg = s.tracking.datagen
+        if self.eval_vis is not None and dg.last_result is not None:
+            self._timed("debug", self.eval_vis.save_frame, left, name, dg.last_result)
+        if self.frame_drawer is None or s.tracking.current is None:
+            return
+        frame = s.tracking.current
+        frame.materialize()
+        fvis = self._timed("frame", self.frame_drawer.draw, left, frame, s.state.name)
+        mvis = None
+        if i % 10 == 0:
+            view = self.live.options if self.live is not None else {}
+            gt = self.seq.gt_poses
+            # the trajectory as it stands (System.trajectory_twc would merge
+            # a deferred global BA early, changing what the system computes)
+            mvis = self._timed(
+                "map", self.map_drawer.draw, s.tracking.map, s.tracking.trajectory_poses(),
+                gt_twc=list(gt[: i + 1]) if gt is not None else None, frame_id=i,
+                show_points=view.get("show_points", True),
+                show_keyframes=view.get("show_keyframes", True),
+                show_graph=view.get("show_graph", False),
+                follow_camera=view.get("follow_camera", False))
+        if self.live is not None:
+            m = s.tracking.map
+            self._timed("publish", self.live.publish, fvis, mvis, stats=dict(
+                frame_id=int(frame.frame_id), state=s.state.name,
+                n_keyframes=int(m.kf_alive[: m.n_keyframes].sum()),
+                n_points=int(m.pt_alive[: m.n_points].sum()),
+                failures=s.failure_count))
+
+    def close(self):
+        if self.live is not None:
+            self.live.stop()
+
+    def summary(self) -> dict:
+        """Median host ms of each drawing step that ran, and its count."""
+        return {f"{k}_ms_median": float(np.median(v)) for k, v in self.draw_ms.items() if v} | \
+            {f"{k}_calls": len(v) for k, v in self.draw_ms.items() if v}
 
 
 def make_config(args):
@@ -138,7 +232,6 @@ def load_sequence(args):
 def main(argv=None) -> dict:
     """Run the driver; returns the stats it prints and writes."""
     args = parse_args(argv)
-    common.refuse_viewer_flags(args)
     cfg = make_config(args)
     from ..slam.tracking import check_config
 
@@ -229,6 +322,8 @@ def main(argv=None) -> dict:
 
         sys_.tracking.stage_timer = StageTimer()
 
+    viewer = Viewers(args, sys_, seq)
+
     t_track = []
     loader = (SyncLoader() if args.sync_loader
               else StereoPrefetcher(seq.left_paths, seq.right_paths, rect_maps=rect_maps))
@@ -237,23 +332,27 @@ def main(argv=None) -> dict:
             # depth-1 frontend prefetch: frame i+1's extraction runs on the
             # device while frame i's tracking occupies the host
             handle = None
+            cur_left = None
             if len(seq) > 0:
                 left, right = loader.next()
                 handle = sys_.submit_frontend(left, right, cost_fn(left) if cost_fn else None)
+                cur_left = left
             for i in range(len(seq)):
                 if interrupted:
                     print(f"SIGINT at frame {i}: flushing outputs (ShutdownMinimal)")
                     break
                 t, gt, name = seq.meta(i)
                 t0 = time.perf_counter()
-                cur_handle = handle
+                cur_handle, this_left = handle, cur_left
                 if i + 1 < len(seq):
                     nleft, nright = loader.next()
                     handle = sys_.submit_frontend(nleft, nright,
                                                   cost_fn(nleft) if cost_fn else None)
+                    cur_left = nleft
                 sys_.track_stereo(None, None, t, gt_pose=gt, img_name=name,
                                   frontend_handle=cur_handle, gt_depth_map=gt_depth_for(i))
                 t_track.append(time.perf_counter() - t0)
+                viewer.after_frame(i, this_left, name)
                 if args.real_time_pacing and i + 1 < len(seq):
                     # the reference's sleep(T - ttrack) (stereo_kitti.cc:577-585)
                     budget = float(seq.timestamps[i + 1]) - float(t)
@@ -264,6 +363,7 @@ def main(argv=None) -> dict:
                           f"median_track={np.median(t_track):.3f}s")
         finally:
             loader.close()
+            viewer.close()
 
     if args.create_ivslam_dataset and sys_.tracking.datagen is not None:
         sys_.tracking.datagen.finalize()
@@ -284,6 +384,8 @@ def main(argv=None) -> dict:
         stats["ate_rmse"] = trajectory.ate_rmse(sys_.trajectory_twc(), list(seq.gt_poses))
     if args.profile_stages and sys_.tracking.stage_timer is not None:
         print(sys_.tracking.stage_timer.report())
+    if any(viewer.draw_ms.values()):
+        stats["viewer"] = viewer.summary()
     print(json.dumps(stats))
     with open(os.path.join(out, "stats.json"), "w") as f:
         json.dump(stats, f)

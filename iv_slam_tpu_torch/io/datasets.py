@@ -8,7 +8,8 @@ and the Jackal session layout used by the batch scripts
 (scripts/run_stereo_jackal_*.bash: <session>/img_left|img_right + heatmaps).
 
 Loaders return lazy sequences of file paths + timestamps + optional GT
-poses; image decoding happens in `load_gray` (io/png.py, no OpenCV).
+poses; image decoding happens in `load_gray` (io/png.py and io/jpeg.py, no
+OpenCV).
 """
 
 from __future__ import annotations
@@ -19,14 +20,26 @@ from typing import List, Optional
 
 import numpy as np
 
-from . import png
+from . import jpeg, png
+
+
+def read_image(path: str, mode: str = "unchanged") -> np.ndarray:
+    """A PNG or JPEG file, told apart by its signature, in `mode` ("gray":
+    cv2's IMREAD_GRAYSCALE; "unchanged": imageio's array; see io/png.py and
+    io/jpeg.py). A missing file raises FileNotFoundError."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if jpeg.is_jpeg(data):
+        return jpeg.decode(data, mode)
+    return png.decode_png(data, mode, path)
 
 
 def load_gray(path: str) -> np.ndarray:
     """The image at `path` as (H, W) uint8: ``cv2.imread(path,
     IMREAD_GRAYSCALE)``'s result, which the JAX package takes where cv2 is
-    installed (io/png.py). A missing file raises FileNotFoundError."""
-    return png.read_png(path, "gray")
+    installed, for a PNG or a JPEG file. A missing file raises
+    FileNotFoundError."""
+    return read_image(path, "gray")
 
 
 @dataclass

@@ -362,10 +362,12 @@ def _filter(px: np.ndarray, ft: int, bpp: int) -> np.ndarray:
     return ((x - pred) & 0xFF).astype(np.uint8)
 
 
-def write_png(path: str, img: np.ndarray, filter_type: int = 0) -> None:
+def write_png(path: str, img: np.ndarray, filter_type: int = 0, level: int = 6) -> None:
     """Write (H, W) uint8/uint16 grey, or (H, W, C) uint8 with C 2 (grey +
     alpha), 3 (RGB) or 4 (RGBA), as a PNG whose rows all carry filter
-    `filter_type` (0 none, 1 Sub, 2 Up, 3 Average, 4 Paeth)."""
+    `filter_type` (0 none, 1 Sub, 2 Up, 3 Average, 4 Paeth), deflated at
+    zlib `level` (1 with run-length matching: cv2.imwrite's default speed
+    setting; zlib's default 6 otherwise)."""
     img = np.asarray(img)
     if img.ndim == 2 and img.dtype in (np.uint8, np.uint16):
         ch, depth = 1, 8 * img.dtype.itemsize
@@ -387,5 +389,10 @@ def write_png(path: str, img: np.ndarray, filter_type: int = 0) -> None:
     with open(path, "wb") as f:
         f.write(SIGNATURE)
         f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, 0)))
-        f.write(chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
+        if level == 1:
+            z = zlib.compressobj(1, zlib.DEFLATED, 15, 8, zlib.Z_RLE)
+            data = z.compress(rows.tobytes()) + z.flush()
+        else:
+            data = zlib.compress(rows.tobytes(), level)
+        f.write(chunk(b"IDAT", data))
         f.write(chunk(b"IEND", b""))

@@ -5,8 +5,9 @@ pair synchronously on the tracking thread (stereo_kitti.cc:444-468:
 cv::imread + optional cv::remap per frame). Here decode and rectification
 run ahead of the consumer on a thread pool, so the driver's per-frame cost
 is a queue pop. Decoding (zlib and the compiled row unfilter of
-io/png.py) and rectification (torch) release the interpreter lock, so the
-workers overlap the tracking thread.
+io/png.py, the compiled entropy decoder and numpy of io/jpeg.py) and
+rectification (torch) release the interpreter lock for much of their work,
+so the workers overlap the tracking thread.
 
 The JAX package also has a native C++ worker pool (``native/src/
 ivslam_io.cpp``), used where it is built. It decodes with OpenCV, which the
@@ -29,8 +30,8 @@ from typing import Sequence, Tuple
 
 import numpy as np
 
-from . import png, rectify
-from .datasets import load_gray
+from . import rectify
+from .datasets import load_gray, read_image
 
 
 def native_available() -> bool:
@@ -71,7 +72,7 @@ class StereoPrefetcher:
             if right_mode == "skip":
                 right = None
             elif right_mode == "unchanged":
-                right = png.read_png(right_paths[i], "unchanged")
+                right = read_image(right_paths[i], "unchanged")
             else:
                 right = load_gray(right_paths[i])
             if maps_l is not None:

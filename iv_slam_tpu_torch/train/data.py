@@ -8,14 +8,14 @@ cropped size, resizes it to the network input and the targets to 1/8 of
 it (TARGET_DOWNSAMPLING), grey -> 3 channels, ImageNet normalization;
 optional binarization at 180 (load_images.py:38).
 
-The package reads images with ``io/png.py::read_png`` (imageio's arrays),
-and resizes uint8 images with ``resize_linear``: OpenCV's INTER_LINEAR
+The package reads images with ``io/datasets.py::read_image`` (PNG or JPEG,
+imageio's arrays), and resizes uint8 images with ``resize_linear``: OpenCV's INTER_LINEAR
 geometry (half-pixel centres, edge pixels repeated, no antialiasing),
 computed in float64 and rounded half up. OpenCV computes in fixed point
 (11-bit weights), so a pixel may come out one grey level from cv2's (the
 JAX package resizes with cv2): ``tests/test_torch_train_data.py`` bounds
-it. JPEG decoding needs a decoder the port does not have yet: the
-post-processing dataset's ``.jpg`` network outputs are ROADMAP A14b.
+it. The post-processing dataset reads the reference's ``.jpg`` network
+outputs where no PNG of the name exists, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..io.png import read_png
+from ..io.datasets import read_image
 from ..models.introspection import IMAGENET_MEAN, IMAGENET_STD
 
 TARGET_DOWNSAMPLING = 8
@@ -102,10 +102,10 @@ class ImageQualityDataset:
 
     def __getitem__(self, i: int) -> Sample:
         session, raw_path, hm_path, mask_path, name = self.entries[i]
-        raw = read_png(raw_path)
+        raw = read_image(raw_path)
         if raw.ndim == 2:
             raw = np.stack([raw] * 3, axis=-1)
-        hm = read_png(hm_path)
+        hm = read_image(hm_path)
         if hm.ndim == 3:
             hm = hm[..., 0]
         # crop raw to the heatmap's (cropped) size (train_modular.py:189-231)
@@ -119,7 +119,7 @@ class ImageQualityDataset:
         if self.binarize:
             tgt = (tgt * 255.0 > BINARIZE_THRESH).astype(np.float32)
         if mask_path is not None:
-            m = read_png(mask_path)
+            m = read_image(mask_path)
             if m.ndim == 3:
                 m = m[..., 0]
             mask = (resize_linear(m, tw, th) > 127).astype(np.float32)
@@ -219,19 +219,17 @@ class ImageQualityDatasetPP:
 
     def __getitem__(self, i: int) -> PPSample:
         e = self.entries[i]
-        raw = read_png(e["raw"])
+        raw = read_image(e["raw"])
         if raw.ndim == 2:
             raw = raw[..., None]
-        score = read_png(e["score"])
+        score = read_image(e["score"])
         if score.ndim == 3:
             score = score[..., 0]
         net_path = e["net"]
         if not os.path.exists(net_path):
             # the reference stores network outputs as .jpg
-            raise NotImplementedError(
-                f"{net_path} is missing and its .jpg form needs a JPEG decoder, which "
-                "the port does not have yet (ROADMAP A14b)")
-        net = read_png(net_path)
+            net_path = os.path.splitext(net_path)[0] + ".jpg"
+        net = read_image(net_path)
         if net.ndim == 3:
             net = net[..., 0]
         h, w = score.shape

@@ -26,8 +26,11 @@ inference_cost_map (itself held against JAX in test_torch_fcn.py), its
 eval loss the port's eval_loss. Mono and RGB-D are not run end to end
 against the JAX drivers: test_torch_mono_rgbd.py holds the two Systems
 against each other, and the recorder holds the drivers' inputs.
-Flags whose feature is not ported raise NotImplementedError naming their
-ROADMAP item, and no driver runs on the CPU unless asked.
+The viewer flags (--enable_viewer, --live_viewer_port, --logging_level)
+leave run_stereo's trajectory bit-equal and draw what the reference's driver
+draws; evaluate_batch --viz writes the reference's figures. Flags whose
+feature is not ported raise NotImplementedError naming their ROADMAP item,
+and no driver runs on the CPU unless asked.
 """
 
 import dataclasses
@@ -187,18 +190,184 @@ def test_identity_rectification_is_bit_identical(kitti):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--enable_viewer"], "A14b"), (["--live_viewer_port", "8080"], "A14b"),
-    (["--logging_level", "1"], "A14b"), (["--no-run_single_threaded"], "A7"),
-    (["--prewarm"], "A7"), (["--chained_tracking"], "A7")])
+    (["--no-run_single_threaded"], "A7"), (["--prewarm"], "A7"), (["--chained_tracking"], "A7")])
 def test_unported_flags_raise(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=item):
         run_stereo.main(["--data_path", str(tmp_path), "--device", "cpu", *flags])
 
 
-def test_evaluate_batch_viz_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="A14b"):
-        evaluate_batch.main(["--results_root", str(tmp_path), "--gt_root", str(tmp_path),
-                             "--sessions", "a", "--viz"])
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _mjpeg_parts(port, path, n, out, timeout=60.0):
+    """A client: read `n` JPEG parts of the live viewer's `path`, retrying
+    until the server is up; appends the parts to `out`."""
+    import time
+    import urllib.request
+
+    end = time.monotonic() + timeout
+    while time.monotonic() < end:
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as r:
+                while len(out) < n:
+                    assert r.readline().strip() == b"--ivframe"
+                    head = {}
+                    while (line := r.readline().strip()):
+                        k, v = line.decode().split(":", 1)
+                        head[k.strip().lower()] = v.strip()
+                    out.append(r.read(int(head["content-length"])))
+                    r.readline()
+            return
+        except OSError:
+            time.sleep(0.05)
+
+
+@pytest.mark.parametrize("flags", [["--enable_viewer"], ["--live_viewer_port"],
+                                   ["--logging_level", "1", "--create_ivslam_dataset"]],
+                         ids=["enable_viewer", "live_viewer_port", "logging_level"])
+def test_viewer_flags_keep_the_trajectory(kitti, tmp_path, flags):
+    """Each viewer flag draws what the reference's driver draws and leaves
+    the trajectory bit-equal to the run without it: --enable_viewer writes
+    one frame overlay a frame and the map every 10th; --live_viewer_port
+    streams MJPEG parts that decode to the frame's size; --logging_level 1
+    (with training-data generation) writes decodable debug JPEGs."""
+    import threading
+
+    from iv_slam_tpu_torch.io import jpeg
+
+    out = tmp_path / "out"
+    argv = [a if a != str(kitti["out"]) else str(out) for a in kitti["argv"]]
+    parts = []
+    if flags == ["--live_viewer_port"]:
+        port = _free_port()
+        flags = ["--live_viewer_port", str(port)]
+        client = threading.Thread(target=_mjpeg_parts, args=(port, "/frame.mjpg", 2, parts),
+                                  daemon=True)
+        client.start()
+    stats = run_stereo.main(argv + flags)
+    assert stats["frames"] == N_FRAMES and stats["failures"] == 0
+    assert _read(out / "Trajectory_KITTI_000.txt") == \
+        _read(kitti["out"] / "Trajectory_KITTI_000.txt")
+    if flags == ["--enable_viewer"]:
+        frames = sorted(os.listdir(out / "frames"))
+        assert frames == [f"frame_{i:06d}.png" for i in range(N_FRAMES)]
+        assert sorted(os.listdir(out / "map")) == ["map_000000.png", "map_000010.png"]
+        assert read_png(str(out / "frames" / frames[-1])).shape == (240, 320, 3)
+        assert read_png(str(out / "map" / "map_000010.png")).shape == (800, 800, 3)
+    elif flags[0] == "--live_viewer_port":
+        client.join(timeout=30)
+        assert len(parts) == 2
+        for p in parts:
+            assert jpeg.decode(p, "bgr").shape == (240, 320, 3)
+        assert stats["viewer"]["publish_calls"] == N_FRAMES
+    else:
+        names = sorted(os.listdir(out / "epipolar_err_vec"))
+        assert names and sorted(os.listdir(out / "bad_region_heatmap_vis")) == names
+        for n in names:
+            assert jpeg.read_jpeg(str(out / "epipolar_err_vec" / n), "bgr").shape == (240, 320, 3)
+        assert stats["viewer"]["debug_calls"] == len(names)
+
+
+def test_evaluate_batch_viz(tmp_path):
+    """--viz writes the reference's three figures beside evaluation.json:
+    sessions in SORT_TRAJ order (the first mode's failures, most first),
+    a bar a mode and session, each bar's pixel height its value over the
+    panel's top value within 1 px."""
+    from iv_slam_tpu_torch.examples import figures
+
+    rng = np.random.default_rng(12)
+    fails = {"s1": (1, 3), "s2": (4, 0), "s3": (2, 2)}
+    for sess, ks in fails.items():
+        gt = _trajectories(rng, 12)
+        trajectory.save_kitti(str(tmp_path / f"{sess}.txt"), gt)
+        for mode, k in zip(("ORB_SLAM", "IV_SLAM"), ks):
+            d = tmp_path / "res" / mode / sess
+            d.mkdir(parents=True)
+            est = [T.copy() for T in gt]
+            for T in est:
+                T[:3, 3] += rng.normal(0, 0.05, 3)
+            trajectory.save_kitti(str(d / "Trajectory_KITTI_000.txt"), est)
+            (d / "failure_log.txt").write_text("1.0\n" * k)
+    out = tmp_path / "eval" / "evaluation.json"
+    out.parent.mkdir()
+    report = evaluate_batch.main(["--results_root", str(tmp_path / "res"), "--gt_root",
+                                  str(tmp_path), "--sessions", "s1", "s2", "s3", "--viz",
+                                  "--out", str(out)])
+    names = ("rpe_trans.png", "rpe_rot.png", "failure_counts.png")
+    assert sorted(os.listdir(out.parent)) == sorted(names + ("evaluation.json",))
+    bars = evaluate_batch.render_viz(report, ["ORB_SLAM", "IV_SLAM"], str(tmp_path))
+    plot_h = 600 - figures.TOP - figures.BOTTOM
+    for (key, _, fname) in evaluate_batch.PANELS:
+        img = read_png(str(out.parent / fname))[..., ::-1]            # BGR
+        assert img.shape == (600, 1050, 3)
+        got = bars[fname]
+        assert [b["session"] for b in got[::2]] == ["s2", "s3", "s1"]
+        assert [b["mode"] for b in got[:2]] == ["ORB_SLAM", "IV_SLAM"]
+        top = figures._nice_top(max(b["value"] for b in got))
+        for b in got:
+            assert b["value"] == report[b["mode"]][b["session"]][key]
+            col = img[:, (b["x0"] + b["x1"]) // 2]
+            color = figures.SERIES[["ORB_SLAM", "IV_SLAM"].index(b["mode"])]
+            height = int((col == color).all(-1).sum())
+            assert abs(height - b["value"] / top * plot_h) <= 1, (fname, b, height)
+
+
+@pytest.mark.parametrize("separate", [False, True], ids=["one_figure", "separate_graphs"])
+def test_evaluate_viz(tmp_path, separate):
+    """evaluate_viz writes the JAX driver's files (evaluation.png, or one
+    <metric>.png a metric), sessions sorted by the first mode's failures,
+    each bar's pixel height its value over the panel's top within 1 px."""
+    from iv_slam_tpu_torch.examples import evaluate_viz, figures
+
+    report = {"ORB_SLAM": {"s1": dict(rpe_trans=0.2, ate_rmse=1.5, failures=1),
+                           "s2": dict(rpe_trans=0.05, ate_rmse=0.4, failures=3),
+                           "__aggregate__": dict(failures=4)},
+              "IV_SLAM": {"s1": dict(rpe_trans=0.1, ate_rmse=0.9, failures=0),
+                          "s2": dict(rpe_trans=0.04, ate_rmse=0.3, failures=1)}}
+    path = tmp_path / "evaluation.json"
+    path.write_text(json.dumps(report))
+    out = tmp_path / "plots"
+    bars = evaluate_viz.main(["--report", str(path), "--out_dir", str(out)]
+                             + (["--separate_graphs"] if separate else []))
+    want = ([f"{m}.png" for m, _ in evaluate_viz.METRICS] if separate else ["evaluation.png"])
+    assert sorted(os.listdir(out)) == sorted(want)
+    for fname, panels in bars.items():
+        img = read_png(str(out / fname))[..., ::-1]
+        panel_h = img.shape[0] // len(panels)
+        for (metric, _), got in zip(evaluate_viz.METRICS if not separate else
+                                    [m for m in evaluate_viz.METRICS if f"{m[0]}.png" == fname],
+                                    panels):
+            assert [b["session"] for b in got[::2]] == ["s2", "s1"]
+            top = figures._nice_top(max(b["value"] for b in got))
+            for b in got:
+                assert b["value"] == report[b["mode"]][b["session"]][metric]
+                col = img[b["top"] - 2:b["bottom"] + 2, (b["x0"] + b["x1"]) // 2]
+                color = figures.SERIES[["ORB_SLAM", "IV_SLAM"].index(b["mode"])]
+                height = int((col == color).all(-1).sum())
+                plot_h = panel_h - figures.TOP - figures.BOTTOM
+                assert abs(height - b["value"] / top * plot_h) <= 1, (fname, b, height)
+
+
+def test_run_ar_demo(kitti, tmp_path):
+    """The AR demo over the KITTI layout: an overlay PNG a frame at the
+    image's size; once the plane is found, the cube's coloured lines are
+    drawn on the grey frame."""
+    from iv_slam_tpu_torch.examples import run_ar_demo
+
+    res = run_ar_demo.main(["--data_path", str(kitti["seq"]), "--settings_path",
+                            str(kitti["root"] / "settings.yaml"), "--out_path", str(tmp_path),
+                            "--min_obs", "0", "--device", "cpu"])
+    assert [os.path.basename(p) for p in res["frames"]] == [f"{i:06d}.png" for i in
+                                                            range(N_FRAMES)]
+    last = read_png(res["frames"][-1])
+    assert last.shape == (240, 320, 3)
+    assert res["plane"]
+    assert (last[..., 0] != last[..., 1]).any()        # colour drawn on grey
 
 
 @pytest.mark.parametrize("mod,argv", [

@@ -27,7 +27,7 @@ from iv_slam_tpu.parallel.replay import make_replay_mesh
 from iv_slam_tpu_torch import config as tconfig
 from iv_slam_tpu_torch.introspection import feature_evaluator as tfe
 from iv_slam_tpu_torch.parallel.datagen import ShardedDatagen
-from iv_slam_tpu_torch.train.data import read_png
+from iv_slam_tpu_torch.io.png import read_png
 from torch_parity import one_thread  # noqa: F401 (fixture)
 
 pytestmark = pytest.mark.usefixtures("one_thread")
