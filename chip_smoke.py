@@ -38,7 +38,9 @@ It drives the port only (no JAX, nothing of ``iv_slam_tpu``):
      switches at their defaults: unchained, single-threaded, synchronous
      local BA), K1-K3 counted (once a frame); fails on a lost frame, an ATE
      above 0.5 m or a T_CAP/F_CAP overflow; prints fps over frames 15-120,
-     the ATE and per-stage host medians; then one recorded triangulation,
+     the ATE and per-stage host medians (its state after 30 and 60 frames
+     and the card's busy share over the first 60 are phase 14's inline
+     run); then one recorded triangulation,
      fuse and local-BA call of the run again on the CPU path (compared) and
      the BA again on the card (bit-equal);
   6. introspection, at full width: the FCN (MobileNetV2-dilated +
@@ -50,20 +52,22 @@ It drives the port only (no JAX, nothing of ``iv_slam_tpu``):
      uint8 map within 1), two card runs bit-equal; (b) the frontend with
      that cost map: every Frame field of the card equal to the CPU path's,
      the attached FCN equal to the explicit cost map, K1-K3 once a frame on
-     the quality path, no host sync inside a frame; (c) bench.py's
-     120-frame loop through System with the FCN attached (fails on a lost
-     frame, an ATE above 0.5 m or a cap overflow), beside phase 5's ATE;
+     the quality path, no host sync inside a frame; (c) the first 60
+     frames of bench.py's loop through System with the FCN attached (fails
+     on a lost frame, an ATE above 0.5 m or a cap overflow), beside phase
+     5's ATE and frames/s over the same frames;
   7. loop closing, at bench.py's LC world and configuration
      (tests/synth_world.py DistinctTerrainWorld, seed 3, 320x240, 1.45 laps
      of a 6 m circle; 800 features, 8 levels, fused tracking, unchained,
      single-threaded, synchronous local BA): a vocabulary trained by the
-     port (k=10, L=6, seed 0) on the descriptors of every third frame;
+     port (k=10, L=6, seed 0) on the descriptors of every third of the
+     first 121 frames;
      K1-K3 held bit for bit against their plain versions on the inputs of
      LC-world frames 0 and 120 (320x240, levels down to 89x67) and FAST on
      noise at 320x240, before the runs; (a) the first 30 frames without a
      vocabulary, the control (beside (b)'s ATE over the same frames), and
-     (b) 240 frames with it attached and use_bow and loop closing on, each
-     failing on a lost
+     (b) the first 120 frames with it attached and use_bow and loop
+     closing on, each failing on a lost
      frame, an ATE above 0.5 m or a cap overflow, K1-K3 counted; the first
      30 frames of (b) again on the CPU path (the same keyframes, points,
      observations, keyframe database and loop-closing state, poses within
@@ -77,15 +81,15 @@ It drives the port only (no JAX, nothing of ``iv_slam_tpu``):
      config.load_reference_yaml, distortion set to zero for the ideal
      pinhole renderer), fused tracking: (a) K1 and K2 bit for bit against
      their plain versions on the inputs of each world's frame 0 and FAST on
-     noise at each size; (b) mono, 60 frames of tests/test_mono_rgbd.py's
+     noise at each size; (b) mono, 40 frames of tests/test_mono_rgbd.py's
      TwoPlaneWorld path through System.track_mono: it initialises, stays OK,
      moves along the ground truth (direction cosine > 0.95), K1/K2/K3
-     launches 60/60/0, and every search_for_initialization and
+     launches 40/40/0, and every search_for_initialization and
      initialize_mono call again on the CPU path with the card's draws (the
      same model, hypotheses, inliers and is_good set, R, t and the good
-     points within 1e-4); (c) RGB-D, 60 frames of a TwoPlaneWorld seen from 2.5 m (depth
+     points within 1e-4); (c) RGB-D, 40 frames of a TwoPlaneWorld seen from 2.5 m (depth
      as TUM's uint16 at 1/5000) through System.track_rgbd: no frame lost,
-     ATE below 0.5 m, launches 60/60/0;
+     ATE below 0.5 m, launches 40/40/0;
   9. training-data generation at KITTI geometry (settings/KITTI00-02.yaml,
      2000 features) on tests/test_introspection_helps.py's ReflectionWorld
      (seed 5) and serpentine path, GT poses on every frame: (a) supervised
@@ -114,9 +118,10 @@ It drives the port only (no JAX, nothing of ``iv_slam_tpu``):
      geometry and loaded on the card, its map of a phase 9 frame bit-equal
      to the eager one; (e) the trained net attached to System on phase 9's
      world for 30 frames (0 lost, K1-K3 once a frame, ATE below 0.5 m);
-     (f) one training step of every zoo encoder with c1 and every decoder
-     on resnet50dilated at 512x512, batch 8 (step ms, peak memory), each
-     card against CPU path at 128x128, batch 2; (g) two ranks on the one
+     (f) one training step of every zoo encoder up to 50 layers with c1
+     (ResNeXt-101 and HRNetV2 included) and every decoder on
+     resnet50dilated at 512x512, batch 8 (step ms, peak memory), each card
+     against CPU path at 64x64, batch 2, in float64; (g) two ranks on the one
      card through gloo, the split-batch step against the one-rank step;
      (h) ShardedReplay over 16 frames of the full loop's world with phase
      7's vocabulary, bit-equal to StereoFrontend.process, bow_nodes equal
@@ -127,9 +132,10 @@ It drives the port only (no JAX, nothing of ``iv_slam_tpu``):
      Paeth-filtered, times.txt, a KITTI-format GT file), every file decoded
      back equal to the rendered image, the decode's ms a pair, the row
      unfilter's ms a pair beside its plain NumPy version's and its build
-     time; (b) run_stereo in process over them with --fused_tracking
+     time; (b) run_stereo in process over the first 60 with --fused_tracking
      --profile_stages: 0 failures, ATE < 0.5 m, every output file, its
-     Trajectory_KITTI_000.txt bit-equal to phase 5's in-memory trajectory,
+     Trajectory_KITTI_000.txt bit-equal to phase 5's in-memory trajectory
+     after as many frames,
      K1-K3 once a frame; (c) --rectify_images with identity LEFT./RIGHT.
      blocks bit-identical to no rectification over 12 frames, and remap's
      ms a pair at settings/EuRoC_stereo.yaml's maps, host and card (equal);
@@ -171,20 +177,38 @@ It drives the port only (no JAX, nothing of ``iv_slam_tpu``):
      at quality 95, decode, mean abs error within 3 grey levels), the ms a
      pair, the C entropy coder's decode beside its plain Python version's
      (bit-equal);
- 14. from torch.profiler, after every phase that times the host: each
+ 14. the thread architecture (the reference's System.cc:172-197), on phase
+     5's frames and phase 7's LC world: (a) the first 60 frames three ways,
+     inline (phase 5's run, read after 60 frames), the LocalMapping worker
+     with the async local BA (bench.py's threading) and the async local BA
+     alone (its helper thread): each 0 lost frames, ATE < 0.5 m, K1-K3
+     once a frame, each threaded run's cross-ATE to the inline run < 0.10
+     m, no worker exception and at least 2 events on the worker, K1-K3's
+     outputs on frames submitted while the worker had events queued
+     bit-equal to their plain versions; each run's frames/s, keyframes,
+     map points, largest pending count, local-BA merges at the per-frame
+     poll and at a forced join, the median event's host ms and the card's
+     busy share (NVML utilization.gpu sampled by nvidia-smi); (b) the
+     first 30 frames through the worker without the async BA, each
+     kick_async waiting for the worker's queue: bit-equal to phase 5's run
+     after 30 frames (keyframe stamps, map points, trajectory); (c) 40
+     frames of the LC world with the vocabulary, use_bow and loop closing
+     on, through the worker and the async BA: 0 lost, ATE < 0.5 m, the
+     worker's post-event hook running loop closing at every event;
+ 15. from torch.profiler, after every phase that times the host: each
      kernel's device time, the tracking step's device time and kernel
      launches, a profile of whole frames, one keyframe event (device ms,
      launches, host syncs), and the FCN's and a weighted frame's device
      time and launches;
- 15. prints one {"tracking": {...}} line, one {"full_loop": {...}} line, one
+ 16. prints one {"tracking": {...}} line, one {"full_loop": {...}} line, one
      {"introspection": {...}} line, one {"loop_closing": {...}} line, one
      {"mono_rgbd": {...}} line, one {"datagen": {...}} line, one
      {"training": {...}} line, one {"drivers": {...}} line, one
-     {"claims": {...}} line, one {"drawing": {...}} line, one {"kernels":
-     [...]} line (with each kernel's launches on the introspection,
-     loop-closing, mono, RGB-D, datagen, replay, sharded-datagen, run_stereo,
-     run_mono, run_rgbd, extract_octtree, claims and viewer runs too) and,
-     last, the status line.
+     {"claims": {...}} line, one {"drawing": {...}} line, one {"threads":
+     {...}} line, one {"kernels": [...]} line (with each kernel's launches
+     on the introspection, loop-closing, mono, RGB-D, datagen, replay,
+     sharded-datagen, run_stereo, run_mono, run_rgbd, extract_octtree,
+     claims, viewer and worker runs too) and, last, the status line.
 
 A phase that fails is reported and the script exits 1 without a result.
 With no CUDA device, or run outside a checkout, it exits 2 at once.
@@ -216,11 +240,22 @@ FX = 718.856
 N_TRACK_A = 14          # frames tracked after frame 0 in part (a)
 KF_EVERY_B = 20         # part (b): a keyframe every 20 frames (16 m at 0.8 m/frame)
 N_KF_B, N_TRACK_B = 5, 14
-STEP_PROFILE_ITERS = 2
+STEP_PROFILE_ITERS = 1   # 2 until PR 13 needed the time for phase 14
 PROFILE_TRIES = 4       # profiler sessions a kernel gets to show one event a call
 
 # full loop: bench.py's bench_full_loop (n_frames, ramp)
 N_LOOP, RAMP = 120, 15
+# the thread architecture (phase 14): frames of (a)'s three runs, of (b)'s
+# serialized worker and of (c)'s LC-world run; the cross-ATE gate of a
+# threaded run against the inline one (tests/test_threaded_mapping.py:60);
+# frames whose kernel outputs the worker's run records
+N_THR, N_THR_SERIAL, N_THR_LC = 60, 30, 40
+# frames of phase 6 (c)'s loop with the FCN and of phase 11 (b)'s
+# run_stereo: phase 5's first N_THR, beside its state there (120 until PR
+# 13 needed the time for phase 14)
+N_INTRO_LOOP = N_DRV = N_THR
+THR_CROSS_ATE = 0.10
+THR_RECORD_FRAMES = 3
 RECORD_CALL = 5         # the 5th call of each keyframe-event function is recorded
 TRI_MAX_ULP = 4         # card vs CPU limit on a triangulated coordinate
 
@@ -234,6 +269,11 @@ N_INTRO_FRAMES = 10
 # loop closing: bench.py's LC world (bench.py:378-413) and configuration
 # (bench.py:463-471), frames of each run, frames held card against CPU
 N_LC, N_LC_CPU = 240, 30
+# frames of run (b): the first half of bench.py's 240-frame path (240
+# until PR 13 needed the time for phase 14; no loop closes on this world,
+# and the correction runs on a manufactured revisit), rendered with its
+# next frame, which lc_kernels checks
+N_LC_RUN = 120
 # frames of the control run (a), without a vocabulary: the first N_LC_CPU
 # (240 until the claims phase needed the time; no loop closes on this
 # world, and the control stands beside run (b)'s first N_LC_CPU frames;
@@ -251,8 +291,8 @@ LC_POSE_ATOL = 2e-3     # card vs CPU path over N_LC_CPU frames (translation m, 
 # "NVIDIA H100 80GB HBM3, 700.00 W": one ulp at ~150 baselines); the
 # parallax check keeps points within ~160 baselines, where a few ulps stay
 # below 1e-4
-MONO_SEED, N_MONO = 23, 60
-RGBD_SEED, N_RGBD = 29, 60
+MONO_SEED, N_MONO = 23, 40   # 60 each until PR 13 needed the time for phase 14
+RGBD_SEED, N_RGBD = 29, 40
 RGBD_PLATFORM = (-0.6, 0.6, -0.45, 0.45)
 RGBD_TEX_PX_PER_M = 200.0
 INIT_ATOL = 1e-4
@@ -277,16 +317,22 @@ DG_BAND_ALPHA = 0.75
 # step: the tolerances tests/test_torch_train.py holds the port to against
 # JAX (loss 1e-5 relative, parameters 2e-3 after a step at lr 0.02,
 # running means 1e-5, running variances 1e-4 relative). The zoo's pairs at
-# 128x128, batch 2, compare in float64: in float32 the BatchNorms over
-# their small maps are ill-conditioned (on an "NVIDIA H100 80GB HBM3,
+# ZOO_CHECK_HW, batch 2, compare in float64: in float32 the BatchNorms
+# over their small maps are ill-conditioned (on an "NVIDIA H100 80GB HBM3,
 # 700.00 W" the card and the CPU path parted by up to 1.8e-4 in the loss
-# and 9% in the update's largest entry for the C1 pairs), so float32 shows
-# mostly that noise; in float64 they agree to 2.1e-13 (loss, relative)
-# and 7.6e-12 (the update, of its largest entry), held to 1e-8 and 1e-6
+# and 9% in the update's largest entry for the C1 pairs at 128x128), so
+# float32 shows mostly that noise; in float64 they agree to 2.1e-13 (loss,
+# relative) and 7.6e-12 (the update, of its largest entry) at 128x128, to
+# 8.4e-13 and 1.3e-11 at 64x64, held to 1e-8 and 1e-6. The zoo is cut at
+# 50 layers (ZOO_SKIP: the 101-layer ResNets, whose blocks the 18- and
+# 50-layer ones run; ResNeXt and HRNet have one depth each and stay) and
+# checked at 64x64 (128x128 until PR 13): ~20 s for phase 14
 TR_VAL, TR_EPOCHS, TR_BATCH, TR_LOOP, N_REPLAY = 8, 3, 8, 30, 16
 TR_LOSS_RTOL, TR_PARAM_ATOL, TR_MEAN_ATOL, TR_VAR_RTOL = 1e-5, 2e-3, 1e-5, 1e-4
 TR_STATS_ATOL = 1e-5
 ZOO_LOSS_RTOL, ZOO_UPDATE_RTOL = 1e-8, 1e-6
+ZOO_CHECK_HW = (64, 64)
+ZOO_SKIP = ("resnet101", "resnet101dilated")
 
 # the dataset drivers (phase 11): frames of the rectification runs and of
 # the mono and RGB-D driver runs; extract_octtree's card-vs-CPU angle limit
@@ -372,6 +418,52 @@ def event_ms(torch, fn, iters=50, warmup=3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+class GpuBusy:
+    """The card's busy share over a block: NVML's utilization.gpu (the share
+    of each sample period in which a kernel ran), sampled every 100 ms by
+    nvidia-smi in a child process that the block's end stops. share is None
+    when nvidia-smi gave no sample."""
+
+    def __enter__(self):
+        import threading
+
+        self.samples = []
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "-i", "0", "--query-gpu=utilization.gpu",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+
+        def read():
+            for line in self.proc.stdout:
+                try:
+                    self.samples.append(float(line.strip()) / 100.0)
+                except ValueError:
+                    pass
+
+        self.reader = threading.Thread(target=read, daemon=True)
+        self.reader.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop()
+        return False
+
+    def stop(self):
+        """End the sampling (once; a second call does nothing)."""
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+            self.reader.join(timeout=10)
+            # the first sample covers the time before the block
+            xs = self.samples[1:]
+            self.n = len(xs)
+            self.share = float(np.mean(xs)) if xs else None
 
 
 def dev_us(e) -> float:
@@ -509,6 +601,7 @@ class Smoke:
         self.drv = None
         self.cl = None
         self.vw = None
+        self.thr = None
 
     def phase(self, name, fn, *args):
         t0 = time.perf_counter()
@@ -1165,12 +1258,19 @@ class Smoke:
         for m in self.counters().values():
             m.launches = 0
         frame_ms, submit_ms = [], []
+        # the inline run of phase 14 (a) and (b) is this run's first
+        # N_THR and N_THR_SERIAL frames
+        events = self._thr_events(tr.local_mapping)
+        busy = GpuBusy().__enter__()
+        inline = {}
         try:
             handle = s.submit_frontend(*pairs[0])
             torch.cuda.synchronize()
-            t_start = None
+            t_first, t_start = time.perf_counter(), None
             for i in range(N_LOOP):
                 cur = handle
+                if i + 1 == N_THR:   # the first N_THR frames' launches
+                    launches_thr = {k: m.launches for k, m in self.counters().items()}
                 if i + 1 < N_LOOP:
                     t0 = time.perf_counter()
                     handle = s.submit_frontend(*pairs[i + 1])
@@ -1181,11 +1281,24 @@ class Smoke:
                 if i == RAMP - 1:
                     torch.cuda.synchronize()
                     t_start = time.perf_counter()
+                if i + 1 == N_THR:
+                    torch.cuda.synchronize()
+                    t_thr = time.perf_counter()
+                    busy.stop()
+                    inline[N_THR] = dict(
+                        self._thr_state(s), fps=(N_THR - RAMP) / (t_thr - t_start),
+                        fps_all=N_THR / (t_thr - t_first), events=list(events),
+                        frontend_launches=launches_thr, device_busy_share=busy.share,
+                        device_busy_samples=busy.n)
+                if i + 1 == N_THR_SERIAL:
+                    inline[N_THR_SERIAL] = self._thr_state(s)
             torch.cuda.synchronize()
             elapsed = time.perf_counter() - t_start
         finally:
+            busy.stop()
             for name, mod, fn in hooks:
                 setattr(mod, fn, origs[name])
+        t.thr_inline = inline
         launches = {k: m.launches for k, m in self.counters().items()}
         fps = (N_LOOP - RAMP) / elapsed
         est = s.trajectory_twc()
@@ -1485,8 +1598,9 @@ class Smoke:
         require(not syncs, f"host syncs inside a frame, at: {sorted(set(syncs))}")
 
     def intro_loop(self):
-        """(c) bench.py's 120-frame loop through System with the FCN
-        attached: every frame's cost map from the FCN on the card."""
+        """(c) The first N_INTRO_LOOP frames of bench.py's loop through
+        System with the FCN attached: every frame's cost map from the FCN
+        on the card; beside phase 5's run over the same frames."""
         torch, port, it, t = self.torch, self.port, self.intro, self.trk
         cfg = copy.deepcopy(t.cfg)
         cfg.system.fused_tracking = True
@@ -1501,9 +1615,9 @@ class Smoke:
         quals = []
         handle = s.submit_frontend(*pairs[0])
         torch.cuda.synchronize()
-        for i in range(N_LOOP):
+        for i in range(N_INTRO_LOOP):
             cur = handle
-            if i + 1 < N_LOOP:
+            if i + 1 < N_INTRO_LOOP:
                 t0 = time.perf_counter()
                 handle = s.submit_frontend(*pairs[i + 1])
                 submit_ms.append((time.perf_counter() - t0) * 1e3)
@@ -1515,19 +1629,22 @@ class Smoke:
             if fr.xy is not None:
                 quals.append(float(fr.qual_score[fr.valid].mean()))
         torch.cuda.synchronize()
-        fps = (N_LOOP - RAMP) / (time.perf_counter() - t_start)
+        fps = (N_INTRO_LOOP - RAMP) / (time.perf_counter() - t_start)
         launches = {k: m.launches for k, m in self.counters().items()}
-        ate = port["trajectory"].ate_rmse(s.trajectory_twc(), gt)
+        ate_rmse = port["trajectory"].ate_rmse
+        ate = ate_rmse(s.trajectory_twc(), gt[:N_INTRO_LOOP])
         lm, m = s.tracking.local_mapping, s.tracking.map
-        plain_ate = t.loop["full_loop_ate_m"]
+        plain = t.thr_inline[N_INTRO_LOOP]
+        plain_ate = ate_rmse(list(plain["twc"]), gt[:N_INTRO_LOOP])
         fused = [a + b for a, b in zip(stage_ms(timer, "fused_dispatch"),
                                        stage_ms(timer, "fused_readback"))]
         host = dict(submit=float(np.median(submit_ms)),
                     fused_step=float(np.median(fused)) if fused else None,
                     keyframe_event=median_ms(timer, "keyframe_event"))
-        out = dict(frames=N_LOOP, failures=int(s.failure_count), state=s.state.name,
+        out = dict(frames=N_INTRO_LOOP, failures=int(s.failure_count), state=s.state.name,
                    host_ms_median=host, keyframe_events=len(stage_ms(timer, "keyframe_event")),
-                   fps=fps, ate_m=ate, ate_m_without_introspection=plain_ate,
+                   fps=fps, fps_without_introspection=plain["fps"], ate_m=ate,
+                   ate_m_without_introspection=plain_ate,
                    keyframes=int(m.n_keyframes), map_points=int(m.n_points),
                    map_points_alive=int(m.pt_alive[:m.n_points].sum()),
                    keypoint_quality_mean=float(np.mean(quals)) if quals else None,
@@ -1535,15 +1652,16 @@ class Smoke:
         it.out["loop"] = out
         for k, v in launches.items():
             self.kernels[k]["launches_introspection"] = v
-        print(f"introspection (c): {N_LOOP} frames through System with the FCN attached: "
+        print(f"introspection (c): {N_INTRO_LOOP} frames through System with the FCN attached: "
               f"{out['failures']} failures, state {out['state']}, {out['keyframes']} "
               f"keyframes, {out['map_points']} map points ({out['map_points_alive']} alive); "
               f"ATE {ate:.4f} m (without introspection, phase 5: {plain_ate:.4f} m); "
-              f"{fps:.3f} frames/s over frames 15-120; mean keypoint quality "
+              f"{fps:.3f} frames/s over frames {RAMP}-{N_INTRO_LOOP} (phase 5: "
+              f"{plain['fps']:.3f}); mean keypoint quality "
               f"{out['keypoint_quality_mean']}; K1-K3 launches {launches}; host ms "
               f"(median) {json.dumps(host)} (without introspection, phase 5: "
               f"{json.dumps({k: t.loop['host_ms_median'][k] for k in host})})")
-        want = {k: N_LOOP for k in launches}
+        want = {k: N_INTRO_LOOP for k in launches}
         require(launches == want, f"launch counts {launches} != {want}")
         require(s.failure_count == 0 and s.state.name == "OK",
                 f"{s.failure_count} failures, state {s.state.name}")
@@ -1570,10 +1688,11 @@ class Smoke:
     def lc_setup(self):
         """bench.py's LC world (_lc_world(240)): DistinctTerrainWorld, seed 3,
         320x240, fx = fy = 400, baseline 0.5, 1.45 laps of a 6 m circle with
-        the yaw following the path; its configuration (bench.py:463-471);
-        and the vocabulary of _lc_corpus_vocab (bench.py:416-445): the port's
-        Vocabulary.train(k=10, L=6, seed=0) on the port's own descriptors of
-        every third frame's left image, extracted on the card."""
+        the yaw following the path, its first N_LC_RUN + 1 frames; its
+        configuration (bench.py:463-471); and the vocabulary of
+        _lc_corpus_vocab (bench.py:416-445): the port's Vocabulary.train(k=10,
+        L=6, seed=0) on the port's own descriptors of every third rendered
+        frame's left image, extracted on the card."""
         torch, port = self.torch, self.port
         sys.path.insert(0, os.path.join(HERE, "tests"))
         import synth_world
@@ -1583,7 +1702,7 @@ class Smoke:
             np.random.default_rng(3), tex_size=8192, res=60.0, fx=400.0, fy=400.0,
             cx=160.0, cy=120.0, w=LC_W, h=LC_H, baseline=0.5)
         pairs, gt = [], []
-        for i in range(N_LC):
+        for i in range(N_LC_RUN + 1):
             ang = 2.9 * np.pi * i / N_LC
             Twc = synth_world.camera_pose(
                 np.array([6.0 * np.sin(ang), 6.0 * (1 - np.cos(ang)), 0.0], np.float32),
@@ -1618,7 +1737,8 @@ class Smoke:
                            vocabulary_train_s=train_s,
                            corpus_descriptors=len(corpus), lc_voc_words=voc.n_words,
                            lc_voc_nodes=len(voc.node_desc))
-        print(f"loop closing: world {N_LC} frames rendered in {render_s:.1f} s (images' sha1 "
+        print(f"loop closing: world {N_LC_RUN + 1} frames of {N_LC} rendered in {render_s:.1f} s "
+              f"(images' sha1 "
               f"{digest.hexdigest()[:16]}); vocabulary "
               f"k=10 L=6 trained on {len(corpus)} descriptors of {len(descs)} frames in "
               f"{train_s:.1f} s: {voc.n_words} words, {len(voc.node_desc)} nodes")
@@ -1661,7 +1781,7 @@ class Smoke:
             s.attach_vocabulary(voc)
             s.tracking.loop_closing.stage_timer = timer
         snap = None
-        n = N_LC if n is None else n
+        n = N_LC_RUN if n is None else n
         t0 = time.perf_counter()
         for i in range(n):
             s.track_stereo(*lc.pairs[i], timestamp=i * 0.1)
@@ -1688,7 +1808,7 @@ class Smoke:
 
     def lc_loops(self):
         """(a) the control run, no vocabulary, over the first N_LC_CONTROL
-        frames; (b) the vocabulary attached and loop closing on, all N_LC
+        frames; (b) the vocabulary attached and loop closing on, N_LC_RUN
         frames, with its ATE over the control's frames beside. Each fails on
         a lost frame, an ATE above 0.5 m or a cap overflow; K1-K3 are
         counted over each run."""
@@ -1696,7 +1816,7 @@ class Smoke:
         ate_rmse = port["trajectory"].ate_rmse
         lc.runs = {}
         for name, voc, n in (("a_control", None, N_LC_CONTROL),
-                             ("b_loop_closing", lc.voc, N_LC)):
+                             ("b_loop_closing", lc.voc, N_LC_RUN)):
             for m in self.counters().values():
                 m.launches = 0
             s, fps, snap, timer = self._lc_drive(
@@ -2625,17 +2745,18 @@ class Smoke:
         require(ate < 0.5, f"ATE {ate} m")
 
     def tr_zoo(self):
-        """(f) One training step of every encoder with c1 and of every
-        decoder on resnet50dilated at 512x512, batch 8: step ms (CUDA
-        events, after one warm-up step) and peak memory. Then each pair
-        card against CPU path at 128x128, batch 2, from the same weights
-        and batch: the loss and the parameter update (the PPM decoders
-        with their dropout rate set to 0 there, so that both draw none).
-        That comparison runs in float64: at 128x128 and batch 2 the small
-        maps make BatchNorm ill-conditioned in float32 (see ZOO_*)."""
+        """(f) One training step of every encoder but ZOO_SKIP's with c1 and
+        of every decoder on resnet50dilated at 512x512, batch 8: step ms
+        (CUDA events, after one warm-up step) and peak memory. Then each
+        pair card against CPU path at ZOO_CHECK_HW, batch 2, from the same
+        weights and batch: the loss and the parameter update (the PPM
+        decoders with their dropout rate set to 0 there, so that both draw
+        none). That comparison runs in float64: at that size and batch 2
+        the small maps make BatchNorm ill-conditioned in float32 (see
+        ZOO_*)."""
         torch, port = self.torch, self.port
         zoo, ts = port["zoo"], port["train_state"]
-        pairs = [(e, "c1") for e in zoo.ENCODER_FC_DIM] + [
+        pairs = [(e, "c1") for e in zoo.ENCODER_FC_DIM if e not in ZOO_SKIP] + [
             ("resnet50dilated", d) for d in ("c1_deepsup", "ppm", "ppm_deepsup", "upernet",
                                             "upernet_lite")]
         rng = np.random.default_rng(0)
@@ -2653,7 +2774,7 @@ class Smoke:
         for enc, dec in pairs:
             stride = (4 if enc == "hrnetv2" or dec.startswith("upernet")
                       else 8 if enc.endswith("dilated") else 32)
-            big, small = batch(TR_BATCH, NET_HW, stride), batch(2, (128, 128), stride)
+            big, small = batch(TR_BATCH, NET_HW, stride), batch(2, ZOO_CHECK_HW, stride)
             gen = torch.Generator().manual_seed(0)
             model = port["models"].flax_init_(zoo.SegmentationModel(enc, dec), gen)
             init = copy.deepcopy(model.state_dict())
@@ -2686,7 +2807,7 @@ class Smoke:
                                         card_vs_cpu_loss_rel=d_loss,
                                         card_vs_cpu_update_rel=d_upd / scale)
             print(f"training (f) {enc}+{dec}: step {ms:.2f} ms, peak {peak / 2**30:.3f} GiB; "
-                  f"128x128 float64 card vs CPU: loss {d_loss:.3g} relative, update "
+                  f"{ZOO_CHECK_HW} float64 card vs CPU: loss {d_loss:.3g} relative, update "
                   f"{d_upd / scale:.3g} of its largest ({scale:.3g})", flush=True)
             del state, model
             torch.cuda.empty_cache()
@@ -2914,19 +3035,19 @@ class Smoke:
             time.perf_counter() - t0
 
     def drv_stereo(self):
-        """(b) run_stereo in process on the card over (a)'s files with
-        --fused_tracking --profile_stages: 0 failures, ATE < 0.5 m, every
-        output file; its configuration equal to the full loop's, and its
-        Trajectory_KITTI_000.txt bit-equal to the trajectory System gave
-        the full loop in memory (PNG is lossless: the same frames); K1-K3
-        once a frame."""
+        """(b) run_stereo in process on the card over (a)'s first N_DRV
+        frames with --fused_tracking --profile_stages: 0 failures, ATE < 0.5
+        m, every output file; its configuration equal to the full loop's,
+        and its Trajectory_KITTI_000.txt bit-equal to the trajectory System
+        gave the full loop in memory after as many frames (PNG is lossless:
+        the same frames); K1-K3 once a frame."""
         port, t, drv = self.port, self.trk, self.drv
         rs = port["run_stereo"]
         settings = self._settings(os.path.join(drv.root, "kitti.yaml"))
         out = os.path.join(drv.root, "results", "PORT", "kitti00")
         argv = ["--data_path", drv.seq, "--settings_path", settings,
                 "--ground_truth_path", drv.gt_file, "--out_visualization_path", out,
-                "--fused_tracking", "--profile_stages"]
+                "--fused_tracking", "--profile_stages", "--end_frame", str(N_DRV)]
         dcfg = rs.make_config(rs.parse_args(argv))
         dcfg.camera.height, dcfg.camera.width = H, W
         require(dcfg == t.loop_sys.cfg, "run_stereo's configuration differs from the full "
@@ -2936,28 +3057,32 @@ class Smoke:
                  for f in ("Trajectory_KITTI_000.txt", "KeyFrameTrajectory_TUM_000.txt",
                            "failure_log.txt", "stats.json")}
         mem = os.path.join(drv.root, "full_loop_in_memory.txt")
-        port["trajectory"].save_kitti(mem, t.loop_sys.trajectory_twc())
+        port["trajectory"].save_kitti(mem, list(t.thr_inline[N_DRV]["twc"]))
         with open(mem, "rb") as a, open(os.path.join(out, "Trajectory_KITTI_000.txt"),
                                          "rb") as b:
             bit_equal = a.read() == b.read()
         drv.stereo_stats, drv.stereo_out = stats, out
         drv.out["run_stereo"] = dict(
             frames=stats["frames"], failures=stats["failures"], ate_m=stats["ate_rmse"],
-            full_loop_ate_m=t.loop["full_loop_ate_m"], frames_per_s=stats["frames"] / wall,
+            full_loop_ate_m=port["trajectory"].ate_rmse(list(t.thr_inline[N_DRV]["twc"]),
+                                                        t.loop_gt[:N_DRV]),
+            frames_per_s=stats["frames"] / wall,
             median_track_s=stats["median_track_s"], files=files,
             trajectory_bit_equal_to_full_loop=bit_equal, frontend_launches=launches)
         for k, v in launches.items():
             self.kernels[k]["launches_run_stereo"] = v
         print(f"drivers (b): run_stereo over {stats['frames']} frames: {stats['failures']} "
-              f"failures, ATE {stats['ate_rmse']:.4f} m (full loop {t.loop['full_loop_ate_m']:.4f}"
-              f" m), {stats['frames'] / wall:.3f} frames/s (wall, decode-ahead loader), median "
+              f"failures, ATE {stats['ate_rmse']:.4f} m (full loop over as many frames "
+              f"{drv.out['run_stereo']['full_loop_ate_m']:.4f} m), "
+              f"{stats['frames'] / wall:.3f} frames/s (wall, decode-ahead loader), median "
               f"track {stats['median_track_s'] * 1e3:.1f} ms; files {files}; trajectory "
               f"bit-equal to the full loop's: {bit_equal}; K1-K3 launches {launches}")
         require(all(files.values()), f"missing output files: {files}")
         require(stats["failures"] == 0 and stats["ate_rmse"] < 0.5,
                 f"{stats['failures']} failures, ATE {stats['ate_rmse']}")
         require(bit_equal, "run_stereo's trajectory differs from the full loop's")
-        require(launches == {k: N_LOOP for k in launches}, f"launches {launches}")
+        require(stats["frames"] == N_DRV, f"{stats['frames']} frames")
+        require(launches == {k: N_DRV for k in launches}, f"launches {launches}")
 
     def drv_rectify(self):
         """(c) --rectify_images with identity LEFT./RIGHT. blocks over the
@@ -3515,6 +3640,316 @@ class Smoke:
         require(max(maes) <= CODEC_MAE, f"mean abs error {max(maes)}")
 
 
+    # ---- phase 14: the thread architecture ---------------------------------
+    def _thr_run(self, n, threaded, asy, serialize=False, record=False):
+        """The first n frames of phase 5's loop through System on the card,
+        driven as phase 5 drives them (frame i + 1's frontend submitted
+        before frame i tracks), fused tracking, with the LocalMapping worker
+        (threaded) and the async local BA (asy). serialize: each kick_async
+        waits for the worker's queue. record: the three wrappers' inputs
+        and outputs on up to
+        THR_RECORD_FRAMES frames submitted while the worker had events
+        queued (the last frame otherwise). Returns (the run's numbers, its
+        trajectory, the records)."""
+        torch, port, t = self.torch, self.port, self.trk
+        ops = port["ops"]
+        cfg = copy.deepcopy(t.cfg)
+        cfg.system.fused_tracking = True
+        cfg.system.threaded_local_mapping = threaded
+        cfg.system.async_local_ba = asy
+        s = port["system"].System(cfg, H, W)
+        tr = s.tracking
+        lm = tr.local_mapping
+        events = self._thr_events(lm)
+        merges = {"poll": 0, "join": 0}
+        apply_ba = lm.apply_pending_ba
+
+        def counted_merge(only_if_ready=False):
+            done = apply_ba(only_if_ready)
+            if done:
+                merges["poll" if only_if_ready else "join"] += 1
+            return done
+
+        lm.apply_pending_ba = counted_merge
+        if serialize:
+            kick = lm.kick_async
+
+            def kick_and_wait(run_ba=True):
+                kick(run_ba=run_ba)
+                lm._q.join()
+
+            lm.kick_async = kick_and_wait
+        pairs = t.loop_pairs[:n]
+        rec, recording = [], [False]
+        wrappers = ((ops.fast_cuda, "fast_score_levels"), (ops.finish_cuda, "orient_brief"),
+                    (ops.stereo_cuda, "sad_windows"))
+        origs = [getattr(mod, fn) for mod, fn in wrappers]
+
+        def recorder(j):
+            def call(*args):
+                out = origs[j](*args)
+                if recording[0]:
+                    rec[-1][j].append((clone(args), clone(out)))
+                return out
+            return call
+
+        if record:
+            for j, (mod, fn) in enumerate(wrappers):
+                setattr(mod, fn, recorder(j))
+        for m in self.counters().values():
+            m.launches = 0
+        pending = []
+        try:
+            with GpuBusy() as busy:
+                handle = s.submit_frontend(*pairs[0])
+                torch.cuda.synchronize()
+                t_start = time.perf_counter()
+                for i in range(n):
+                    cur = handle
+                    if i + 1 < n:
+                        recording[0] = record and len(rec) < THR_RECORD_FRAMES and (
+                            lm.pending_count() > 0 or i + 2 == n)
+                        if recording[0]:
+                            rec.append(([], [], [], i + 1, lm.pending_count()))
+                        handle = s.submit_frontend(*pairs[i + 1])
+                        recording[0] = False
+                    s.track_stereo(*pairs[i], timestamp=0.1 * i, frontend_handle=cur)
+                    pending.append(lm.pending_count())
+                    if i == RAMP - 1:
+                        torch.cuda.synchronize()
+                        t_ramp = time.perf_counter()
+                torch.cuda.synchronize()
+                t_end = time.perf_counter()
+                est = s.trajectory_twc()       # joins the worker, merges a pending BA
+                torch.cuda.synchronize()
+        finally:
+            for (mod, fn), f in zip(wrappers, origs):
+                setattr(mod, fn, f)
+        state = self._thr_state(s, est)
+        out = dict(
+            frames=n, threaded_local_mapping=threaded, async_local_ba=asy,
+            serialized=serialize, fps=(n - RAMP) / (t_end - t_ramp),
+            fps_all=n / (t_end - t_start),
+            ate_m=port["trajectory"].ate_rmse(est, t.loop_gt[:n]),
+            **{k: v for k, v in state.items() if k != "twc"},
+            **self._thr_event_stats(events), max_pending=max(pending),
+            ba_merges_at_poll=merges["poll"], ba_merges_at_join=merges["join"],
+            device_busy_share=busy.share, device_busy_samples=busy.n,
+            frontend_launches={k: m.launches for k, m in self.counters().items()})
+        s.shutdown()
+        require(lm._worker is None, "shutdown left the worker running")
+        return out, est, rec
+
+    def _thr_events(self, lm):
+        """Time each keyframe event of LocalMapping lm (its _process_one
+        wrapped); returns the list it fills with (host ms, on the worker)."""
+        import threading
+
+        events, process = [], lm._process_one
+        tracking_thread = threading.get_ident()
+
+        def timed_event(kf_id, run_ba=True):
+            t0 = time.perf_counter()
+            process(kf_id, run_ba)
+            events.append(((time.perf_counter() - t0) * 1e3,
+                           threading.get_ident() != tracking_thread))
+
+        lm._process_one = timed_event
+        return events
+
+    @staticmethod
+    def _thr_event_stats(events):
+        return dict(keyframe_events=len(events),
+                    worker_events=sum(1 for _, on_worker in events if on_worker),
+                    event_host_ms_median=(float(np.median([e for e, _ in events]))
+                                          if events else None))
+
+    @staticmethod
+    def _thr_state(s, twc=None):
+        """A System's map and trajectory now: what (a) and (b) compare."""
+        tr = s.tracking
+        m, lm = tr.map, tr.local_mapping
+        exc = lm.worker_exc
+        return dict(
+            twc=np.stack(s.trajectory_twc() if twc is None else twc),
+            lost_frames=int(sum(tr.lost_flags)), failures=int(s.failure_count),
+            keyframes=int(m.n_keyframes), keyframes_alive=int(m.kf_alive[:m.n_keyframes].sum()),
+            kf_stamps=[float(v) for v in m.kf_timestamp[:m.n_keyframes]],
+            map_points=int(m.n_points), map_points_alive=int(m.pt_alive[:m.n_points].sum()),
+            cap_overflows=dict(lm.overflows), worker_exc=None if exc is None else repr(exc))
+
+    def _thr_check_kernels(self, rec):
+        """Each recorded wrapper output of the threaded run against the plain
+        version on the same inputs: bit-equal."""
+        torch, ops = self.torch, self.port["ops"]
+        for fast_calls, ob_calls, sad_calls, frame_i, pend in rec:
+            require((len(fast_calls), len(ob_calls), len(sad_calls)) == (1, 1, 1),
+                    f"frame {frame_i}: wrapper calls {len(fast_calls)}, {len(ob_calls)}, "
+                    f"{len(sad_calls)}")
+            (levels, th), ks = fast_calls[0]
+            for lv, k in zip(levels, ks):
+                require(torch.equal(k, ops.fast.fast_score(lv, th)),
+                        f"frame {frame_i}: FAST kernel != plain at {tuple(lv.shape)}")
+            args, (ang, desc) = ob_calls[0]
+            ang_p, desc_p = ops.finish_cuda.orient_brief_plain(*args)
+            require(torch.equal(ang, ang_p) and torch.equal(desc, desc_p),
+                    f"frame {frame_i}: orient_brief != plain")
+            args, k = sad_calls[0]
+            require(torch.equal(k, ops.stereo_cuda.sad_windows_plain(*args)),
+                    f"frame {frame_i}: SAD kernel != plain")
+            torch.cuda.synchronize()
+        return [(r[3], r[4]) for r in rec]
+
+    def thr_runs(self):
+        """(a) The first N_THR frames three ways in one process: inline
+        (phase 5's run, its state after N_THR frames), the LocalMapping
+        worker with the async local BA (bench.py's threading), and the
+        async local BA alone (its helper thread). Each: 0 lost frames, ATE
+        < 0.5 m, K1-K3 once a frame; each threaded run within THR_CROSS_ATE
+        of the inline run; the worker's run: no worker exception and at
+        least 2 keyframe events, K1-K3's outputs on frames submitted while
+        it had events queued bit-equal to their plain versions."""
+        t = self.trk
+        ate_rmse = self.port["trajectory"].ate_rmse
+        inl = dict(t.thr_inline[N_THR])
+        est_inline = list(inl.pop("twc"))
+        runs = {"inline": dict(
+            frames=N_THR, threaded_local_mapping=False, async_local_ba=False,
+            serialized=False, run="phase 5's first frames",
+            ate_m=ate_rmse(est_inline, t.loop_gt[:N_THR]),
+            **{k: v for k, v in inl.items() if k != "events"},
+            **self._thr_event_stats(inl["events"]), max_pending=0, ba_merges_at_poll=0,
+            ba_merges_at_join=0)}
+        self.thr = SimpleNamespace(out={})
+        for name, threaded, asy in (("worker_async_ba", True, True), ("async_ba", False, True)):
+            run, est, rec = self._thr_run(N_THR, threaded, asy, record=threaded)
+            run["cross_ate_m"] = ate_rmse(est, est_inline)
+            if rec:
+                run["kernels_bit_equal_on_frames"] = self._thr_check_kernels(rec)
+                for k, v in run["frontend_launches"].items():
+                    self.kernels[k]["launches_threads"] = v
+            runs[name] = run
+        for name, run in runs.items():
+            print(f"threads (a) {name}: {N_THR} frames, {run['fps']:.3f} frames/s over "
+                  f"frames {RAMP}-{N_THR} ({run['fps_all']:.3f} over all), ATE "
+                  f"{run['ate_m']:.4f} m, cross-ATE to inline {run.get('cross_ate_m', 0.0):.4f} "
+                  f"m, {run['lost_frames']} lost, {run['keyframes']} keyframes, "
+                  f"{run['map_points']} map points, {run['keyframe_events']} keyframe events "
+                  f"({run['worker_events']} on the worker; median "
+                  f"{run['event_host_ms_median']} host ms), largest pending "
+                  f"{run['max_pending']}, local-BA merges {run['ba_merges_at_poll']} at the "
+                  f"per-frame poll and {run['ba_merges_at_join']} at a forced join, device busy "
+                  f"{run['device_busy_share']} ({run['device_busy_samples']} NVML samples), "
+                  f"K1-K3 launches {run['frontend_launches']}, worker exception "
+                  f"{run['worker_exc']}; on {card_line()}")
+            if "kernels_bit_equal_on_frames" in run:
+                print(f"  K1-K3 outputs of the worker's run bit-equal to their plain "
+                      f"versions on frames (frame, events queued at its submit) "
+                      f"{run['kernels_bit_equal_on_frames']}")
+        self.thr.out["a"] = runs
+        for name, run in runs.items():
+            want = {k: N_THR for k in run["frontend_launches"]}
+            require(run["frontend_launches"] == want,
+                    f"{name}: launch counts {run['frontend_launches']} != {want}")
+            require(run["lost_frames"] == 0 and run["failures"] == 0,
+                    f"{name}: {run['lost_frames']} lost, {run['failures']} failures")
+            require(run["ate_m"] < 0.5, f"{name}: ATE {run['ate_m']} m")
+            require(not any(run["cap_overflows"].values()), f"{name}: cap overflow")
+            require(run["worker_exc"] is None, f"{name}: worker exception {run['worker_exc']}")
+            if name != "inline":
+                require(run["cross_ate_m"] < THR_CROSS_ATE,
+                        f"{name}: cross-ATE {run['cross_ate_m']} m to the inline run")
+        require(runs["worker_async_ba"]["worker_events"] >= 2,
+                f"the worker ran {runs['worker_async_ba']['worker_events']} keyframe events")
+
+    def thr_serialized(self):
+        """(b) The first N_THR_SERIAL frames through the worker without the
+        async BA, each kick_async waiting for the worker's queue: bit-equal
+        to the inline run (phase 5's) after as many frames (keyframe stamps,
+        map points, trajectory)."""
+        run, est, _ = self._thr_run(N_THR_SERIAL, True, False, serialize=True)
+        snap = self.trk.thr_inline[N_THR_SERIAL]
+        twc = np.stack(est)
+        same = dict(kf_stamps=run["kf_stamps"] == snap["kf_stamps"],
+                    map_points=run["map_points"] == snap["map_points"],
+                    trajectory=np.array_equal(twc, snap["twc"]))
+        run["bit_equal_to_inline"] = same
+        run["max_pose_diff"] = float(np.abs(twc - snap["twc"]).max())
+        self.thr.out["b"] = run
+        print(f"threads (b) serialized worker: {N_THR_SERIAL} frames, {run['worker_events']} "
+              f"keyframe events on the worker, {run['keyframes']} keyframes, "
+              f"{run['map_points']} map points; against the inline run: {same}, largest pose "
+              f"difference {run['max_pose_diff']}")
+        require(run["worker_exc"] is None, f"worker exception {run['worker_exc']}")
+        require(run["worker_events"] >= 1, "the worker ran no keyframe event")
+        require(all(same.values()), f"serialized worker != inline: {same}")
+
+    def thr_loop_closing(self):
+        """(c) The first N_THR_LC frames of phase 7's LC world with its
+        vocabulary attached, use_bow and loop closing on, through the worker
+        (and the async local BA): 0 lost, ATE < 0.5 m, and the worker's
+        post-event hook ran loop closing at every event whose keyframe was
+        alive (and at least 2)."""
+        torch, port, lc = self.torch, self.port, self.lc
+        cfg = copy.deepcopy(lc.cfg)
+        cfg.system.use_bow = cfg.system.enable_loop_closing = True
+        cfg.system.threaded_local_mapping = cfg.system.async_local_ba = True
+        s = port["system"].System(cfg, LC_H, LC_W)
+        s.attach_vocabulary(lc.voc)
+        tr = s.tracking
+        lm, lcl = tr.local_mapping, tr.loop_closing
+        hook, process_kf = lm.post_kf_hook, lcl.process_keyframe
+        seen = {"events": 0, "lc": 0, "culled": 0}
+
+        def counted_hook(kf_id):
+            seen["events"] += 1
+            if not tr.map.kf_alive[kf_id]:
+                seen["culled"] += 1
+            hook(kf_id)
+
+        def counted_process(*a, **kw):
+            seen["lc"] += 1
+            return process_kf(*a, **kw)
+
+        lm.post_kf_hook, lcl.process_keyframe = counted_hook, counted_process
+        for m in self.counters().values():
+            m.launches = 0
+        t0 = time.perf_counter()
+        for i in range(N_THR_LC):
+            s.track_stereo(*lc.pairs[i], timestamp=i * 0.1)
+        est = s.trajectory_twc()
+        torch.cuda.synchronize()
+        fps = N_THR_LC / (time.perf_counter() - t0)
+        launches = {k: m.launches for k, m in self.counters().items()}
+        exc = lm.worker_exc
+        ate = port["trajectory"].ate_rmse(est, lc.gt[:N_THR_LC])
+        run = dict(frames=N_THR_LC, fps=fps, ate_m=ate, lost_frames=int(sum(tr.lost_flags)),
+                   failures=int(s.failure_count), keyframes=int(tr.map.n_keyframes),
+                   hook_events=seen["events"], loop_closing_calls=seen["lc"],
+                   events_on_culled_keyframes=seen["culled"],
+                   kfdb_keyframes=len(tr.kfdb.bow), loops_closed=lcl.n_loops_closed,
+                   frontend_launches=launches, worker_exc=None if exc is None else repr(exc))
+        s.shutdown()
+        self.thr.out["c"] = run
+        print(f"threads (c) LC world through the worker: {N_THR_LC} frames, {fps:.3f} "
+              f"frames/s, ATE {ate:.4f} m, {run['lost_frames']} lost, {run['keyframes']} "
+              f"keyframes, the hook ran {seen['events']} times, loop closing "
+              f"{seen['lc']} times ({seen['culled']} events on culled keyframes), keyframe "
+              f"database {run['kfdb_keyframes']}, loops closed {run['loops_closed']}, K1-K3 "
+              f"launches {launches}")
+        require(lm._worker is None, "shutdown left the worker running")
+        require(exc is None, f"worker exception {exc!r}")
+        require(run["lost_frames"] == 0 and run["failures"] == 0,
+                f"{run['lost_frames']} lost, {run['failures']} failures")
+        require(ate < 0.5, f"ATE {ate} m")
+        require(seen["events"] >= 2, f"the hook ran {seen['events']} times")
+        require(seen["lc"] == seen["events"] - seen["culled"],
+                f"loop closing ran {seen['lc']} times for {seen['events']} events "
+                f"({seen['culled']} on culled keyframes)")
+        want = {k: N_THR_LC for k in launches}
+        require(launches == want, f"launch counts {launches} != {want}")
+
+
 def dp_rank_main(rank, world, port_no, work):
     """A rank of phase 10 (g): joins the gloo group on card 0, loads the
     weights and the batch, takes one step on its half, and rank 0 saves the
@@ -3744,6 +4179,18 @@ def main() -> int:
         import shutil
 
         shutil.rmtree(smoke.drv.root, ignore_errors=True)
+    # phase 14: the thread architecture, on phase 5's frames and phase 7's
+    # LC world, also before any profiling
+    for name, fn, ok in (("threads (a) inline, worker, async BA", smoke.thr_runs,
+                          lambda: loop_ok and len(smoke.kernels) == 3),
+                         ("threads (b) serialized worker", smoke.thr_serialized,
+                          lambda: smoke.thr is not None),
+                         ("threads (c) LC world through the worker", smoke.thr_loop_closing,
+                          lambda: smoke.lc is not None and smoke.thr is not None)):
+        if not ok():
+            smoke.failures.append(f"{name}: skipped, an earlier phase failed")
+        else:
+            smoke.phase(name, fn)
     if len(smoke.kernels) == 3:
         smoke.phase("kernel device times", smoke.device_times)
     if smoke.trk is not None and smoke.trk.record is not None:
@@ -3773,13 +4220,15 @@ def main() -> int:
               f"the sharded datagen, {k['launches_run_stereo']} on run_stereo, "
               f"{k['launches_run_mono']} on run_mono, {k['launches_run_rgbd']} on run_rgbd, "
               f"{k['launches_octree']} on extract_octtree, {k['launches_claims']} on the "
-              f"claims runs, {k['launches_viewer']} on the viewer run, on {card}")
+              f"claims runs, {k['launches_viewer']} on the viewer run, "
+              f"{k['launches_threads']} on the worker's run, on {card}")
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms", "event_ms", "plain_event_ms",
              "launches_introspection", "launches_loop_closing", "launches_mono",
              "launches_rgbd", "launches_datagen", "launches_replay",
              "launches_sharded_datagen", "launches_run_stereo", "launches_run_mono",
-             "launches_run_rgbd", "launches_octree", "launches_claims", "launches_viewer")
+             "launches_run_rgbd", "launches_octree", "launches_claims", "launches_viewer",
+             "launches_threads")
     kernels = [{k: smoke.kernels[n][k] for k in order}
                for n in ("fast_score", "orient_brief", "sad_windows")]
     print(json.dumps({"frontend": smoke.fps,
@@ -3798,6 +4247,7 @@ def main() -> int:
     print(json.dumps({"drivers": dict(smoke.drv.out, card=card)}, default=float))
     print(json.dumps({"claims": dict(smoke.claims_line(), card=card)}, default=float))
     print(json.dumps({"drawing": dict(smoke.vw.out, card=card)}, default=float))
+    print(json.dumps({"threads": dict(smoke.thr.out, card=card)}, default=float))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -20,9 +20,12 @@ overlays (frames/) and, every 10th frame, MapDrawer's map (map/);
 /control menu wired to localization mode and reset; --logging_level >= 1
 saves the training-data debug images (introspection/vis.py). Drawing reads
 the frame after track_stereo returns and changes nothing the system
-computes. Not ported yet, and refused with NotImplementedError: the
-threaded configurations (--no-run_single_threaded, --prewarm,
---chained_tracking: ROADMAP A7, through tracking.check_config).
+computes. --no-run_single_threaded runs the reference's threaded
+configuration: keyframe events on the LocalMapping worker thread and the
+async local BA (with --real_time_pacing, frames paced at the dataset's
+timestamps, as the reference's driver does then). Not ported yet, and
+refused with NotImplementedError: --prewarm and --chained_tracking
+(ROADMAP A16, through tracking.check_config).
 """
 
 from __future__ import annotations
@@ -62,8 +65,9 @@ def parse_args(argv=None):
     p.add_argument("--end_frame", type=int, default=-1)
     p.add_argument("--run_single_threaded",
                    action=argparse.BooleanOptionalAction, default=True,
-                   help="inline LoopOnce semantics; --no-run_single_threaded "
-                        "(threaded LocalMapping) is not ported yet (ROADMAP A7)")
+                   help="inline LoopOnce semantics; --no-run_single_threaded: "
+                        "keyframe events on the LocalMapping worker thread "
+                        "and the async local BA (System.cc:172-197)")
     p.add_argument("--real_time_pacing", action="store_true",
                    help="pace frames at dataset timestamps (the reference's "
                         "sleep-to-timestamp loop when not single-threaded, "
@@ -98,9 +102,9 @@ def parse_args(argv=None):
                    help="single-dispatch fused tracking step against the "
                         "device-resident map mirror (slam/fused_track.py)")
     p.add_argument("--prewarm", action="store_true",
-                   help="not ported yet (ROADMAP A7)")
+                   help="not ported yet (ROADMAP A16)")
     p.add_argument("--chained_tracking", action="store_true",
-                   help="not ported yet (ROADMAP A7)")
+                   help="not ported yet (ROADMAP A16)")
     p.add_argument("--rectify_images", action="store_true",
                    help="rectify with the settings' LEFT./RIGHT. blocks "
                         "(stereo_kitti.cc:286-343)")
@@ -208,6 +212,8 @@ def make_config(args):
     cfg.system.prewarm = args.prewarm
     cfg.system.single_threaded = args.run_single_threaded
     cfg.system.async_local_ba = not args.run_single_threaded
+    # keyframe events (triangulation, fusion, BA, culling, loop closing) on
+    # the worker thread: the reference's thread architecture
     cfg.system.threaded_local_mapping = not args.run_single_threaded
     cfg.system.chained_tracking = args.chained_tracking
     return cfg

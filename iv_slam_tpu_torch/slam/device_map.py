@@ -9,7 +9,7 @@ step carries no map payload.
 
 Every update builds NEW tensors and leaves the old ones as they were, as
 the reference's non-donated programs do: a view captured by another thread
-before a sync (the keyframe-event worker's, ROADMAP A7) stays valid.
+before a sync (the LocalMapping worker's, slam/local_mapping.py) stays valid.
 """
 
 from __future__ import annotations

@@ -15,8 +15,8 @@ trials run as one batch, solvers/pose_opt.py), and every gather index is
 clamped where ``jnp`` would clip it. The host reads one flat float32 pack
 per frame, in the reference's layout (``tracking.py:808-858`` reads it).
 
-Not ported in this slice: ``track_chained``/``step_chained`` (chained
-tracking, ROADMAP A7).
+Not ported yet: ``track_chained``/``step_chained`` (chained
+tracking, ROADMAP A16).
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
-"""Local mapping, run inline per keyframe (LocalMapping.cc:47-170).
+"""Local mapping per keyframe (LocalMapping.cc:47-170).
 
-Port of the single-threaded ``loop_once`` path of
-``iv_slam_tpu/slam/local_mapping.py`` (the reference's LoopOnce,
-LocalMapping.cc:119-170):
+Port of ``iv_slam_tpu/slam/local_mapping.py``: the single-threaded
+``loop_once`` path (the reference's LoopOnce, LocalMapping.cc:119-170)
+and the worker thread (LocalMapping::Run, System.cc:172-197):
 
   ProcessNewKeyFrame -> MapPointCulling (236) -> CreateNewMapPoints (273)
   -> SearchInNeighbors (527) -> LocalBundleAdjustment (if > 2 keyframes
@@ -21,17 +21,43 @@ The local BA is the standard one or, by ``cfg.iv.ba_mode``: "vis", the
 one that also updates each window point's quality from its edges' chi2;
 "constrained", IV-SLAM's guided BA of training-data generation (keyframe
 poses pinned to ground truth, each observation's chi2 a keypoint quality
-label).
+label). With ``cfg.system.async_local_ba`` the standard one is deferred
+(solvers/local_ba.py ``LBAHandle``): segmented and driven by the worker
+off the map lock, or, without the worker, solved on this object's helper
+thread; ``apply_pending_ba`` merges it. "vis" and "constrained" stay
+synchronous, as in the reference.
 
-Not ported yet: the worker thread (``start_worker``/``kick_async``, ROADMAP
-A7), the async local BA (A7) and ``set_link_profile`` (the port always uses
-the chunked shapes).
+The worker (``start_worker``; ``cfg.system.threaded_local_mapping``)
+takes keyframes from ``kick_async`` and runs each event, then
+``post_kf_hook`` (loop closing). Host map access is serialized by
+``MapStore.lock`` with the reference's discipline: each stage snapshots
+under the lock, runs its device calls without it, and re-locks to apply,
+revalidating what it writes. A worker exception is stored and raised at
+the next ``join``.
+
+Threads and the card: the device is passed explicitly everywhere (the
+current device is per thread). The worker and the BA helper launch on
+the default stream, as the tracking thread does, so every tensor that
+crosses threads (the mirror's ``full_views()``, the BA result, the fuse
+tables) is ordered by the one stream, and the caching allocator and the
+out-of-place mirror (slam/device_map.py) need no events. A side stream
+would need ``record_stream`` or events at each of those handoffs, and
+with a host-bound tracking step it would buy nothing measurable yet.
+The TF32 switches are process-wide and set once at import; the FCN's
+cuDNN flags are entered on the tracking thread only, and no worker op is
+a convolution.
+
+Not ported yet: ``set_link_profile`` and the monolithic shapes (ROADMAP
+A16; the port always runs the chunked shapes).
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List
 
 import numpy as np
@@ -69,6 +95,13 @@ class LocalMapping:
         # per event: the BA rung solved; overflows of the compact tables
         self.ba_rungs: List[tuple] = []
         self.overflows = {"triangulate": 0, "fuse": 0}
+        self._pending_ba = None   # in-flight async local BA (LBAHandle)
+        self._ba_pool = None      # helper thread of the unsegmented async BA
+        # worker-thread mode (start_worker)
+        self._worker = None
+        self.worker_exc = None
+        self._map_changed = False  # worker -> tracking: resync the mirror
+        self.post_kf_hook = None   # loop closing, installed by Tracking
         cam = cfg.camera
         f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=self.device)  # noqa: E731
         self._cam = tuple(f32(v) for v in (cam.fx, cam.fy, cam.cx, cam.cy, cam.bf))
@@ -97,13 +130,30 @@ class LocalMapping:
             if self.map.pt_first_kf[pid] == kf_id:
                 self.recent_points[pid] = kf_id
 
+    def apply_pending_ba(self, only_if_ready: bool = False) -> bool:
+        """Merge an in-flight async local BA; only_if_ready: merge only a
+        finished one, never wait. The handle is taken under the map lock
+        (tracking's poll and the worker's forced join can race here); the
+        readback runs outside it. Returns True if a merge happened."""
+        with self.map.lock:
+            h = self._pending_ba
+            if h is None or (only_if_ready and not h.is_ready()):
+                return False
+            self._pending_ba = None
+        local_ba.apply_local_ba(h, self.map)
+        return True
+
     def loop_once(self, run_ba: bool = True):
         while self.queue:
             kf_id = self.queue.pop(0)
             self._process_one(kf_id, run_ba)
 
     def _process_one(self, kf_id: int, run_ba: bool = True):
-        with self._stage("lm_cull_points"):
+        # a keyframe event is a forced join point for the previous event's
+        # async BA (its window overlaps this one)
+        with self._stage("lm_join_prev_ba"):
+            self.apply_pending_ba()
+        with self._stage("lm_cull_points"), self.map.lock:
             self._cull_map_points(kf_id)
         with self._stage("lm_triangulate"):
             self._create_new_map_points(kf_id)
@@ -111,9 +161,87 @@ class LocalMapping:
             self._search_in_neighbors(kf_id)
         if self.map.n_keyframes > 2 and run_ba:
             with self._stage("lm_local_ba"):
-                self._run_local_ba(kf_id)
-        with self._stage("lm_cull_keyframes"):
+                with self.map.lock:
+                    self._run_local_ba(kf_id)
+                # the worker steps a segmented async BA here, off the map
+                # lock; without the worker the helper thread solves it
+                h = self._pending_ba
+                if h is not None and self._worker is not None:
+                    h.drive()
+        with self._stage("lm_cull_keyframes"), self.map.lock:
             self._cull_keyframes(kf_id)
+
+    # ------------------------------------------------------ worker thread
+
+    def start_worker(self):
+        """Run keyframe events on a background thread, the reference's
+        LocalMapping::Run thread."""
+        if self._worker is not None:
+            return
+        self._q = queue.Queue()
+        self.worker_exc = None
+        self._worker = threading.Thread(target=self._worker_run, daemon=True,
+                                        name="iv-local-mapping")
+        self._worker.start()
+
+    def _worker_run(self):
+        while True:
+            item = self._q.get()
+            if item is None:
+                self._q.task_done()
+                return
+            kf_id, run_ba = item
+            try:
+                self._process_one(kf_id, run_ba)
+                hook = self.post_kf_hook
+                if hook is not None:
+                    hook(kf_id)
+            except Exception as e:  # raised at the next join()
+                self.worker_exc = e
+            finally:
+                self._map_changed = True
+                self._q.task_done()
+
+    def kick_async(self, run_ba: bool = True):
+        """Hand the queued keyframes to the worker (threaded loop_once)."""
+        while self.queue:
+            self._q.put((self.queue.pop(0), run_ba))
+
+    def pending_count(self) -> int:
+        """Keyframes not yet fully processed (the reference's
+        mlNewKeyFrames.size() backpressure gate)."""
+        if self._worker is None:
+            return len(self.queue)
+        return self._q.unfinished_tasks
+
+    def poll_map_changed(self) -> bool:
+        """One-shot: did the worker finish an event since the last poll?"""
+        if self._map_changed:
+            self._map_changed = False
+            return True
+        return False
+
+    def join(self):
+        """Forced join point (trajectory save, reset, shutdown): drain the
+        worker's queue, raise a worker exception if one occurred, then
+        merge any in-flight BA."""
+        if self._worker is not None:
+            self._q.join()
+            if self.worker_exc is not None:
+                e, self.worker_exc = self.worker_exc, None
+                raise e
+        self.apply_pending_ba()
+
+    def stop_worker(self):
+        """Stop the worker after its queue drains, then the BA helper."""
+        if self._worker is not None:
+            self._q.join()
+            self._q.put(None)
+            self._worker.join(timeout=60)
+            self._worker = None
+        if self._ba_pool is not None:
+            self._ba_pool.shutdown(wait=True)
+            self._ba_pool = None
 
     # -------------------------------------------------------- triangulation
 
@@ -122,17 +250,63 @@ class LocalMapping:
         against the best covisible keyframes, one device call per chunk of
         TRI_CHUNK neighbors (padded slots carry all-False free masks)."""
         m = self.map
+        # host reads and uploads under the map lock; the device calls run
+        # without it; the apply re-locks and revalidates
+        with m.lock:
+            snap = self._triangulation_args(kf_id, n_neighbors)
+        if snap is None:
+            return
+        cur, cand, chunk_args = snap
+        nb_cap = self.TRI_CHUNK
+        all_rows = []
+        for ci, (n_chunk, args) in enumerate(chunk_args):
+            flat = tri.triangulate_event_compact(*args).cpu().numpy()
+            rows = flat[:-2].reshape(tri.T_CAP, 6)
+            n_good, n_matched = int(flat[-2]), int(flat[-1])
+            if n_matched > tri.T_CAP:
+                self.overflows["triangulate"] += 1
+                log.warning("triangulate_event: %d epipolar matches > cap %d; extras "
+                            "dropped this event", n_matched, tri.T_CAP)
+            rows = rows[: min(n_good, tri.T_CAP)].copy()
+            rows = rows[rows[:, 0] < n_chunk]      # range guard on padded slots
+            rows[:, 0] += ci * nb_cap              # chunk-local -> global index
+            all_rows.append(rows)
+        rows = np.concatenate(all_rows) if all_rows else np.zeros((0, 6), np.float32)
+
+        with m.lock:
+            new_pids = []
+            for nb_i, f1, f2, x, y, z in rows:
+                c = cand[int(nb_i)]
+                nf = c["nf"]
+                f1, f2 = int(f1), int(f2)
+                if cur.map_pt[f1] >= 0 or nf.map_pt[f2] >= 0:
+                    continue
+                pid = m.add_point(np.array([x, y, z], np.float32), kf_id)
+                m.add_observation(pid, kf_id, f1)
+                m.add_observation(pid, c["nb"], f2)
+                cur.map_pt[f1] = pid
+                nf.map_pt[f2] = pid
+                new_pids.append(pid)
+                self.recent_points[pid] = kf_id
+            m.compute_distinctive_descriptor_batch(new_pids)
+            m.update_normal_and_depth_batch(new_pids)
+
+    def _triangulation_args(self, kf_id: int, n_neighbors: int):
+        """The host gates and each chunk's device arguments of
+        _create_new_map_points: (cur, cand, [(chunk size, args), ...]), or
+        None."""
+        m = self.map
         cam = self.cfg.camera
         cur = m.kf_frames[kf_id]
         if cur is None:
-            return
+            return None
         K = cam.K().astype(np.float64)
         Kinv = np.linalg.inv(K)
         T1 = m.kf_pose[kf_id]
         O1 = m.kf_camera_center(kf_id)
         free1 = cur.valid & (cur.map_pt < 0)
         if free1.sum() < 5:
-            return
+            return None
         is_mono = cur.depth.max() <= 0
 
         # host gates + per-neighbor tables (LocalMapping.cc:295-330)
@@ -172,7 +346,7 @@ class LocalMapping:
             cand.append(dict(nb=nb, nf=nf, T2=T2, free2=free2, F12=F12,
                              epipole2=epipole2))
         if not cand:
-            return
+            return None
 
         nb_cap = self.TRI_CHUNK
         cand = cand[:16]
@@ -209,37 +383,7 @@ class LocalMapping:
             )
 
         chunks = [cand[i:i + nb_cap] for i in range(0, len(cand), nb_cap)]
-        all_rows = []
-        for ci, chunk in enumerate(chunks):
-            flat = tri.triangulate_event_compact(*build_args(chunk)).cpu().numpy()
-            rows = flat[:-2].reshape(tri.T_CAP, 6)
-            n_good, n_matched = int(flat[-2]), int(flat[-1])
-            if n_matched > tri.T_CAP:
-                self.overflows["triangulate"] += 1
-                log.warning("triangulate_event: %d epipolar matches > cap %d; extras "
-                            "dropped this event", n_matched, tri.T_CAP)
-            rows = rows[: min(n_good, tri.T_CAP)].copy()
-            rows = rows[rows[:, 0] < len(chunk)]   # range guard on padded slots
-            rows[:, 0] += ci * nb_cap              # chunk-local -> global index
-            all_rows.append(rows)
-        rows = np.concatenate(all_rows) if all_rows else np.zeros((0, 6), f32s)
-
-        new_pids = []
-        for nb_i, f1, f2, x, y, z in rows:
-            c = cand[int(nb_i)]
-            nf = c["nf"]
-            f1, f2 = int(f1), int(f2)
-            if cur.map_pt[f1] >= 0 or nf.map_pt[f2] >= 0:
-                continue
-            pid = m.add_point(np.array([x, y, z], np.float32), kf_id)
-            m.add_observation(pid, kf_id, f1)
-            m.add_observation(pid, c["nb"], f2)
-            cur.map_pt[f1] = pid
-            nf.map_pt[f2] = pid
-            new_pids.append(pid)
-            self.recent_points[pid] = kf_id
-        m.compute_distinctive_descriptor_batch(new_pids)
-        m.update_normal_and_depth_batch(new_pids)
+        return cur, cand, [(len(chunk), build_args(chunk)) for chunk in chunks]
 
     def _median_scene_depth(self, kf_id: int) -> float:
         """KeyFrame::ComputeSceneMedianDepth: median z of the keyframe's map
@@ -262,23 +406,27 @@ class LocalMapping:
         it; the host applies the returned (target, point, feature) triples
         in order, revalidating liveness."""
         m = self.map
-        if self.dmap is not None:
-            # the indexed fuse gathers from the mirror: bring this event's
-            # triangulated points into it first
-            self.dmap.sync(m)
-        results = []
-        for fn, args, targets, pid_arr in self._assemble_fuse(kf_id):
-            results.append((targets, pid_arr, fn(*args).cpu().numpy()))
-        for targets, pid_arr, flat in results:
-            triples = flat[:-1].reshape(match_ops.F_CAP, 3)
-            count = int(flat[-1])
-            if count > match_ops.F_CAP:
-                self.overflows["fuse"] += 1
-                log.warning("fuse: %d matches > cap %d; extras dropped this event",
-                            count, match_ops.F_CAP)
-            triples = triples[: min(count, match_ops.F_CAP)].astype(np.int64)
-            triples = triples[triples[:, 0] < len(targets)]
-            self._apply_fuse_triples(kf_id, targets, pid_arr, triples)
+        # snapshot under the map lock (the mirror sync and the assembly),
+        # the device calls without it, the apply re-locked (it revalidates)
+        with m.lock:
+            if self.dmap is not None:
+                # the indexed fuse gathers from the mirror: bring this
+                # event's triangulated points into it first
+                self.dmap.sync(m)
+            calls = self._assemble_fuse(kf_id)
+        results = [(targets, pid_arr, fn(*args).cpu().numpy())
+                   for fn, args, targets, pid_arr in calls]
+        with m.lock:
+            for targets, pid_arr, flat in results:
+                triples = flat[:-1].reshape(match_ops.F_CAP, 3)
+                count = int(flat[-1])
+                if count > match_ops.F_CAP:
+                    self.overflows["fuse"] += 1
+                    log.warning("fuse: %d matches > cap %d; extras dropped this event",
+                                count, match_ops.F_CAP)
+                triples = triples[: min(count, match_ops.F_CAP)].astype(np.int64)
+                triples = triples[triples[:, 0] < len(targets)]
+                self._apply_fuse_triples(kf_id, targets, pid_arr, triples)
 
     def _assemble_fuse(self, kf_id: int):
         """The fuse calls: FORWARD chunks (<= FUSE_CHUNK covisible targets x
@@ -473,7 +621,23 @@ class LocalMapping:
     # ----------------------------------------------------------------- BA
 
     def _run_local_ba(self, kf_id: int):
+        mode = self.cfg.iv.ba_mode
+        if mode not in ("vis", "constrained") and self.cfg.system.async_local_ba:
+            # tracking goes on against the pre-BA map; the merge lands at
+            # the next forced join (or, without the worker, when tracking's
+            # per-frame poll finds it done). Segmented under the worker,
+            # which drives it off the map lock; else on the helper thread
+            segmented = self._worker is not None
+            if not segmented and self._ba_pool is None:
+                self._ba_pool = ThreadPoolExecutor(max_workers=1,
+                                                   thread_name_prefix="iv-local-ba")
+            h = local_ba.local_bundle_adjustment_async(
+                self.cfg, self.map, kf_id, self.device, segmented=segmented,
+                executor=self._ba_pool)
+            self._pending_ba = h
+            self.ba_rungs.append(None if h is None else h.rung)
+            return
         ba = {"vis": local_ba.local_bundle_adjustment_vis,
               "constrained": local_ba.constrained_local_bundle_adjustment,
-              }.get(self.cfg.iv.ba_mode, local_ba.local_bundle_adjustment)
+              }.get(mode, local_ba.local_bundle_adjustment)
         self.ba_rungs.append(ba(self.cfg, self.map, kf_id, self.device))

@@ -10,7 +10,8 @@ Port of ``iv_slam_tpu/slam/loop_closing.py``. Per new keyframe
   correct_loop (407): propagate the corrected Sim3 through the covisible
       neighbourhood, move their map points, fuse the loop side's points
       into it, optimize the essential graph, then a global BA whose merge
-      is deferred to the next keyframe event (``collect_gba``).
+      is deferred to tracking's next per-frame poll or keyframe event
+      (``collect_gba``).
 
 It runs inline after local mapping, as the reference's single-threaded
 configuration does. Device work (BoW matching, the Sim3 solvers, the fuse
@@ -61,7 +62,7 @@ class LoopClosing:
         # closures stay as normal edges in later essential graphs
         self.loop_edges: set = set()
         # deferred global BA (the reference's GBA thread): solved at
-        # CorrectLoop, merged at the next keyframe event
+        # CorrectLoop, merged at tracking's next poll or keyframe event
         self.pending_gba = None
         self.async_gba = bool(getattr(cfg.system, "async_gba", True))
         self.sampler = sim3_solver.sample_sim3
@@ -347,22 +348,25 @@ class LoopClosing:
         self._run_essential_graph(kf_id, loop_kf, uncorrected, loop_connections, corrected_ref,
                                   corrected_sim3=corrected_sim3, fix_scale=fix_scale)
         # full map refinement (40 LM iterations, the reference's choice),
-        # solved now and merged at the next keyframe event (collect_gba)
+        # solved now and merged at tracking's next poll (collect_gba)
         self.pending_gba = global_bundle_adjustment_async(self.cfg, m, self.device, n_iters=40)
         if not self.async_gba and self.pending_gba is not None:
             apply_global_ba(self.pending_gba, m)
             self.pending_gba = None
 
-    def collect_gba(self) -> bool:
+    def collect_gba(self, only_if_ready: bool = False) -> bool:
         """Merge a pending deferred global BA into the (possibly grown) map,
         the reference's RunGlobalBundleAdjustment merge-back. Returns True
-        if a merge happened. The solve ran at dispatch, so a pending result
-        is always ready (the reference's non-blocking probe, only_if_ready,
-        comes with the LocalMapping worker, ROADMAP A7)."""
-        h = self.pending_gba
-        if h is None:
-            return False
-        self.pending_gba = None
+        if a merge happened. only_if_ready is the reference's non-blocking
+        probe (tracking's per-frame poll); the port's global BA solves at
+        dispatch, so a pending result is always ready and the probe merges
+        it too. The handle is taken under the map lock (tracking's poll and
+        the worker's loop-closing hook can race here)."""
+        with self.map.lock:
+            h = self.pending_gba
+            if h is None:
+                return False
+            self.pending_gba = None
         apply_global_ba(h, self.map)
         return True
 

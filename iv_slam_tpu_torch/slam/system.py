@@ -4,18 +4,22 @@ Port of ``iv_slam_tpu/slam/system.py``: TrackStereo, TrackMonocular,
 TrackRGBD, Reset, Shutdown,
 SaveTrajectoryKITTI/TUM, SaveKeyFrameTrajectoryTUM, the failure log and the
 map's save/load, with local mapping run inline after each keyframe (the
-reference's single-threaded mode, System.cc:177-189).
+reference's single-threaded mode, System.cc:177-189) or, with
+``cfg.system.threaded_local_mapping``, on the LocalMapping worker thread
+(System.cc:172-197); ``cfg.system.async_local_ba`` defers the local BA.
+``shutdown`` drains the worker and stops it; the trajectory outputs join
+it and merge any pending global or local BA first.
 
 ``System(cfg, height, width)`` runs on CUDA and raises without it;
 ``device="cpu"`` runs the plain PyTorch path (the tests).
 ``attach_vocabulary`` enables BoW tracking, relocalization and loop
 closing (``cfg.system.use_bow``, ``enable_loop_closing``); a deferred
-global BA merges at the next keyframe event or when the trajectory is
-read. ``activate_localization_mode`` tracks without mapping.
+global BA merges at the next frame or when the trajectory is read.
+``activate_localization_mode`` tracks without mapping.
 ``enable_datagen`` turns on IV-SLAM's training-data generation
 (``cfg.iv.enabled``; supervised from GT poses, or unsupervised). The config
-switches that ``tracking.check_config`` names are not ported yet and raise
-NotImplementedError.
+switches that ``tracking.check_config`` names (chained tracking, prewarm, a
+pinned link profile) are not ported yet and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -136,22 +140,28 @@ class System:
     def reset(self):
         self.tracking._reset()
 
-    def _collect_gba(self):
-        lc = getattr(self.tracking, "loop_closing", None)
+    def _join(self):
+        """Drain the LocalMapping worker, then merge a deferred global BA and
+        an async local BA, so that the outputs compose against the final
+        keyframe poses (the reference joins its threads on Shutdown)."""
+        tr = self.tracking
+        tr.local_mapping.join()
+        lc = getattr(tr, "loop_closing", None)
         if lc is not None and lc.collect_gba():
-            self.tracking.mark_map_dirty()
+            tr.mark_map_dirty()
+        if tr.local_mapping.apply_pending_ba():
+            tr.mark_map_dirty()
 
     def shutdown(self):
-        """Local mapping runs inline; only a deferred global BA is left to
-        merge (the reference joins its threads on Shutdown)."""
-        self._collect_gba()
+        """Drain the LocalMapping worker and stop it; merge what is
+        pending."""
+        self._join()
+        self.tracking.local_mapping.stop_worker()
 
     # --- output (System.h:148-163) ------------------------------------------
 
     def trajectory_twc(self):
-        # merge a deferred global BA so the trajectory composes against the
-        # final keyframe poses
-        self._collect_gba()
+        self._join()
         return self.tracking.trajectory_poses()
 
     def save_trajectory_kitti(self, path: str):
@@ -165,7 +175,7 @@ class System:
     def save_keyframe_trajectory_tum(self, path: str):
         """SaveKeyFrameTrajectoryTUM (System.cc:614-676): keyframe poses
         only, by id, timestamp + Twc quaternion per line."""
-        self._collect_gba()
+        self._join()
         m = self.tracking.map
         times, poses = [], []
         for k in range(m.n_keyframes):

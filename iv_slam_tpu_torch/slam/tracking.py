@@ -1,8 +1,8 @@
 """The per-frame tracking state machine (src/Tracking.cc re-designed).
 
-Port of ``iv_slam_tpu/slam/tracking.py``, unchained and single-threaded
-(the reference's bSingleThreaded path, System.cc:177-189), for the stereo,
-monocular and RGB-D sensors:
+Port of ``iv_slam_tpu/slam/tracking.py``, unchained, for the stereo,
+monocular and RGB-D sensors, single-threaded (the reference's
+bSingleThreaded path, System.cc:177-189) or threaded:
 
   NOT_INITIALIZED -> StereoInitialization (Tracking.cc:882; stereo and
           RGB-D) | MonocularInitialization (951: the H/F initializer of
@@ -14,6 +14,8 @@ monocular and RGB-D sensors:
           -> TrackLocalMap (1509)
        -> NeedNewKeyFrame (1694) / CreateNewKeyFrame -> LocalMapping.LoopOnce
           -> LoopClosing.process_keyframe (enable_loop_closing)
+          (cfg.system.threaded_local_mapping: handed to the LocalMapping
+          worker with loop closing as its post-event hook)
   LOST -> Relocalization (use_bow), else failure accounting + reset
           (829-854) and re-initialization
 
@@ -30,7 +32,7 @@ local BA; ``cfg.iv.ba_mode == "vis"`` also updates map-point quality in BA.
 With a vocabulary attached (``attach_vocabulary``) the keyframe database
 and the shared BoW cache exist; ``cfg.system.enable_loop_closing`` runs
 ``LoopClosing.process_keyframe`` inline after each keyframe event, and a
-deferred global BA merges at the next one. ``only_tracking`` (System's
+deferred global BA merges at the next frame's poll. ``only_tracking`` (System's
 localization mode) tracks against the map without inserting keyframes,
 carrying the motion model on temporary VO points.
 
@@ -47,8 +49,19 @@ sampler(frame_id, valid, device): ``self.pnp_sampler`` (relocalization's
 PnP, default ``pnp.sample_pnp``) and ``self.init_sampler`` (the monocular
 initializer, default ``initializer.sample_init``).
 
-Not ported yet, and refused by ``check_config``: the LocalMapping worker,
-async local BA, chained tracking and prewarm (ROADMAP A7).
+The reference's thread architecture (System.cc:172-197):
+``cfg.system.threaded_local_mapping`` runs keyframe events on the
+LocalMapping worker (slam/local_mapping.py), and
+``cfg.system.async_local_ba`` defers the local BA; every frame starts by
+polling for finished background work (``_poll_async_merges``), and the
+tracking thread takes ``map.lock`` where the reference does: the mirror
+sync and the result bookkeeping of the fused step, and the keyframe
+decision and creation. A busy worker (3 events queued) refuses new
+keyframes unless the keyframe gap reaches ``max_frames`` with fewer than
+6 queued.
+
+Not ported yet, and refused by ``check_config``: chained tracking,
+prewarm and a pinned link profile (ROADMAP A16).
 """
 
 from __future__ import annotations
@@ -89,13 +102,11 @@ def check_config(cfg: Config) -> None:
     """Raise NotImplementedError for a switch this port does not run yet."""
     s = cfg.system
     todo = [
-        (s.threaded_local_mapping, "threaded_local_mapping", "A7"),
-        (s.async_local_ba, "async_local_ba", "A7"),
-        (s.chained_tracking, "chained_tracking", "A7"),
-        (s.prewarm, "prewarm", "A7"),
+        (s.chained_tracking, "chained_tracking", "A16"),
+        (s.prewarm, "prewarm", "A16"),
         # the port always runs the chunked shape family, the reference's
         # choice on a low-RTT link, and probes no link
-        (s.link_rtt_ms is not None, "link_rtt_ms (a pinned link profile)", "A7"),
+        (s.link_rtt_ms is not None, "link_rtt_ms (a pinned link profile)", "A16"),
     ]
     for on, name, item in todo:
         if on:
@@ -112,6 +123,8 @@ class Tracking:
         self.frontend = StereoFrontend(cfg, height, width, device=dev)
         self.map = MapStore(n_levels=cfg.orb.n_levels, scale_factor=cfg.orb.scale_factor)
         self.local_mapping = LocalMapping(cfg, self.map, dev)
+        if cfg.system.threaded_local_mapping:
+            self._setup_threaded_mapping()
         self.K = camera.Intrinsics.from_config(cfg.camera, dev)
         self.state = State.NO_IMAGES_YET
         self.last_frame: Optional[Frame] = None
@@ -157,6 +170,48 @@ class Tracking:
             return contextlib.nullcontext()
         return self.stage_timer.time(name)
 
+    def _setup_threaded_mapping(self):
+        """Start the LocalMapping worker (the reference's thread
+        architecture, System.cc:172-197) and route loop closing through
+        it: after each keyframe event the worker runs DetectLoop /
+        ComputeSim3 / CorrectLoop, the reference's LoopClosing thread fed
+        by LocalMapping's queue."""
+        self.local_mapping.start_worker()
+
+        def post_kf(kf_id: int):
+            if not (self.cfg.system.enable_loop_closing and hasattr(self, "loop_closing")
+                    and self.map.kf_alive[kf_id]):
+                return
+            # merge a finished global BA before a potential new correction
+            if self.loop_closing.collect_gba():
+                self._mark_mirror_stale()
+            # a stale local-BA merge after CorrectLoop would overwrite the
+            # corrected poses: join it first (the reference sets mbAbortBA
+            # and mbStopGBA, LoopClosing.cc:437-449)
+            self.local_mapping.apply_pending_ba()
+            with self.map.lock:
+                if self.loop_closing.process_keyframe(
+                        kf_id, fix_scale=self.cfg.system.sensor != "mono"):
+                    self._mark_mirror_stale()
+
+        self.local_mapping.post_kf_hook = post_kf
+
+    def _poll_async_merges(self):
+        """Per-frame, non-blocking: merge finished background work (a
+        deferred global BA, a worker's keyframe event, an async local BA);
+        each merge marks the device mirror stale."""
+        lc = getattr(self, "loop_closing", None)
+        if lc is not None and lc.collect_gba(only_if_ready=True):
+            self._mark_mirror_stale()
+        # a finished worker event: resync the mirror before the next step
+        if self.local_mapping.poll_map_changed():
+            self._mark_mirror_stale()
+        # a finished async local BA; under the worker the worker owns the
+        # merge (its next event joins it)
+        if (self.local_mapping._worker is None
+                and self.local_mapping.apply_pending_ba(only_if_ready=True)):
+            self._mark_mirror_stale()
+
     def _f32(self, v) -> torch.Tensor:
         return torch.tensor(v, dtype=torch.float32, device=self.device)
 
@@ -187,6 +242,7 @@ class Tracking:
         gt_depth_map: optional full-resolution GT depth image (the AirSim PFM
         path, stereo_airsim.cc:339-360), sampled per keypoint as the
         reference's mvKeysGTDepth (Frame.cc:152-191)."""
+        self._poll_async_merges()
         # the fused step reads the frame's device tensors, so the frontend's
         # host views can wait for the step's single download
         defer = (
@@ -233,6 +289,7 @@ class Tracking:
         initializer builds the first map, then the per-frame loop is the
         stereo one (mono frames carry no depth). gt_depth_map as in
         track_stereo (mono_airsim.cc)."""
+        self._poll_async_merges()
         if not hasattr(self, "mono_frontend"):
             self.mono_frontend = MonoFrontend(self.cfg, self.height, self.width,
                                               device=self.device)
@@ -266,6 +323,7 @@ class Tracking:
         """RGB-D tracking (Tracking::GrabImageRGBD): depth-seeded frames go
         through the stereo state machine. depth_scale turns the map's values
         into metres (1 / DepthMapFactor, examples/run_rgbd.py)."""
+        self._poll_async_merges()
         if not hasattr(self, "rgbd_frontend"):
             self.rgbd_frontend = RGBDFrontend(self.cfg, self.height, self.width,
                                               device=self.device)
@@ -480,8 +538,10 @@ class Tracking:
             self._dmap = DeviceMap(device=self.device)
             self.local_mapping.dmap = self._dmap
         if self._dmap_dirty:
+            # cleared BEFORE the sync: a worker event landing during it
+            # sets the flag again and the next frame resyncs
             self._dmap_dirty = False
-            with self._stage("dmap_sync"):
+            with self._stage("dmap_sync"), self.map.lock:
                 self._dmap.sync(self.map)
         self._update_last_frame()
         T_pred = self.velocity @ last.pose
@@ -522,22 +582,23 @@ class Tracking:
         frame.chi2_dof = np.where(assign >= 0, np.where(frame.u_right >= 0, 3, 2),
                                   0).astype(np.int32)
         good = assign >= 0
-        self.map.increase_found(assign[good])
-        self.n_inliers = int(np.count_nonzero(self.map.pt_n_obs[assign[good]] > 0))
-        if self.n_inliers < 30:
-            # roll back associations; the classic path retries
-            self._last_fail = (frame.frame_id, "n_inliers", self.n_inliers,
-                               self.map.n_points)
-            frame.map_pt[:] = -1
-            return False
-        # reference keyframe: the most-voted observer of the matches
-        counter = {}
-        for pid in assign[good]:
-            for kf_id in self.map.pt_obs[pid]:
-                counter[kf_id] = counter.get(kf_id, 0) + 1
-        if counter:
-            self.ref_kf = max(counter, key=counter.get)
-            frame.ref_kf = self.ref_kf
+        with self.map.lock:
+            self.map.increase_found(assign[good])
+            self.n_inliers = int(np.count_nonzero(self.map.pt_n_obs[assign[good]] > 0))
+            if self.n_inliers < 30:
+                # roll back associations; the classic path retries
+                self._last_fail = (frame.frame_id, "n_inliers", self.n_inliers,
+                                   self.map.n_points)
+                frame.map_pt[:] = -1
+                return False
+            # reference keyframe: the most-voted observer of the matches
+            counter = {}
+            for pid in assign[good]:
+                for kf_id in self.map.pt_obs[pid]:
+                    counter[kf_id] = counter.get(kf_id, 0) + 1
+            if counter:
+                self.ref_kf = max(counter, key=counter.get)
+                frame.ref_kf = self.ref_kf
         return True
 
     def mark_map_dirty(self):
@@ -794,16 +855,25 @@ class Tracking:
     # ------------------------------------------------------------ keyframes
 
     def _need_new_keyframe(self) -> bool:
-        """Tracking.cc:1694-1772."""
+        """Tracking.cc:1694-1772. Under the worker, the reference's
+        busy-mapper backpressure: with 3 events still queued the keyframe is
+        refused, unless the keyframe gap has reached max_frames and fewer
+        than 6 are queued (the reference's starvation guard)."""
+        lm = self.local_mapping
+        if lm._worker is not None and lm.pending_count() >= 3:
+            gap = self.current.frame_id - self.last_kf_frame_id
+            if gap < self.max_frames or lm.pending_count() >= 6:
+                return False
         frame = self.current
-        n_kfs = self.map.n_keyframes
-        n_min_obs = 3 if n_kfs > 2 else 2
-        ref_frame = self.map.kf_frames[self.ref_kf]
-        n_ref_matches = 0
-        if ref_frame is not None:
-            pids = ref_frame.map_pt[ref_frame.map_pt >= 0]
-            n_ref_matches = int(np.count_nonzero(
-                self.map.pt_alive[pids] & (self.map.pt_n_obs[pids] >= n_min_obs)))
+        with self.map.lock:
+            n_kfs = self.map.n_keyframes
+            n_min_obs = 3 if n_kfs > 2 else 2
+            ref_frame = self.map.kf_frames[self.ref_kf]
+            n_ref_matches = 0
+            if ref_frame is not None:
+                pids = ref_frame.map_pt[ref_frame.map_pt >= 0]
+                n_ref_matches = int(np.count_nonzero(
+                    self.map.pt_alive[pids] & (self.map.pt_n_obs[pids] >= n_min_obs)))
         close = (frame.depth > 0) & (frame.depth < self.cfg.camera.depth_threshold)
         tracked = (frame.map_pt >= 0) & ~frame.outlier
         n_tracked_close = int((close & tracked).sum())
@@ -818,11 +888,16 @@ class Tracking:
 
     def _create_new_keyframe(self):
         """Tracking.cc:1774-1860: promote the frame to a keyframe, create its
-        close stereo points, then run local mapping inline (LoopOnce) and,
-        with loop closing on, LoopClosing on the reference keyframe."""
+        close stereo points, then hand the event to the worker or run local
+        mapping inline (LoopOnce) and, with loop closing on, LoopClosing on
+        the reference keyframe."""
         frame = self.current
-        self._create_new_keyframe_locked(frame)
+        with self.map.lock:
+            self._create_new_keyframe_locked(frame)
         run_ba = frame.frame_id % max(self.cfg.iv.tracking_ba_rate, 1) == 0
+        if self.local_mapping._worker is not None:
+            self.local_mapping.kick_async(run_ba=run_ba)
+            return
         self.local_mapping.loop_once(run_ba=run_ba)
         if (self.cfg.system.enable_loop_closing and hasattr(self, "loop_closing")
                 and self.map.kf_alive[self.ref_kf]):
@@ -831,6 +906,11 @@ class Tracking:
             # keyframe event is the join point of the reference's GBA thread)
             if self.loop_closing.collect_gba():
                 self._mark_mirror_stale()
+            # join an async local BA before a potential loop correction: a
+            # stale merge after CorrectLoop would overwrite the corrected
+            # poses (the reference sets mbAbortBA and mbStopGBA,
+            # LoopClosing.cc:437-449)
+            self.local_mapping.apply_pending_ba()
             if self.loop_closing.process_keyframe(self.ref_kf,
                                                   fix_scale=self.cfg.system.sensor != "mono"):
                 self._mark_mirror_stale()
@@ -1012,6 +1092,12 @@ class Tracking:
         self._reset()
 
     def _reset(self):
+        # drain the worker before discarding the map it is mutating
+        try:
+            self.local_mapping.join()
+        except Exception:
+            pass  # a failed event on a map being reset is moot
+        self.local_mapping.stop_worker()
         # bake out this sub-session's absolute poses before dropping the map
         # (the reference saves per-sub-session trajectories on each failure,
         # Tracking.cc:2433-2504)
@@ -1022,6 +1108,8 @@ class Tracking:
         self.local_mapping = LocalMapping(self.cfg, self.map, self.device)
         # the mirror carries over, resynced from the new map
         self.local_mapping.dmap = self._dmap
+        if self.cfg.system.threaded_local_mapping:
+            self._setup_threaded_mapping()
         self.state = State.NOT_INITIALIZED
         self.velocity = None
         self.ref_kf = -1

@@ -29,8 +29,14 @@ cost sums run in float64 and are rounded once, so the CPU and the GPU
 agree closely. The trial loop is a host loop that reads one flag and rho
 per trial (a keyframe event may wait for the device).
 
-Not ported yet: the segmented solver ``ba_segment``/``ba_midpoint``/
-``ba_finalize`` (the async local BA, ROADMAP A7).
+``ba_solve`` is the composition of three cut points, the reference's
+segmented solver: ``ba_segment`` (LM iterations that carry lambda, the
+lambda multiplier ni and the cost chi from one call to the next; ``init``
+seeds them as the first iteration of a phase does), ``ba_midpoint`` (the
+outlier gate between the phases) and ``ba_finalize`` (the final
+classification). Split at any iteration, the segments run the
+monolithic solve's arithmetic, so the two are bit-equal. The async local
+BA (solvers/local_ba.py) steps them on the LocalMapping worker.
 """
 
 from __future__ import annotations
@@ -243,15 +249,19 @@ class _Ctx:
 
         return solve, max_diag
 
-    def lm(self, kf_pose, pt_pos, mask, kernel_on, n_iters):
-        """n_iters LM iterations from (kf_pose, pt_pos); lambda seeded at the
-        first (1e-5 * max diag, g2o's tau)."""
+    def segment(self, kf_pose, pt_pos, lam, ni, chi, mask, kernel_on, n_iters, init):
+        """n_iters LM iterations from (kf_pose, pt_pos) carrying (lam, ni,
+        chi); with init (the start of a phase) chi is the cost at the start
+        and lambda is seeded at the first iteration (1e-5 * max diag, g2o's
+        tau). Returns (kf_pose, pt_pos, lam, ni, chi)."""
         fixed = self.prob.kf_fixed[:, None, None]
-        chi = self.total_cost(kf_pose, pt_pos, mask, kernel_on)
-        lam = ni = None
+        if init:
+            chi = self.total_cost(kf_pose, pt_pos, mask, kernel_on)
+            lam = torch.zeros_like(chi)
+            ni = torch.full_like(chi, 2.0)
         for it in range(n_iters):
             solve, max_diag = self.build(kf_pose, pt_pos, mask, kernel_on)
-            if it == 0:
+            if init and it == 0:
                 lam = 1e-5 * max_diag
                 ni = torch.full_like(lam, 2.0)
             rho, trials, done = -1.0, 0, False
@@ -273,7 +283,42 @@ class _Ctx:
                 else:
                     lam, ni = lam * ni, ni * 2.0
                 trials += 1
-        return kf_pose, pt_pos
+        return kf_pose, pt_pos, lam, ni, chi
+
+    def midpoint(self, kf_pose, pt_pos):
+        """The outlier gate between the phases (Optimizer.cc:786-817)."""
+        e, pc, _ = self.edge_terms(kf_pose, pt_pos)
+        c2 = _chi2(e, self.prob.e_inv_s2)
+        return self.prob.e_valid & (c2 <= self.chi2_th) & (pc[:, 2] > 0)
+
+    def finalize(self, kf_pose, pt_pos) -> BAResult:
+        """The final classification (Optimizer.cc:820-850)."""
+        e, pc, _ = self.edge_terms(kf_pose, pt_pos)
+        c2 = _chi2(e, self.prob.e_inv_s2)
+        depth_pos = pc[:, 2] > 0
+        return BAResult(kf_pose=kf_pose, pt_pos=pt_pos, e_chi2=c2, e_depth_pos=depth_pos,
+                        e_inlier=self.prob.e_valid & (c2 <= self.chi2_th) & depth_pos)
+
+
+def ba_segment(prob: BAProblem, K: camera.Intrinsics, kf_pose, pt_pos, lam, ni, chi, mask,
+               n_iters: int, kernel_on: bool = True, init: bool = False, ctx=None):
+    """One LM segment of a phase: returns (kf_pose, pt_pos, lam, ni, chi).
+    init=True starts the phase (lam, ni, chi are then ignored); init=False
+    continues from the carried state. ``ctx``, the problem's ``_Ctx``, is
+    built when not given (one host read)."""
+    ctx = ctx or _Ctx(prob, K)
+    return ctx.segment(kf_pose, pt_pos, lam, ni, chi, mask, kernel_on, n_iters, init)
+
+
+def ba_midpoint(prob: BAProblem, K: camera.Intrinsics, kf_pose, pt_pos, ctx=None):
+    """The between-phase outlier gate (Optimizer.cc:786-817): the inlier
+    mask of phase 2."""
+    return (ctx or _Ctx(prob, K)).midpoint(kf_pose, pt_pos)
+
+
+def ba_finalize(prob: BAProblem, K: camera.Intrinsics, kf_pose, pt_pos, ctx=None) -> BAResult:
+    """The final classification (Optimizer.cc:820-850)."""
+    return (ctx or _Ctx(prob, K)).finalize(kf_pose, pt_pos)
 
 
 def ba_solve(
@@ -291,23 +336,12 @@ def ba_solve(
     one robust run over every valid edge (Optimizer.cc:51-249)."""
     ctx = _Ctx(prob, K)
     # phase 1: n_iters1 iterations on all valid edges, robust kernel on
-    kf_pose, pt_pos = ctx.lm(prob.kf_pose, prob.pt_pos, prob.e_valid, True, n_iters1)
-
+    kf_pose, pt_pos, *_ = ctx.segment(prob.kf_pose, prob.pt_pos, None, None, None,
+                                      prob.e_valid, True, n_iters1, init=True)
     # outlier gate between phases (Optimizer.cc:786-817)
-    if midpoint_gate:
-        e, pc, _ = ctx.edge_terms(kf_pose, pt_pos)
-        c2 = _chi2(e, prob.e_inv_s2)
-        inlier = prob.e_valid & (c2 <= ctx.chi2_th) & (pc[:, 2] > 0)
-    else:
-        inlier = prob.e_valid
-
+    inlier = ctx.midpoint(kf_pose, pt_pos) if midpoint_gate else prob.e_valid
     # phase 2 on the inlier set; the local BA strips the robust kernel here
     # (setRobustKernel(0), Optimizer.cc:774,790)
-    kf_pose, pt_pos = ctx.lm(kf_pose, pt_pos, inlier, kernel2, n_iters2)
-
-    # final classification (Optimizer.cc:820-850)
-    e, pc, _ = ctx.edge_terms(kf_pose, pt_pos)
-    c2 = _chi2(e, prob.e_inv_s2)
-    depth_pos = pc[:, 2] > 0
-    return BAResult(kf_pose=kf_pose, pt_pos=pt_pos, e_chi2=c2, e_depth_pos=depth_pos,
-                    e_inlier=prob.e_valid & (c2 <= ctx.chi2_th) & depth_pos)
+    kf_pose, pt_pos, *_ = ctx.segment(kf_pose, pt_pos, None, None, None, inlier, kernel2,
+                                      n_iters2, init=True)
+    return ctx.finalize(kf_pose, pt_pos)

@@ -24,17 +24,31 @@ the result on the device in a ``GBAHandle``, and ``apply_global_ba``
 merges it later into a map that kept growing, the reference's
 RunGlobalBundleAdjustment merge-back (LoopClosing.cc:649-745).
 
-Not ported yet: the async local BA (``local_bundle_adjustment_async``,
-``apply_local_ba``, ROADMAP A7).
+The async local BA, the reference's threaded-LocalMapping semantics
+(tracking never waits for Optimizer::LocalBundleAdjustment):
+``local_bundle_adjustment_async`` assembles the window (under the caller's
+map lock) and returns an ``LBAHandle``; ``apply_local_ba`` merges the
+result later into a map that kept changing, revalidating every write:
+points killed or re-observed meanwhile keep their newer state. The port's
+LM reads a flag on the host at every trial, so a solve cannot be
+dispatched and left running on the calling thread. It leaves that thread
+instead: segmented (the LocalMapping worker), ``LBAHandle.drive`` steps
+the reference's LM segments (``BA_SEGMENTS``) on the worker, off the map
+lock; unsegmented (async BA without the worker), ``LBAHandle.start`` runs
+the same segments on the LocalMapping's helper thread and ``is_ready`` is
+its future's ``done()``. Either way the solve is the synchronous one's,
+bit for bit.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
 
 from ..geometry import camera
-from .ba_core import BAProblem, ba_solve
+from .ba_core import BAProblem, _Ctx, ba_solve
 
 
 # Local BA runs at every keyframe event on one of three padded sizes
@@ -213,10 +227,46 @@ def _trim_window(m, local_kfs, fixed_kfs, pts):
     return local_kfs, fixed_kfs, pts
 
 
+def _upload(prob_np, device) -> BAProblem:
+    return BAProblem(*(torch.as_tensor(a).to(device) for a in prob_np))
+
+
 def _solve(cfg, prob_np, device, **opts):
     """ba_solve of a host BAProblem on `device` (one upload)."""
-    prob = BAProblem(*(torch.as_tensor(a).to(device) for a in prob_np))
-    return ba_solve(prob, camera.Intrinsics.from_config(cfg.camera, device), **opts)
+    return ba_solve(_upload(prob_np, device),
+                    camera.Intrinsics.from_config(cfg.camera, device), **opts)
+
+
+# The async local BA's segment plan: phase 1 = 3 + 2 robust iterations,
+# phase 2 = 4 + 3 + 3 kernel-off iterations, ba_solve(n_iters1=5,
+# n_iters2=10, kernel2=False) cut at the reference's points
+BA_SEGMENTS = ((3, 2), (4, 3, 3))
+
+
+def _ba_solve_segmented_driver(prob, K, segs=BA_SEGMENTS, kernel2=False,
+                               midpoint_gate=True):
+    """A drive() callable that uploads `prob` (host arrays or tensors) to
+    K's device, steps the LM segments with (lam, ni, chi) carried between
+    them, and returns the BAResult: ba_solve's arithmetic, bit for bit.
+    Nothing runs before drive(): the caller assembles under the map lock
+    and drives off it."""
+
+    def drive():
+        prob_d = _upload(prob, K.fx.device)
+        ctx = _Ctx(prob_d, K)
+        segs1, segs2 = segs
+        kf, pt = prob_d.kf_pose, prob_d.pt_pos
+        lam = ni = chi = None
+        for i, n in enumerate(segs1):
+            kf, pt, lam, ni, chi = ctx.segment(kf, pt, lam, ni, chi, prob_d.e_valid, True, n,
+                                               init=i == 0)
+        mask2 = ctx.midpoint(kf, pt) if midpoint_gate else prob_d.e_valid
+        for i, n in enumerate(segs2):
+            kf, pt, lam, ni, chi = ctx.segment(kf, pt, lam, ni, chi, mask2, kernel2, n,
+                                               init=i == 0)
+        return ctx.finalize(kf, pt)
+
+    return drive
 
 
 def _run_ba(cfg, m, local_kfs, fixed_kfs, pts, device, return_edges=False):
@@ -295,6 +345,114 @@ def local_bundle_adjustment(cfg, m, kf_id: int, device, return_edges=False):
         return None
     local_kfs, fixed_kfs, pts = win
     return _run_ba(cfg, m, local_kfs, fixed_kfs, pts, device, return_edges)
+
+
+class LBAHandle:
+    """An in-flight local BA: the assembled window and the solve that has
+    yet to run (``drive``) or runs on a helper thread (``start``); merged by
+    ``apply_local_ba`` when ready or at the next forced join (the next
+    keyframe event, a loop correction, a trajectory save)."""
+
+    def __init__(self, driver, all_kfs, kf_fixed, n_local, pts, e_feat, E, rung):
+        self._driver = driver
+        self._drive_lock = threading.Lock()
+        self._future = None
+        self.flat = None          # the result flattened on the device
+        self.all_kfs = all_kfs
+        self.kf_fixed = kf_fixed
+        self.n_local = n_local
+        self.pts = pts
+        self.e_feat = e_feat
+        self.E = E
+        self.rung = rung          # (n_kf, n_pt, n_e) of the padded problem
+
+    def drive(self):
+        """Run the solve on the calling thread (idempotent, thread-safe: the
+        worker and a forced join may race here). A failed solve raises and
+        stays pending."""
+        with self._drive_lock:
+            if self._driver is not None:
+                res = self._driver()
+                self.flat = torch.cat([res.kf_pose.reshape(-1), res.pt_pos.reshape(-1),
+                                       res.e_inlier.to(torch.float32), res.e_chi2])
+                self._driver = None
+
+    def start(self, executor):
+        """Run the solve on `executor`'s thread."""
+        self._future = executor.submit(self.drive)
+
+    def is_ready(self) -> bool:
+        if self._future is not None:
+            return self._future.done()
+        return self._driver is None
+
+    def result(self):
+        """The host result (one download): (poses, points, inlier, chi2).
+        Waits for the helper thread, or drives a pending segmented solve;
+        the solve's exception is raised here."""
+        if self._future is not None:
+            self._future.result()
+        else:
+            self.drive()
+        n_kf, n_pt, n_e = self.rung
+        flat = self.flat.cpu().numpy()
+        o1, o2 = n_kf * 16, n_kf * 16 + n_pt * 3
+        return (flat[:o1].reshape(n_kf, 4, 4), flat[o1:o2].reshape(n_pt, 3),
+                flat[o2:o2 + n_e] != 0.0, flat[o2 + n_e:o2 + 2 * n_e])
+
+
+def local_bundle_adjustment_async(cfg, m, kf_id: int, device, segmented: bool = True,
+                                  executor=None):
+    """Assemble the covisibility-window BA and return its LBAHandle (None
+    when degenerate); the solve steps BA_SEGMENTS. segmented=True (the
+    worker): nothing is solved yet, the caller drives ``handle.drive()``
+    off the map lock. segmented=False: the solve starts at once on
+    `executor` (a single-thread pool). apply_local_ba merges either."""
+    win = _local_window(m, kf_id)
+    if win is None:
+        return None
+    local_kfs, fixed_kfs, pts = _trim_window(m, *win)
+    packed = _assemble(cfg, m, local_kfs, fixed_kfs, pts)
+    if packed is None:
+        return None
+    prob_np, all_kfs, e_feat, E = packed
+    driver = _ba_solve_segmented_driver(prob_np, camera.Intrinsics.from_config(cfg.camera,
+                                                                                device))
+    rung = (prob_np.kf_pose.shape[0], prob_np.pt_pos.shape[0], prob_np.e_obs.shape[0])
+    h = LBAHandle(driver, all_kfs, prob_np.kf_fixed, len(local_kfs), pts, e_feat, E, rung)
+    if not segmented:
+        h.start(executor)
+    return h
+
+
+def apply_local_ba(handle: LBAHandle, m):
+    """Merge a finished (or force-joined) async local BA into the map. The
+    readback runs outside the map lock, the host mutations inside it."""
+    new_poses, new_pts, inlier_all, chi2_all = handle.result()
+    with m.lock:
+        _apply_local_ba_data(handle, m, new_poses, new_pts, inlier_all, chi2_all)
+
+
+def _apply_local_ba_data(handle, m, new_poses, new_pts, inlier_all, chi2_all):
+    """The synchronous write-back, revalidated against the live map: a
+    keyframe culled or a point killed since the dispatch keeps its state,
+    and an outlier edge is erased only while the point still has that
+    observation."""
+    for i, k in enumerate(handle.all_kfs[: handle.n_local]):
+        if not handle.kf_fixed[i] and m.kf_alive[k]:
+            m.set_kf_pose(k, new_poses[i])
+    pts_arr = np.asarray(handle.pts)
+    alive = m.pt_alive[pts_arr]
+    m.pt_pos[pts_arr[alive]] = new_pts[: len(pts_arr)][alive]
+    m.mark_dirty(pts_arr[alive])
+
+    inlier = inlier_all[: handle.E]
+    for idx in np.nonzero(~inlier)[0]:
+        pid, k, feat = handle.e_feat[idx]
+        if m.pt_alive[pid] and m.pt_obs[pid].get(k) == feat:
+            m.kf_frames[k].map_pt[feat] = -1
+            m.erase_observation(pid, k)
+    m.update_normal_and_depth_batch(pts_arr[alive])
 
 
 def local_bundle_adjustment_vis(cfg, m, kf_id: int, device):

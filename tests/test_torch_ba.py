@@ -20,6 +20,10 @@ Tolerances: keyframe poses 1e-5 (8.0e-7 seen), points 1e-3 m (2.1e-4 seen
 on the near window; the port sums in another order and solves in
 float64, and a point seen twice moves along its rays); the final inlier
 and depth flags exactly.
+
+The segmented solver of the async local BA (``ba_segment``,
+``ba_midpoint``, ``ba_finalize`` and local_ba's segmented driver) is held
+to the JAX functions below, and to ``ba_solve`` bit for bit.
 """
 
 import numpy as np
@@ -198,3 +202,89 @@ def test_lba_rung_matches_jax(size):
 
     assert local_ba.LBA_RUNGS == ref_lba.LBA_RUNGS
     assert local_ba._lba_rung(*size) == ref_lba._lba_rung(*size)
+
+
+# ---- the segmented solver (the async local BA's, ROADMAP A7) -------------
+#
+# ba_segment / ba_midpoint / ba_finalize are ba_solve's cut points. Against
+# the JAX functions on the mixed window, each piece fed JAX's state at its
+# cut: keyframe poses within 1e-5, points within 1e-4 m, lambda and the
+# cost within 1e-3 relative, the multiplier ni exactly, the midpoint and
+# final inlier flags agreeing on > 99% of the valid edges (the tolerances
+# of tests/test_ba_variants.py's segmented check; 8.0e-7, 3.1e-5 m, 1.2e-6
+# and 100% seen over the whole driver and its pieces). The port's segmented
+# driver runs ba_solve's arithmetic, so it equals ba_solve bit for bit.
+
+@pytest.fixture(scope="module")
+def segments(problems, tmp_path_factory):
+    probs, _, _ = problems
+    prob = probs["mixed"]
+    ref = run_reference("ba_segments", tmp_path_factory.mktemp("ba_seg"), K=np.array(K_CAM),
+                        **prob)
+    return prob, ref
+
+
+def _port_problem(prob):
+    return (BAProblem(*(torch.from_numpy(prob[f]) for f in BA_FIELDS)),
+            camera.Intrinsics(*(torch.tensor(v) for v in K_CAM)))
+
+
+def test_ba_segments_match_jax(segments):
+    from iv_slam_tpu_torch.solvers.local_ba import BA_SEGMENTS
+
+    prob_np, ref = segments
+    prob, K = _port_problem(prob_np)
+    t = torch.from_numpy
+    e_valid = prob_np["e_valid"]
+    kf, pt, lam, ni, chi = prob.kf_pose, prob.pt_pos, None, None, None
+    mask = prob.e_valid
+    i = 0
+    for phase, segs in enumerate(BA_SEGMENTS):
+        if phase == 1:
+            got = ba_core.ba_midpoint(prob, K, kf, pt).numpy()
+            assert (got == ref["mid_mask"])[e_valid].mean() > 0.99
+            mask = t(ref["mid_mask"])
+        for j, n in enumerate(segs):
+            out = ba_core.ba_segment(prob, K, kf, pt, lam, ni, chi, mask, n,
+                                     kernel_on=phase == 0, init=j == 0)
+            want = {f: ref[f"seg{i}_{f}"] for f in ("kf", "pt", "lam", "ni", "chi")}
+            np.testing.assert_allclose(out[0].numpy(), want["kf"], rtol=0, atol=1e-5)
+            np.testing.assert_allclose(out[1].numpy(), want["pt"], rtol=0, atol=1e-4)
+            np.testing.assert_allclose(out[2].numpy(), want["lam"], rtol=1e-3)
+            assert out[3].item() == want["ni"]
+            np.testing.assert_allclose(out[4].numpy(), want["chi"], rtol=1e-3)
+            # the next piece starts from JAX's state at this cut
+            kf, pt, lam, ni, chi = (t(want[f]) for f in ("kf", "pt", "lam", "ni", "chi"))
+            i += 1
+    fin = ba_core.ba_finalize(prob, K, kf, pt)
+    assert (fin.e_inlier.numpy() == ref["fin_e_inlier"])[e_valid].mean() > 0.99
+    np.testing.assert_array_equal(fin.kf_pose.numpy(), ref["seg4_kf"])
+    np.testing.assert_allclose(fin.e_chi2.numpy()[e_valid], ref["fin_e_chi2"][e_valid],
+                               rtol=1e-3, atol=1e-3)
+
+
+def test_segmented_driver_matches_jax(segments):
+    from iv_slam_tpu_torch.solvers import local_ba
+
+    prob_np, ref = segments
+    res = local_ba._ba_solve_segmented_driver(*_port_problem(prob_np))()
+    np.testing.assert_allclose(res.kf_pose.numpy(), ref["drv_kf_pose"], rtol=0, atol=1e-5)
+    valid = prob_np["pt_valid"]
+    np.testing.assert_allclose(res.pt_pos.numpy()[valid], ref["drv_pt_pos"][valid], rtol=0,
+                               atol=1e-4)
+    e_valid = prob_np["e_valid"]
+    assert (res.e_inlier.numpy() == ref["drv_e_inlier"])[e_valid].mean() > 0.99
+
+
+@pytest.mark.parametrize("name", ["converge", "mixed", "far"])
+def test_segmented_driver_is_ba_solve(problems, name):
+    """Cut at BA_SEGMENTS, the solve is ba_solve's, bit for bit; so is
+    ba_solve composed of the pieces cut at every iteration."""
+    from iv_slam_tpu_torch.solvers import local_ba
+
+    prob, K = _port_problem(problems[0][name])
+    want = ba_solve(prob, K)
+    for segs in (local_ba.BA_SEGMENTS, ((1,) * 5, (1,) * 10)):
+        got = local_ba._ba_solve_segmented_driver(prob, K, segs)()
+        for f in want._fields:
+            assert torch.equal(getattr(got, f), getattr(want, f)), (segs, f)

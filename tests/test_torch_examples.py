@@ -28,9 +28,11 @@ against the JAX drivers: test_torch_mono_rgbd.py holds the two Systems
 against each other, and the recorder holds the drivers' inputs.
 The viewer flags (--enable_viewer, --live_viewer_port, --logging_level)
 leave run_stereo's trajectory bit-equal and draw what the reference's driver
-draws; evaluate_batch --viz writes the reference's figures. Flags whose
-feature is not ported raise NotImplementedError naming their ROADMAP item,
-and no driver runs on the CPU unless asked.
+draws; evaluate_batch --viz writes the reference's figures.
+--no-run_single_threaded (the LocalMapping worker) runs and tracks as the
+single-threaded run. Flags whose feature is not ported raise
+NotImplementedError naming their ROADMAP item, and no driver runs on the
+CPU unless asked.
 """
 
 import dataclasses
@@ -189,8 +191,25 @@ def test_identity_rectification_is_bit_identical(kitti):
         _read(kitti["out"] / "Trajectory_KITTI_000.txt")
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--no-run_single_threaded"], "A7"), (["--prewarm"], "A7"), (["--chained_tracking"], "A7")])
+def test_threaded_run_stereo(kitti):
+    """--no-run_single_threaded (the LocalMapping worker and the async local
+    BA) over the same layout: no failure, the single-threaded run's
+    keyframe stamps, and its trajectory within the System parity tests'
+    2e-3."""
+    out = kitti["root"] / "threaded"
+    argv = [a if a != str(kitti["out"]) else str(out) for a in kitti["argv"]]
+    stats = run_stereo.main(argv + ["--no-run_single_threaded"])
+    assert stats["frames"] == N_FRAMES and stats["failures"] == 0
+    assert abs(stats["ate_rmse"] - kitti["stats"]["ate_rmse"]) < 2e-3
+    np.testing.assert_allclose(np.loadtxt(out / "Trajectory_KITTI_000.txt"),
+                               np.loadtxt(kitti["out"] / "Trajectory_KITTI_000.txt"),
+                               rtol=0, atol=2e-3)
+    kf, kf_single = (np.loadtxt(d / "KeyFrameTrajectory_TUM_000.txt", ndmin=2)
+                     for d in (out, kitti["out"]))
+    np.testing.assert_array_equal(kf[:, 0], kf_single[:, 0])
+
+
+@pytest.mark.parametrize("flags,item", [(["--prewarm"], "A16"), (["--chained_tracking"], "A16")])
 def test_unported_flags_raise(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=item):
         run_stereo.main(["--data_path", str(tmp_path), "--device", "cpu", *flags])

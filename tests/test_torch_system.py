@@ -31,10 +31,17 @@ on the CPU path.
   frames give too few keyframes for DetectLoop, which
   tests/test_torch_loop_closing.py holds on a recorded JAX map), poses
   within 2e-3 as above;
-* the switches this port does not run yet raise NotImplementedError
-  (use_bow, loop closing, mono tracking and the constrained BA only
-  together with the LocalMapping worker or async local BA, A7), and System
-  needs CUDA unless given a device.
+* the LocalMapping worker with each event waited for (the serialized
+  worker): bit-equal to the inline run (keyframe stamps, map points,
+  trajectory), and against the JAX System run the same way: the same
+  keyframes and map points, poses within 2e-3;
+* the reference's threaded switches (the worker, async local BA, and
+  either with BoW, loop closing, mono or RGB-D tracking, the vis or the
+  constrained BA) each
+  construct, track two frames and shut down with the worker stopped; the
+  switches this port does not run yet (chained tracking, prewarm, a
+  pinned link profile: A16) raise NotImplementedError, and System needs
+  CUDA unless given a device.
 """
 
 import os
@@ -49,8 +56,8 @@ from iv_slam_tpu_torch.io import trajectory
 from iv_slam_tpu_torch.slam.system import System
 from iv_slam_tpu_torch.slam.tracking import State
 from iv_slam_tpu_torch.slam.vocabulary import Vocabulary
-from torch_parity import (jax_pnp_indices, jax_sim3_indices, one_thread,  # noqa: F401
-                          run_reference, vocabulary_arrays)
+from torch_parity import (jax_pnp_indices, jax_sim3_indices, mono_rgbd_world,  # noqa: F401
+                          one_thread, run_reference, serialize_worker, vocabulary_arrays)
 
 pytestmark = pytest.mark.usefixtures("one_thread")
 
@@ -67,9 +74,11 @@ def make_config(fused=False, ini_th_fast=12):
     return cfg
 
 
-def run(cfg, frames, kf_every=0, cost_map=None, voc=None):
+def run(cfg, frames, kf_every=0, cost_map=None, voc=None, serialize=False):
     s = System(cfg, 240, 320, device="cpu")
     tr = s.tracking
+    if serialize:
+        serialize_worker(tr.local_mapping)
     if voc is not None:
         s.attach_vocabulary(voc)
         tr.loop_closing.sampler = jax_sim3_indices
@@ -174,10 +183,24 @@ def jax_systems(sequence, vocabulary, tmp_path_factory):
                          n_levels=4, cost_map=cost_map(), **vocabulary_arrays(vocabulary))
 
 
+@pytest.fixture(scope="module")
+def inline_runs(sequence):
+    """The port's inline runs of the sequence with a keyframe forced every
+    third frame, by mode (each made once)."""
+    runs = {}
+
+    def get(mode):
+        if mode not in runs:
+            runs[mode] = run(make_config(mode == "fused"), sequence[1], kf_every=3)
+        return runs[mode]
+
+    return get
+
+
 @pytest.mark.parametrize("mode", ["classic", "fused"])
-def test_trajectory_matches_jax_system(sequence, jax_systems, mode):
+def test_trajectory_matches_jax_system(sequence, jax_systems, inline_runs, mode):
     world, frames, gt = sequence
-    s = run(make_config(mode == "fused"), frames, kf_every=3)
+    s = inline_runs(mode)
     ref = {k[len(mode) + 1:]: v for k, v in jax_systems.items() if k.startswith(mode)}
     m = s.tracking.map
     assert s.failure_count == 0 == int(ref["failures"])
@@ -230,6 +253,33 @@ def test_trajectory_with_loop_closing_matches_jax_system(sequence, jax_systems, 
     assert trajectory.ate_rmse(list(est), gt) < 0.05
 
 
+def test_serialized_worker_matches_inline_and_jax(sequence, jax_systems, inline_runs):
+    """Fused tracking through the LocalMapping worker, each event waited
+    for: the inline run's arithmetic in the inline order."""
+    world, frames, gt = sequence
+    cfg = make_config(fused=True)
+    cfg.system.threaded_local_mapping = True
+    s = run(cfg, frames, kf_every=3, serialize=True)
+    inline = inline_runs("fused")
+    tr, m, mi = s.tracking, s.tracking.map, inline.tracking.map
+    assert tr.local_mapping._worker is not None and tr.local_mapping.worker_exc is None
+    assert (m.n_keyframes, m.n_points) == (mi.n_keyframes, mi.n_points)
+    np.testing.assert_array_equal(m.kf_timestamp[:m.n_keyframes],
+                                  mi.kf_timestamp[:mi.n_keyframes])
+    np.testing.assert_array_equal(m.pt_pos[:m.n_points], mi.pt_pos[:mi.n_points])
+    est = np.stack(s.trajectory_twc())
+    np.testing.assert_array_equal(est, np.stack(inline.trajectory_twc()))
+    ref = {k[len("thr_"):]: v for k, v in jax_systems.items() if k.startswith("thr_")}
+    assert s.failure_count == 0 == int(ref["failures"])
+    assert (m.n_keyframes, m.n_points) == (int(ref["n_keyframes"]), int(ref["n_points"]))
+    assert int(m.pt_alive[:m.n_points].sum()) == int(ref["n_alive"])
+    np.testing.assert_array_equal(m.kf_timestamp[:m.n_keyframes], ref["kf_timestamp"])
+    np.testing.assert_allclose(est[:, :3, 3], ref["twc"][:, :3, 3], rtol=0, atol=2e-3)
+    np.testing.assert_allclose(est[:, :3, :3], ref["twc"][:, :3, :3], rtol=0, atol=2e-3)
+    s.shutdown()
+    assert tr.local_mapping._worker is None
+
+
 def test_system_needs_cuda_without_a_device():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -237,24 +287,60 @@ def test_system_needs_cuda_without_a_device():
         System(make_config(), 240, 320)
 
 
-SWITCHES = {
+# the reference's thread architecture (ROADMAP A7) alone and with each
+# configuration it combines with
+THREADED = {
     "threaded_local_mapping": lambda c: setattr(c.system, "threaded_local_mapping", True),
     "async_local_ba": lambda c: setattr(c.system, "async_local_ba", True),
-    "chained_tracking": lambda c: setattr(c.system, "chained_tracking", True),
-    "prewarm": lambda c: setattr(c.system, "prewarm", True),
-    # BoW and loop closing run inline; with the LocalMapping worker or
-    # async local BA they wait for A7
     "use_bow": lambda c: (setattr(c.system, "use_bow", True),
                           setattr(c.system, "threaded_local_mapping", True)),
-    # mono tracking and the constrained BA run inline; with the
-    # LocalMapping worker or async local BA they wait for A7
     "sensor mono": lambda c: (setattr(c.system, "sensor", "mono"),
                               setattr(c.system, "threaded_local_mapping", True)),
     "enable_loop_closing": lambda c: (setattr(c.system, "enable_loop_closing", True),
                                       setattr(c.system, "async_local_ba", True)),
     "ba_mode constrained": lambda c: (setattr(c.iv, "ba_mode", "constrained"),
                                       setattr(c.system, "async_local_ba", True)),
+    "sensor rgbd": lambda c: (setattr(c.system, "sensor", "rgbd"),
+                              setattr(c.system, "threaded_local_mapping", True),
+                              setattr(c.system, "async_local_ba", True)),
+    "ba_mode vis": lambda c: (setattr(c.iv, "ba_mode", "vis"),
+                              setattr(c.system, "threaded_local_mapping", True),
+                              setattr(c.system, "async_local_ba", True)),
+}
+
+
+@pytest.mark.parametrize("name", list(THREADED))
+def test_threaded_switch_runs(sequence, vocabulary, name):
+    cfg = make_config(fused=True)
+    THREADED[name](cfg)
+    s = System(cfg, 240, 320, device="cpu")
+    if cfg.system.use_bow or cfg.system.enable_loop_closing:
+        s.attach_vocabulary(vocabulary)
+    lm = s.tracking.local_mapping
+    assert (lm._worker is not None) == cfg.system.threaded_local_mapping
+    imgs, depths, _ = mono_rgbd_world(2)
+    for i, (left, right) in enumerate(sequence[1][:2]):
+        if cfg.system.sensor == "mono":
+            s.track_mono(left, timestamp=i * 0.1)
+        elif cfg.system.sensor == "rgbd":
+            s.track_rgbd(imgs[i], depths[i], timestamp=i * 0.1)
+        else:
+            s.track_stereo(left, right, timestamp=i * 0.1)
+    # mono initializes on the second frame (an H win), stereo on the first
+    assert s.state == State.OK and s.failure_count == 0
+    assert len(s.trajectory_twc()) == 2
+    s.shutdown()
+    assert lm._worker is None and lm.worker_exc is None
+
+
+# not ported yet (A16), alone and with the threaded switches
+SWITCHES = {
+    "chained_tracking": lambda c: setattr(c.system, "chained_tracking", True),
+    "prewarm": lambda c: setattr(c.system, "prewarm", True),
     "link_rtt_ms": lambda c: setattr(c.system, "link_rtt_ms", 58.0),
+    "chained_tracking threaded": lambda c: (setattr(c.system, "chained_tracking", True),
+                                            setattr(c.system, "threaded_local_mapping", True),
+                                            setattr(c.system, "async_local_ba", True)),
 }
 
 
@@ -262,5 +348,5 @@ SWITCHES = {
 def test_unported_switch_raises(name):
     cfg = make_config()
     SWITCHES[name](cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
         System(cfg, 240, 320, device="cpu")

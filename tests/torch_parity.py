@@ -416,6 +416,44 @@ def _task_ba(K, n_iters1, n_iters2, **a):
     return {k: np.stack([o[k] for o in outs]) for k in outs[0]}
 
 
+def _task_ba_segments(K, **a):
+    """The JAX segmented solver on one problem: ba_segment over the async
+    local BA's plan (phase 1 = 3 + 2 robust iterations, the midpoint gate,
+    phase 2 = 4 + 3 + 3 iterations without the kernel), each cut's state
+    (seg<i>_kf/_pt/_lam/_ni/_chi, mid_mask), ba_finalize of the last
+    (fin_<field>), and the whole driver (drv_<field>)."""
+    import jax.numpy as jnp
+
+    from iv_slam_tpu.geometry import camera
+    from iv_slam_tpu.solvers import local_ba
+    from iv_slam_tpu.solvers.ba_core import BAProblem, ba_finalize, ba_midpoint, ba_segment
+
+    Kj = camera.Intrinsics(*(jnp.float32(v) for v in K))
+    prob = BAProblem(*(jnp.asarray(a[f]) for f in BA_FIELDS))
+    out = {}
+    kf, pt = prob.kf_pose, prob.pt_pos
+    lam, ni, chi = jnp.float32(0.0), jnp.float32(2.0), jnp.float32(0.0)
+    mask = prob.e_valid
+    i = 0
+    for phase, segs in enumerate(local_ba.BA_SEGMENTS):
+        if phase == 1:
+            mask = ba_midpoint(prob, Kj, kf, pt)
+            out["mid_mask"] = np.asarray(mask)
+        for j, n in enumerate(segs):
+            kf, pt, lam, ni, chi = ba_segment(prob, Kj, kf, pt, lam, ni, chi, mask,
+                                              n_iters=n, kernel_on=phase == 0, init=j == 0)
+            out.update({f"seg{i}_kf": np.asarray(kf), f"seg{i}_pt": np.asarray(pt),
+                        f"seg{i}_lam": np.asarray(lam), f"seg{i}_ni": np.asarray(ni),
+                        f"seg{i}_chi": np.asarray(chi)})
+            i += 1
+    fin = ba_finalize(prob, Kj, kf, pt)
+    drv = local_ba._ba_solve_segmented_driver(BAProblem(*(a[f] for f in BA_FIELDS)), Kj)()
+    for f in fin._fields:
+        out["fin_" + f] = np.asarray(getattr(fin, f))
+        out["drv_" + f] = np.asarray(getattr(drv, f))
+    return out
+
+
 def dump_map(m, recent_points=None):
     """A MapStore (the JAX package's or the port's) as flat numpy arrays:
     point and keyframe tables, the observation dicts in insertion order and
@@ -531,10 +569,12 @@ def _task_system(seed, n_frames, kf_every, cam, n_features, n_levels, cost_map=N
     forced every kf_every frames (0: none), classic then fused tracking,
     then (with `cost_map`) fused tracking with every frame weighted by the
     cost map and local BA in the vis mode, then (with a vocabulary,
-    voc_<field>) fused tracking with use_bow and loop closing on: each
-    run's trajectory, map size and point qualities, prefixed classic_ /
-    fused_ / iv_ / lc_ (with the loops closed and the keyframe database's
-    keyframes)."""
+    voc_<field>) fused tracking with use_bow and loop closing on, then
+    fused tracking through the LocalMapping worker with each event waited
+    for (serialize_worker): each run's trajectory, map size and point
+    qualities, prefixed classic_ / fused_ / iv_ / lc_ / thr_ (with the
+    loops closed and the keyframe database's keyframes; with the keyframes'
+    timestamps)."""
     import synth_world
 
     from iv_slam_tpu.slam.system import System
@@ -543,7 +583,7 @@ def _task_system(seed, n_frames, kf_every, cam, n_features, n_levels, cost_map=N
                                                   n_frames=int(n_frames), step=0.08)
     out = {}
     names = (("classic", "fused") + (("iv",) if cost_map is not None else ())
-             + (("lc",) if voc else ()))
+             + (("lc",) if voc else ()) + ("thr",))
     for name in names:
         cfg = _tracking_config(cam, n_features, n_levels)
         cfg.system.fused_tracking = name != "classic"
@@ -552,10 +592,14 @@ def _task_system(seed, n_frames, kf_every, cam, n_features, n_levels, cost_map=N
             cfg.iv.ba_mode = "vis"
         if name == "lc":
             cfg.system.use_bow = cfg.system.enable_loop_closing = True
+        if name == "thr":
+            cfg.system.threaded_local_mapping = True
         s = System(cfg, cfg.camera.height, cfg.camera.width)
         if name == "lc":
             s.attach_vocabulary(jax_vocabulary(voc))
         tr = s.tracking
+        if name == "thr":
+            serialize_worker(tr.local_mapping)
         k = int(kf_every)
         for i, (left, right) in enumerate(frames):
             s.track_stereo(left, right, timestamp=i * 0.1, cost_map=cost)
@@ -571,7 +615,23 @@ def _task_system(seed, n_frames, kf_every, cam, n_features, n_levels, cost_map=N
         if name == "lc":
             out.update(lc_n_loops=np.int64(tr.loop_closing.n_loops_closed),
                        lc_kfdb=np.array(list(tr.kfdb.bow), np.int64))
+        if name == "thr":
+            out["thr_kf_timestamp"] = np.array(m.kf_timestamp[:m.n_keyframes])
+            s.shutdown()
     return out
+
+
+def serialize_worker(lm):
+    """Make a LocalMapping worker (either package's) deterministic: each
+    kick_async waits until the worker has run the events it handed over,
+    so a threaded run takes the inline run's steps in the inline order."""
+    kick = lm.kick_async
+
+    def kick_and_wait(run_ba=True):
+        kick(run_ba=run_ba)
+        lm._q.join()
+
+    lm.kick_async = kick_and_wait
 
 
 # ---- mono and RGB-D, training-data generation (ROADMAP A9, A12) ------------
