@@ -33,14 +33,14 @@ It drives the port only (no JAX, nothing of ``iv_slam_tpu``):
      each pose held against ground truth and both compaction overflows to 0;
      one step of (b) again on the CPU path (same inputs), compared; host
      syncs inside a step (CUDA sync debug mode);
-  5. full loop, the main path end to end: bench.py's 120-frame world
-     through System(cfg, 376, 1241) on the card (fused tracking, the other
-     switches at their defaults: unchained, single-threaded, synchronous
-     local BA), K1-K3 counted (once a frame); fails on a lost frame, an ATE
-     above 0.5 m or a T_CAP/F_CAP overflow; prints fps over frames 15-120,
-     the ATE and per-stage host medians (its state after 30 and 60 frames
-     and the card's busy share over the first 60 are phase 14's inline
-     run); then one recorded triangulation,
+  5. full loop, the main path end to end: the first 60 frames of bench.py's
+     120-frame world through System(cfg, 376, 1241) on the card (fused
+     tracking, the other switches at their defaults: unchained,
+     single-threaded, synchronous local BA), K1-K3 counted (once a frame);
+     fails on a lost frame, an ATE above 0.5 m or a T_CAP/F_CAP overflow;
+     prints fps over frames 15-60, the ATE and per-stage host medians (its
+     state after 20, 30, 40 and 60 frames and the card's busy share over
+     the first 30 are phases 14's and 15's unchained, inline run); then one recorded triangulation,
      fuse and local-BA call of the run again on the CPU path (compared) and
      the BA again on the card (bit-equal);
   6. introspection, at full width: the FCN (MobileNetV2-dilated +
@@ -52,7 +52,7 @@ It drives the port only (no JAX, nothing of ``iv_slam_tpu``):
      uint8 map within 1), two card runs bit-equal; (b) the frontend with
      that cost map: every Frame field of the card equal to the CPU path's,
      the attached FCN equal to the explicit cost map, K1-K3 once a frame on
-     the quality path, no host sync inside a frame; (c) the first 60
+     the quality path, no host sync inside a frame; (c) the first 30
      frames of bench.py's loop through System with the FCN attached (fails
      on a lost frame, an ATE above 0.5 m or a cap overflow), beside phase
      5's ATE and frames/s over the same frames;
@@ -61,15 +61,15 @@ It drives the port only (no JAX, nothing of ``iv_slam_tpu``):
      of a 6 m circle; 800 features, 8 levels, fused tracking, unchained,
      single-threaded, synchronous local BA): a vocabulary trained by the
      port (k=10, L=6, seed 0) on the descriptors of every third of the
-     first 121 frames;
+     first 61 frames;
      K1-K3 held bit for bit against their plain versions on the inputs of
-     LC-world frames 0 and 120 (320x240, levels down to 89x67) and FAST on
-     noise at 320x240, before the runs; (a) the first 30 frames without a
+     LC-world frames 0 and 60 (320x240, levels down to 89x67) and FAST on
+     noise at 320x240, before the runs; (a) the first 20 frames without a
      vocabulary, the control (beside (b)'s ATE over the same frames), and
-     (b) the first 120 frames with it attached and use_bow and loop
+     (b) the first 60 frames with it attached and use_bow and loop
      closing on, each failing on a lost
      frame, an ATE above 0.5 m or a cap overflow, K1-K3 counted; the first
-     30 frames of (b) again on the CPU path (the same keyframes, points,
+     20 frames of (b) again on the CPU path (the same keyframes, points,
      observations, keyframe database and loop-closing state, poses within
      2e-3); the correction path (Sim3 RANSAC and LM, loop fuse, essential
      graph, deferred global BA) on a manufactured revisit, card against
@@ -81,19 +81,19 @@ It drives the port only (no JAX, nothing of ``iv_slam_tpu``):
      config.load_reference_yaml, distortion set to zero for the ideal
      pinhole renderer), fused tracking: (a) K1 and K2 bit for bit against
      their plain versions on the inputs of each world's frame 0 and FAST on
-     noise at each size; (b) mono, 40 frames of tests/test_mono_rgbd.py's
+     noise at each size; (b) mono, 30 frames of tests/test_mono_rgbd.py's
      TwoPlaneWorld path through System.track_mono: it initialises, stays OK,
      moves along the ground truth (direction cosine > 0.95), K1/K2/K3
-     launches 40/40/0, and every search_for_initialization and
+     launches 30/30/0, and every search_for_initialization and
      initialize_mono call again on the CPU path with the card's draws (the
      same model, hypotheses, inliers and is_good set, R, t and the good
-     points within 1e-4); (c) RGB-D, 40 frames of a TwoPlaneWorld seen from 2.5 m (depth
+     points within 1e-4); (c) RGB-D, 30 frames of a TwoPlaneWorld seen from 2.5 m (depth
      as TUM's uint16 at 1/5000) through System.track_rgbd: no frame lost,
-     ATE below 0.5 m, launches 40/40/0;
+     ATE below 0.5 m, launches 30/30/0;
   9. training-data generation at KITTI geometry (settings/KITTI00-02.yaml,
      2000 features) on tests/test_introspection_helps.py's ReflectionWorld
      (seed 5) and serpentine path, GT poses on every frame: (a) supervised
-     (ref_kf_epipolar_normalized), 60 frames: no frame lost, heatmaps
+     (ref_kf_epipolar_normalized), 40 frames: no frame lost, heatmaps
      (uint8, 360x1240) and the dataset's JSON files written, one
      process_frame_supervised call again on the CPU path (the same scored
      keypoints and verdict, errors within 1e-4 relative, heatmap within 1),
@@ -117,22 +117,22 @@ It drives the port only (no JAX, nothing of ``iv_slam_tpu``):
      trained net's cost-map inference exported to TorchScript at KITTI
      geometry and loaded on the card, its map of a phase 9 frame bit-equal
      to the eager one; (e) the trained net attached to System on phase 9's
-     world for 30 frames (0 lost, K1-K3 once a frame, ATE below 0.5 m);
-     (f) one training step of every zoo encoder up to 50 layers with c1
-     (ResNeXt-101 and HRNetV2 included) and every decoder on
+     world for 20 frames (0 lost, K1-K3 once a frame, ATE below 0.5 m);
+     (f) one training step of every zoo encoder up to 50 layers but
+     ResNet-18-dilated with c1 (ResNeXt-101 and HRNetV2 included) and every decoder on
      resnet50dilated at 512x512, batch 8 (step ms, peak memory), each card
      against CPU path at 64x64, batch 2, in float64; (g) two ranks on the one
      card through gloo, the split-batch step against the one-rank step;
      (h) ShardedReplay over 16 frames of the full loop's world with phase
      7's vocabulary, bit-equal to StereoFrontend.process, bow_nodes equal
      to the host descent, K1-K3 once a frame; (i) ShardedDatagen over
-     phase 9's 60 frames, one pair card against CPU path;
+     phase 9's 40 frames, one pair card against CPU path;
  11. the dataset drivers, through the port alone (its PNG writer, no cv2):
-     (a) the full loop's 120 frames written as a KITTI layout (every row
+     (a) the full loop's 60 frames written as a KITTI layout (every row
      Paeth-filtered, times.txt, a KITTI-format GT file), every file decoded
      back equal to the rendered image, the decode's ms a pair, the row
      unfilter's ms a pair beside its plain NumPy version's and its build
-     time; (b) run_stereo in process over the first 60 with --fused_tracking
+     time; (b) run_stereo in process over the first 30 with --fused_tracking
      --profile_stages: 0 failures, ATE < 0.5 m, every output file, its
      Trajectory_KITTI_000.txt bit-equal to phase 5's in-memory trajectory
      after as many frames,
@@ -147,23 +147,19 @@ It drives the port only (no JAX, nothing of ``iv_slam_tpu``):
      stats.json's;
  12. the product's claims (tests/torch_claims.py, the JAX package's four
      end-to-end checks with their inputs and gates), K1-K3 first held bit
-     for bit against their plain versions on the inputs of the IV world's
-     first frame (320x240, 4 levels), every run counting K1-K3 once a
-     frame: (a) the IV cycle of tests/test_introspection_helps.py on its
-     pinned case (ReflectionWorld seed 5: the vanilla run, datagen, the
-     flagship FCN trained 12 epochs at 240x320, the band response of its
-     cost map, the introspective run on the same pixels; ATE ON < 0.90
-     OFF, band response >= 50/255 and the test's other gates); (b) the C++
-     oracle of tests/test_parity_ate.py (seqA written by the port, the
-     port's vocabulary, run_stereo classic and single-threaded: ATE <=
-     1.05 x 0.2485 m, 0 failures, keyframes beside the reference's 6; the
-     --fused_tracking run is claims_smoke.py's); (c) tests/test_full_cycle.py; (d)
-     tests/test_kitti_e2e.py (run_stereo at 1241x376, everything on). A
-     gate that the JAX package misses too on the same pixels
-     (torch_claims.JAX_MISSES) is left to claims_smoke.py, which also runs
-     the three robustness IV cases and seqB;
+     for bit against their plain versions on the inputs of the pinned IV
+     world's first frame (320x240, 4 levels), every run counting K1-K3 once
+     a frame: (c) tests/test_full_cycle.py; (d) tests/test_kitti_e2e.py
+     (run_stereo at 1241x376, everything on). A gate that the JAX package
+     misses too on the same pixels (torch_claims.JAX_MISSES) is left to
+     claims_smoke.py, which also runs every IV cycle of
+     tests/test_introspection_helps.py (the pinned case, which this phase
+     ran as its (a) before phase 15 needed the time, and the three
+     robustness cases) and the C++ oracle of tests/test_parity_ate.py on
+     seqA (this phase's (b) until the script outgrew its time limit) and
+     seqB;
  13. the drawing half, on phase 11's KITTI layout: (a) run_stereo over its
-     first 30 frames without a viewer flag and with --enable_viewer
+     first 20 frames without a viewer flag and with --enable_viewer
      --live_viewer_port, while client threads read 5 MJPEG parts of
      frame.mjpg and of map.mjpg (each decoded by the port's decoder to its
      drawer's size) and POST a show_points toggle to /control: the two
@@ -178,8 +174,8 @@ It drives the port only (no JAX, nothing of ``iv_slam_tpu``):
      pair, the C entropy coder's decode beside its plain Python version's
      (bit-equal);
  14. the thread architecture (the reference's System.cc:172-197), on phase
-     5's frames and phase 7's LC world: (a) the first 60 frames three ways,
-     inline (phase 5's run, read after 60 frames), the LocalMapping worker
+     5's frames and phase 7's LC world: (a) the first 30 frames three ways,
+     inline (phase 5's run, read after 30 frames), the LocalMapping worker
      with the async local BA (bench.py's threading) and the async local BA
      alone (its helper thread): each 0 lost frames, ATE < 0.5 m, K1-K3
      once a frame, each threaded run's cross-ATE to the inline run < 0.10
@@ -189,26 +185,49 @@ It drives the port only (no JAX, nothing of ``iv_slam_tpu``):
      map points, largest pending count, local-BA merges at the per-frame
      poll and at a forced join, the median event's host ms and the card's
      busy share (NVML utilization.gpu sampled by nvidia-smi); (b) the
-     first 30 frames through the worker without the async BA, each
+     first 20 frames through the worker without the async BA, each
      kick_async waiting for the worker's queue: bit-equal to phase 5's run
-     after 30 frames (keyframe stamps, map points, trajectory); (c) 40
+     after 20 frames (keyframe stamps, map points, trajectory); (c) 30
      frames of the LC world with the vocabulary, use_bow and loop closing
      on, through the worker and the async BA: 0 lost, ATE < 0.5 m, the
      worker's post-event hook running loop closing at every event;
- 15. from torch.profiler, after every phase that times the host: each
+ 15. the pipeline (the reference's TPU-link switches), on phase 5's frames:
+     (a) chained tracking at depth 1 and 2 over the first 40 frames,
+     single-threaded with synchronous BA, beside phase 5's state there: 0
+     lost, |dATE| < 0.02 m and keyframes within 1
+     (tests/test_chained_tracking.py:78-80), speculations consumed and
+     re-dispatched, frames/s over frames 15-40, K1-K3 once a frame and
+     bit-equal to their plain versions on 3 frames in flight; the first 8
+     frames of depth 1 on the CPU path: the returned poses and the map bit
+     for bit; (b) bench.py's configuration (prewarm, the async local BA,
+     the worker, chained depth 2) over 60 frames: full_loop_ramp_s
+     (bench.py:298-349), frames/s over frames 15-60, ATE, cross-ATE to the
+     inline run < 0.10 m, no walk or worker exception; (c) the probed link
+     RTT and its family, then link_rtt_ms pinned at 0 and 100 over 20
+     threaded, chained frames each (worker serialized): 0 lost, positions
+     within 1e-3 m; (d) two fresh processes of this script (one with
+     prewarm), each its full_loop_ramp_s and the time to its first tracked
+     frame; (e) host-to-device copies of a fused step, a chained step and a
+     keyframe event, counted at the dispatcher, and torch.profiler's
+     Memcpy HtoD events beside them (run with the profiling phases of 16);
+     (f) the DBoW2 text parser in C against
+     its plain version on a k=10 L=5 vocabulary (111,111 nodes): equal
+     arrays, both times;
+ 16. from torch.profiler, after every phase that times the host: each
      kernel's device time, the tracking step's device time and kernel
      launches, a profile of whole frames, one keyframe event (device ms,
      launches, host syncs), and the FCN's and a weighted frame's device
      time and launches;
- 16. prints one {"tracking": {...}} line, one {"full_loop": {...}} line, one
+ 17. prints one {"tracking": {...}} line, one {"full_loop": {...}} line, one
      {"introspection": {...}} line, one {"loop_closing": {...}} line, one
      {"mono_rgbd": {...}} line, one {"datagen": {...}} line, one
      {"training": {...}} line, one {"drivers": {...}} line, one
      {"claims": {...}} line, one {"drawing": {...}} line, one {"threads":
-     {...}} line, one {"kernels": [...]} line (with each kernel's launches
-     on the introspection, loop-closing, mono, RGB-D, datagen, replay,
-     sharded-datagen, run_stereo, run_mono, run_rgbd, extract_octtree,
-     claims, viewer and worker runs too) and, last, the status line.
+     {...}} line, one {"pipeline": {...}} line, one {"kernels": [...]} line
+     (with each kernel's launches on the introspection, loop-closing, mono,
+     RGB-D, datagen, replay, sharded-datagen, run_stereo, run_mono,
+     run_rgbd, extract_octtree, claims, viewer, worker and chained runs
+     too) and, last, the status line.
 
 A phase that fails is reported and the script exits 1 without a result.
 With no CUDA device, or run outside a checkout, it exits 2 at once.
@@ -243,20 +262,24 @@ N_KF_B, N_TRACK_B = 5, 14
 STEP_PROFILE_ITERS = 1   # 2 until PR 13 needed the time for phase 14
 PROFILE_TRIES = 4       # profiler sessions a kernel gets to show one event a call
 
-# full loop: bench.py's bench_full_loop (n_frames, ramp)
-N_LOOP, RAMP = 120, 15
+# full loop: bench.py's bench_full_loop (n_frames, ramp), its 120 frames
+# cut to the deepest frame another phase reads it at (N_BENCH), since the
+# script outgrew its time limit on a slow host
+N_LOOP, RAMP = 60, 15
 # the thread architecture (phase 14): frames of (a)'s three runs, of (b)'s
 # serialized worker and of (c)'s LC-world run; the cross-ATE gate of a
 # threaded run against the inline one (tests/test_threaded_mapping.py:60);
-# frames whose kernel outputs the worker's run records
-N_THR, N_THR_SERIAL, N_THR_LC = 60, 30, 40
+# frames whose kernel outputs the worker's run records (60, 30, 40 until
+# phase 15 needed the time; N_THR 40 until the script outgrew its limit)
+N_THR, N_THR_SERIAL, N_THR_LC = 30, 20, 30
 # frames of phase 6 (c)'s loop with the FCN and of phase 11 (b)'s
-# run_stereo: phase 5's first N_THR, beside its state there (120 until PR
-# 13 needed the time for phase 14)
+# run_stereo: phase 5's first N_THR, beside its state there (120, then 60
+# and 40, until phases 14 and 15 needed the time)
 N_INTRO_LOOP = N_DRV = N_THR
 THR_CROSS_ATE = 0.10
 THR_RECORD_FRAMES = 3
-RECORD_CALL = 5         # the 5th call of each keyframe-event function is recorded
+RECORD_CALL = 4         # the 4th call of each keyframe-event function is recorded (the
+                        # 5th until phase 5 was cut to 60 frames, which may hold 4 BAs)
 TRI_MAX_ULP = 4         # card vs CPU limit on a triangulated coordinate
 
 # introspection: the FCN's input size (the reference's net_hw,
@@ -268,16 +291,17 @@ N_INTRO_FRAMES = 10
 
 # loop closing: bench.py's LC world (bench.py:378-413) and configuration
 # (bench.py:463-471), frames of each run, frames held card against CPU
-N_LC, N_LC_CPU = 240, 30
-# frames of run (b): the first half of bench.py's 240-frame path (240
-# until PR 13 needed the time for phase 14; no loop closes on this world,
-# and the correction runs on a manufactured revisit), rendered with its
-# next frame, which lc_kernels checks
-N_LC_RUN = 120
+N_LC, N_LC_CPU = 240, 20
+# frames of run (b): the first quarter of bench.py's 240-frame path (240
+# until phase 14 needed the time, 120 until the script outgrew its limit;
+# no loop closes on this world, and the correction runs on a manufactured
+# revisit), rendered with its next frame, which lc_kernels checks
+N_LC_RUN = 60
 # frames of the control run (a), without a vocabulary: the first N_LC_CPU
 # (240 until the claims phase needed the time; no loop closes on this
 # world, and the control stands beside run (b)'s first N_LC_CPU frames;
-# N_LC_CPU was 60 until the drawing phase needed the time)
+# N_LC_CPU was 60 until the drawing phase needed the time, 30 until the
+# script outgrew its limit)
 N_LC_CONTROL = N_LC_CPU
 LC_H, LC_W = 240, 320
 LC_POSE_ATOL = 2e-3     # card vs CPU path over N_LC_CPU frames (translation m, rotation)
@@ -291,8 +315,8 @@ LC_POSE_ATOL = 2e-3     # card vs CPU path over N_LC_CPU frames (translation m, 
 # "NVIDIA H100 80GB HBM3, 700.00 W": one ulp at ~150 baselines); the
 # parallax check keeps points within ~160 baselines, where a few ulps stay
 # below 1e-4
-MONO_SEED, N_MONO = 23, 40   # 60 each until PR 13 needed the time for phase 14
-RGBD_SEED, N_RGBD = 29, 40
+MONO_SEED, N_MONO = 23, 30   # 60, then 40, each until the script outgrew its limit
+RGBD_SEED, N_RGBD = 29, 30
 RGBD_PLATFORM = (-0.6, 0.6, -0.45, 0.45)
 RGBD_TEX_PX_PER_M = 200.0
 INIT_ATOL = 1e-4
@@ -300,8 +324,9 @@ INIT_ATOL = 1e-4
 # training-data generation (phase 9): frames of the supervised and the
 # unsupervised run, the frame whose supervised call is held card against
 # CPU path (its normalized errors within DG_ERR_TOL relative), and the
-# constrained-BA call held the same way
-N_DG_SUP, N_DG_UNSUP = 60, 40
+# constrained-BA call held the same way (N_DG_SUP 60 until the script
+# outgrew its limit)
+N_DG_SUP, N_DG_UNSUP = 40, 40
 DG_RECORD, DG_ERR_TOL, DG_BA_RECORD = 30, 1e-4, 1
 # the band's blend over the ground (ReflectionWorld's default is 0.65): at
 # KITTI geometry the tracker drops the default band's points within a few
@@ -326,13 +351,16 @@ DG_BAND_ALPHA = 0.75
 # 8.4e-13 and 1.3e-11 at 64x64, held to 1e-8 and 1e-6. The zoo is cut at
 # 50 layers (ZOO_SKIP: the 101-layer ResNets, whose blocks the 18- and
 # 50-layer ones run; ResNeXt and HRNet have one depth each and stay) and
-# checked at 64x64 (128x128 until PR 13): ~20 s for phase 14
-TR_VAL, TR_EPOCHS, TR_BATCH, TR_LOOP, N_REPLAY = 8, 3, 8, 30, 16
+# checked at 64x64 (128x128 until phase 14 needed the time); ResNet-18
+# dilated is out too (its blocks are ResNet-18's, its dilation
+# ResNet-50-dilated's), and the trained net's loop (e) is 20 frames (30),
+# since the script outgrew its limit
+TR_VAL, TR_EPOCHS, TR_BATCH, TR_LOOP, N_REPLAY = 8, 3, 8, 20, 16
 TR_LOSS_RTOL, TR_PARAM_ATOL, TR_MEAN_ATOL, TR_VAR_RTOL = 1e-5, 2e-3, 1e-5, 1e-4
 TR_STATS_ATOL = 1e-5
 ZOO_LOSS_RTOL, ZOO_UPDATE_RTOL = 1e-8, 1e-6
 ZOO_CHECK_HW = (64, 64)
-ZOO_SKIP = ("resnet101", "resnet101dilated")
+ZOO_SKIP = ("resnet101", "resnet101dilated", "resnet18dilated")
 
 # the dataset drivers (phase 11): frames of the rectification runs and of
 # the mono and RGB-D driver runs; extract_octtree's card-vs-CPU angle limit
@@ -354,9 +382,25 @@ N_DBG, DBG_MIN_QUALIFYING = 10, 3
 CODEC_QUALITY, CODEC_MAE = 95, 3.0
 
 # the product's claims (phase 12, tests/torch_claims.py): the pinned IV
-# case of tests/test_introspection_helps.py; its three robustness cases and
-# seqB run in claims_smoke.py
+# case of tests/test_introspection_helps.py gives phase 12's kernel checks
+# their inputs; its IV cycle (here until phase 15 needed the time), the
+# C++ oracle on seqA (here until the script outgrew its limit), the three
+# robustness cases and seqB run in claims_smoke.py
 CLAIMS_CASE = "reflection-seed5"
+
+# the pipeline (phase 15): frames of (a)'s chained runs, read beside phase
+# 5's state after as many; frames of the card-vs-CPU check of (a); frames
+# whose kernel outputs (a) records; frames of (b) (bench.py's
+# configuration); frames of each of (c)'s link-profile runs and their
+# agreement (tests/test_link_adaptive.py:204); frames each cold process of
+# (d) tracks (bench.py's ramp); the chained gates of
+# tests/test_chained_tracking.py:78-80 (ATE against the unchained run,
+# keyframes); the vocabulary of (f). N_LINK was 25 until the script
+# outgrew its limit
+N_CHAIN, N_CHAIN_CPU, CHAIN_RECORD_FRAMES = 40, 8, 3
+N_BENCH, N_LINK, N_COLD = 60, 20, RAMP
+CHAIN_ATE_GATE, CHAIN_KF_GATE, LINK_ATOL = 0.02, 1, 1e-3
+VOCAB_KL = (10, 5)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, and the float32
 # rate outside the tensor cores, used for these kernels' 32-bit scalar ops
@@ -464,6 +508,40 @@ class GpuBusy:
             xs = self.samples[1:]
             self.n = len(xs)
             self.share = float(np.mean(xs)) if xs else None
+
+
+class HostToDeviceCount:
+    """Counts the host-to-device copies that PyTorch ops issue inside a
+    block, at the dispatcher: a copy from a CPU tensor into a CUDA one
+    (``to``, ``copy_``) and a tensor made on the card from host data
+    (``torch.tensor``/``as_tensor``, which reach the dispatcher as
+    ``lift_fresh`` of their CUDA result)."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        count = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                name = func.__name__
+                if name.startswith("_to_copy") or name.startswith("copy_"):
+                    src = args[1] if name.startswith("copy_") else args[0]
+                    if src.device.type == "cpu" and out.device.type == "cuda":
+                        count.n += 1
+                elif name.startswith("lift_fresh") and out.device.type == "cuda":
+                    count.n += 1
+                return out
+
+        self.n = 0
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+        return False
 
 
 def dev_us(e) -> float:
@@ -602,6 +680,7 @@ class Smoke:
         self.cl = None
         self.vw = None
         self.thr = None
+        self.ch = None
 
     def phase(self, name, fn, *args):
         t0 = time.perf_counter()
@@ -627,7 +706,8 @@ class Smoke:
         print(f"build: {len(kern.SOURCES)} sources in {dt:.2f} s (nvcc, sm_90a, in parallel)")
         self.unfilter_build_s = kern.build(kern.HOST_SOURCES)
         print(f"build: the host C sources {list(kern.HOST_SOURCES)} (PNG row unfilter, JPEG "
-              f"entropy coder; host C compiler, in parallel) in {self.unfilter_build_s:.2f} s")
+              f"entropy coder, vocabulary parser and descent; host C compiler, in parallel) "
+              f"in {self.unfilter_build_s:.2f} s")
         for name in kern.SOURCES:
             for ln in kern.build_log.get(name, "").splitlines():
                 if "registers" in ln or "spill" in ln:
@@ -943,7 +1023,7 @@ class Smoke:
 
         fe.process(left, right, 0.0)
         torch.cuda.synchronize()
-        n = 5
+        n = 3
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             hs = [fe.submit(left, right) for _ in range(n)]
@@ -1258,8 +1338,8 @@ class Smoke:
         for m in self.counters().values():
             m.launches = 0
         frame_ms, submit_ms = [], []
-        # the inline run of phase 14 (a) and (b) is this run's first
-        # N_THR and N_THR_SERIAL frames
+        # the inline run of phase 14 (a) and (b) and 15 (a) and (b) is this
+        # run's first N_THR, N_THR_SERIAL, N_CHAIN and N_BENCH frames
         events = self._thr_events(tr.local_mapping)
         busy = GpuBusy().__enter__()
         inline = {}
@@ -1292,6 +1372,11 @@ class Smoke:
                         device_busy_samples=busy.n)
                 if i + 1 == N_THR_SERIAL:
                     inline[N_THR_SERIAL] = self._thr_state(s)
+                if i + 1 in (N_CHAIN, N_BENCH):
+                    torch.cuda.synchronize()
+                    inline[i + 1] = dict(
+                        self._thr_state(s),
+                        fps=(i + 1 - RAMP) / (time.perf_counter() - t_start))
             torch.cuda.synchronize()
             elapsed = time.perf_counter() - t_start
         finally:
@@ -1317,7 +1402,7 @@ class Smoke:
             keyframes_alive=int(m.kf_alive[:m.n_keyframes].sum()),
             map_points=int(m.n_points), map_points_alive=int(m.pt_alive[:m.n_points].sum()),
             failures=int(s.failure_count), state=s.state.name,
-            full_loop_fps=fps, full_loop_ate_m=ate, ate_m_frames_15_120=ate_window,
+            full_loop_fps=fps, full_loop_ate_m=ate, ate_m_after_ramp=ate_window,
             path_m=path_m, frontend_launches=launches,
             host_ms_median=dict(
                 frame=float(np.median(frame_ms)), submit=float(np.median(submit_ms)),
@@ -1330,11 +1415,13 @@ class Smoke:
             cap_overflows=dict(lm.overflows), recorded=sorted(rec))
         t.loop = out
         t.loop_sys, t.loop_rec, t.loop_gt, t.loop_pairs = s, rec, gt, pairs
+        t.loop_next = N_LOOP
         print(f"full loop: {N_LOOP} frames over {path_m:.1f} m through System on the card: "
               f"{out['keyframes']} keyframes ({out['keyframes_alive']} alive), "
               f"{out['map_points']} map points ({out['map_points_alive']} alive), "
               f"{out['failures']} failures, state {out['state']}; ATE {ate:.4f} m (frames "
-              f"15-120: {ate_window:.4f}); {fps:.3f} frames/s over frames 15-120")
+              f"{RAMP}-{N_LOOP}: {ate_window:.4f}); {fps:.3f} frames/s over frames "
+              f"{RAMP}-{N_LOOP}")
         print(f"  host ms (median): {json.dumps(out['host_ms_median'])}")
         print(f"  keyframe events {out['keyframe_events']}, BA rungs {out['ba_rungs']}, "
               f"overflows {out['cap_overflows']}, K1-K3 launches {launches}")
@@ -1409,6 +1496,21 @@ class Smoke:
         t.loop["ba_host_ms"] = ms
         require(all(same.values()), f"BA not repeatable: {same}")
 
+    def _track_next(self):
+        """Track the next frames of the loop's path on phase 5's System
+        until one is neither lost nor made a keyframe by tracking (at most
+        3): the frame a keyframe event is then forced on."""
+        t = self.trk
+        s = t.loop_sys
+        tr = s.tracking
+        for _ in range(3):
+            i, t.loop_next = t.loop_next, t.loop_next + 1
+            s.track_stereo(*t.world.render_stereo(loop_path(i + 1)[-1]), timestamp=0.1 * i)
+            if tr.current.frame_id != tr.last_kf_frame_id:
+                break
+        require(tr.current.frame_id != tr.last_kf_frame_id and s.state.name == "OK",
+                "3 extra frames were keyframes already, or lost")
+
     def keyframe_event_profile(self):
         """One more frame of the loop's path, tracked, then a keyframe event
         forced on it under torch.profiler and CUDA sync debug mode: its
@@ -1418,12 +1520,8 @@ class Smoke:
         from torch.profiler import ProfilerActivity, profile
 
         torch, t = self.torch, self.trk
-        s = t.loop_sys
-        tr = s.tracking
-        Twc = loop_path(N_LOOP + 1)[-1]
-        s.track_stereo(*t.world.render_stereo(Twc), timestamp=0.1 * N_LOOP)
-        require(tr.current.frame_id != tr.last_kf_frame_id and s.state.name == "OK",
-                "the extra frame is a keyframe already, or lost")
+        tr = t.loop_sys.tracking
+        self._track_next()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with warnings.catch_warnings(record=True) as caught:
@@ -1454,8 +1552,10 @@ class Smoke:
         rung = (prob.kf_pose.shape[0], prob.pt_pos.shape[0], prob.e_obs.shape[0])
         print(f"local BA (the recorded problem, rung {rung}): device {ba_ms:.2f} ms, "
               f"{ba_launches:.0f} kernel launches a solve")
+        htod = sum(e.count for e in rows if e.key.startswith("Memcpy HtoD"))
         t.loop["keyframe_event_profile"] = dict(device_ms=busy, kernel_launches=launches,
-                                                host_syncs=len(syncs), ba_device_ms=ba_ms,
+                                                host_syncs=len(syncs), htod=htod,
+                                                ba_device_ms=ba_ms,
                                                 ba_kernel_launches=ba_launches)
 
     # ---- phase 6: introspection ---------------------------------------------
@@ -1672,9 +1772,10 @@ class Smoke:
         """The FCN's and one weighted frame's device ms and launches."""
         torch, models, it = self.torch, self.port["models"], self.intro
         fcn_ms, fcn_n = device_ms(
-            torch, lambda: models.inference_cost_map(it.net, it.rgb, (H, W), NET_HW), iters=10)
+            torch, lambda: models.inference_cost_map(it.net, it.rgb, (H, W), NET_HW), iters=5)
         frame_ms, frame_n = device_ms(
-            torch, lambda: it.fe.collect(it.fe.submit(it.left, it.right), 0.0), iters=5)
+            torch, lambda: it.fe.collect(it.fe.submit(it.left, it.right), 0.0), iters=2,
+            warmup=1)
         loop = it.out["loop"]
         share = fcn_ms / (1e3 / loop["fps"])
         print(f"introspection: FCN {fcn_ms:.3f} ms device, {fcn_n:.0f} kernel launches a "
@@ -1745,13 +1846,13 @@ class Smoke:
 
     def lc_kernels(self):
         """K1-K3 bit-equal to their plain versions at the LC world's shapes,
-        before its runs: the inputs that frames 0 and N_LC / 2 hand each
+        before its runs: the inputs that frames 0 and N_LC_RUN hand each
         wrapper through the LC configuration's frontend (320x240, 8 levels
         down to 89x67), and FAST on noise at (1, LC_H, LC_W)."""
         lc = self.lc
         fe = self.port["frame"].StereoFrontend(lc.cfg, LC_H, LC_W)
         errs = {"fast_score": 0.0, "orient_brief": 0.0, "sad_windows": 0.0}
-        for i in (0, N_LC // 2):
+        for i in (0, N_LC_RUN):
             rec = self.record_inputs(lambda: fe.process(*lc.pairs[i], 0.0))
             print(f"loop closing, K1-K3 on the inputs of LC-world frame {i}:")
             for name, check in (("fast_score", lambda r: self.check_fast(
@@ -1759,7 +1860,7 @@ class Smoke:
                                 ("orient_brief", lambda r: self.check_orient_brief(r, main=False)),
                                 ("sad_windows", lambda r: self.check_sad(r, main=False))):
                 errs[name] = max(errs[name], check(rec))
-        lc.out["kernels_at_lc_shapes"] = dict(frames=[0, N_LC // 2], max_abs_err=errs,
+        lc.out["kernels_at_lc_shapes"] = dict(frames=[0, N_LC_RUN], max_abs_err=errs,
                                               bit_equal=True)
         for name, e in errs.items():
             if name in self.kernels:
@@ -2775,10 +2876,13 @@ class Smoke:
             stride = (4 if enc == "hrnetv2" or dec.startswith("upernet")
                       else 8 if enc.endswith("dilated") else 32)
             big, small = batch(TR_BATCH, NET_HW, stride), batch(2, ZOO_CHECK_HW, stride)
-            gen = torch.Generator().manual_seed(0)
-            model = port["models"].flax_init_(zoo.SegmentationModel(enc, dec), gen)
-            init = copy.deepcopy(model.state_dict())
-            state = ts.TrainState(model.cuda(), *ts.make_optimizer(model, max_iters=1000))
+            # built and initialised on the card: the CPU's truncated-normal
+            # draws took ~3-4 s a 50-layer model
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            with torch.device("cuda"):
+                model = port["models"].flax_init_(zoo.SegmentationModel(enc, dec).cuda(), gen)
+            init = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+            state = ts.TrainState(model, *ts.make_optimizer(model, max_iters=1000))
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             loss_big = float(ts.train_step(state, big)["loss"])
@@ -2944,7 +3048,7 @@ class Smoke:
 
     # ---- phase 11: the dataset drivers ----------------------------------------
     def drv_setup(self):
-        """(a) The full loop's 120 frames written as a KITTI layout by the
+        """(a) The full loop's N_LOOP frames written as a KITTI layout by the
         port's PNG writer, every row Paeth-filtered (the decoder's slow
         case), with times.txt and a KITTI-format GT file; every file decoded
         back equal to the rendered image; the decode's median ms a pair, the
@@ -3328,53 +3432,6 @@ class Smoke:
         require(not bad, f"{key}: " + "; ".join(
             f"{g} ({json.dumps(res['gates'][g][1], default=float)})" for g in bad))
 
-    def cl_iv(self):
-        """(a) The IV cycle of tests/test_introspection_helps.py on the pinned
-        case, on the card: OFF on 40 eval frames, datagen on 60 training
-        frames, the flagship FCN trained 12 epochs at 240x320, the band
-        response, ON on the same eval pixels; the JAX test's gates (ATE OFF
-        above 0.15 m, heat in > 1.5 out, >= 4 samples, band response >=
-        50/255, fails ON <= OFF, ATE ON < 0.90 OFF), K1-K3 once a frame."""
-        cl = self.cl
-        res = cl.tc.iv_case(CLAIMS_CASE, os.path.join(cl.work, "iv"), None)
-        cl.out["iv"] = res
-        if "on" in res:
-            print(f"claims (a) {CLAIMS_CASE}: ATE OFF {res['off']['ate_m']:.4f} m -> ON "
-                  f"{res['on']['ate_m']:.4f} m (gate ON < {res['margin']} OFF), failures "
-                  f"{res['off']['failures']} -> {res['on']['failures']}; heat in/out "
-                  f"{res['heat_in']:.2f}/{res['heat_out']:.2f}; band response "
-                  f"{res['band_response']:.2f}/255 (gate {res['band_gate']}); {res['dataset']} "
-                  f"samples; OFF {res['off']['frames_per_s']:.3f}, datagen "
-                  f"{res['datagen']['frames_per_s']:.3f}, ON {res['on']['frames_per_s']:.3f} "
-                  f"frames/s, training {res['train']['seconds']:.1f} s; frames sha1 "
-                  f"{res['frames_sha1'][:16]}")
-        self._cl_check("iv_case", res, [k for k in ("off", "datagen", "on") if k in res])
-
-    def cl_oracle(self):
-        """(b) The C++ oracle (tools/parity_reference.py's protocol) on seqA:
-        its KITTI layout written by the port, the vocabulary trained by the
-        port (k=9, L=4 on every 4th frame), run_stereo in process with the
-        tool's flags (classic tracking, single-threaded, the vocabulary
-        attached): ATE <= 1.05 x 0.2485 m, 0 failures, keyframes printed
-        beside the reference's 6 (the --fused_tracking run is
-        claims_smoke.py's since the drawing phase needed the time)."""
-        cl, tc = self.cl, self.cl.tc
-        digests = json.loads(tc.write_sequences(cl.work, ["seqA"]))
-        voc = tc.train_vocab(cl.work, None)
-        classic = tc.oracle(cl.work, "seqA", None)
-        cl.out["oracle"] = dict(classic=classic, vocabulary=voc, frames_sha1=digests["seqA"])
-        print(f"claims (b) oracle seqA: classic ATE {classic['ate_m']:.4f} m (reference C++ "
-              f"{tc.REF_ATE['seqA']} m, gate {classic['gate_m']:.4f} m), {classic['failures']} "
-              f"failures, {classic['keyframes']} keyframes (reference "
-              f"{tc.REF_KEYFRAMES_SEQA}), {classic['frames_per_s']:.3f} frames/s; vocabulary "
-              f"{voc['nodes']} nodes from {voc['descriptors']} descriptors; frames sha1 "
-              f"{digests['seqA'][:16]}")
-        for k, n in voc["launches"].items():
-            cl.launches[k] += n
-        require(voc["launches"] == {"fast_score": voc["images"], "orient_brief": voc["images"],
-                                    "sad_windows": 0}, f"vocabulary launches {voc['launches']}")
-        self._cl_check("oracle", classic, [None])
-
     def cl_cycle(self):
         """(c) tests/test_full_cycle.py on the card: datagen on 12 frames,
         2 epochs, 8 frames with the trained FCN at net_hw 256x256."""
@@ -3406,27 +3463,12 @@ class Smoke:
     def claims_line(self):
         """The numbers of the {"claims": ...} line."""
         o = self.cl.out
-        iv, orc, cyc, kit = o["iv"], o["oracle"], o["full_cycle"], o["kitti_all_on"]
+        cyc, kit = o["full_cycle"], o["kitti_all_on"]
 
         def rate(r):
             return dict(frames_per_s=r["frames_per_s"], seconds=r["seconds"])
 
         return {
-            "iv_case": dict(case=iv["case"], ate_off_m=iv["off"]["ate_m"],
-                            ate_on_m=iv["on"]["ate_m"], fails_off=iv["off"]["failures"],
-                            fails_on=iv["on"]["failures"], heat_in=iv["heat_in"],
-                            heat_out=iv["heat_out"], band_response=iv["band_response"],
-                            band_gate=iv["band_gate"], margin=iv["margin"],
-                            dataset=iv["dataset"], heatmaps=iv["heatmaps"],
-                            off=rate(iv["off"]), datagen=rate(iv["datagen"]), on=rate(iv["on"]),
-                            train_s=iv["train"]["seconds"], frames_sha1=iv["frames_sha1"]),
-            "oracle_seqA": dict(ate_m=orc["classic"]["ate_m"],
-                                reference_ate_m=orc["classic"]["reference_ate_m"],
-                                gate_m=orc["classic"]["gate_m"],
-                                failures=orc["classic"]["failures"],
-                                keyframes=orc["classic"]["keyframes"],
-                                reference_keyframes=self.cl.tc.REF_KEYFRAMES_SEQA,
-                                classic=rate(orc["classic"]), frames_sha1=orc["frames_sha1"]),
             "full_cycle": dict(heatmaps=cyc["heatmaps"], dataset=cyc["dataset"],
                                train_loss=cyc["train"]["train_loss"],
                                on_failures=cyc["on"]["failures"], quality=cyc["quality"],
@@ -3950,6 +3992,466 @@ class Smoke:
         require(launches == want, f"launch counts {launches} != {want}")
 
 
+    # ---- phase 15: the pipeline: chained tracking, prewarm, the link -------
+    def _ch_run(self, n, depth, threaded=False, asy=False, prewarm=False, rtt=None,
+                serialize=False, record=False, device=None):
+        """The first n frames of phase 5's loop through a chained System
+        (chain_depth `depth`), driven as phase 5 drives them (frame i + 1's
+        frontend submitted before frame i tracks); threaded/asy: the worker
+        and the async local BA; prewarm: the warm-up walk, joined at frame
+        RAMP - 1 as bench.py joins it (its core awaited first); rtt: a
+        pinned link_rtt_ms; serialize: each kick_async waits for the
+        worker's queue; record: K1-K3's inputs and outputs on up to
+        CHAIN_RECORD_FRAMES frames; device: the CPU path for "cpu" (no
+        timing). Returns the run's numbers, its trajectory (flushed), the
+        poses the first N_CHAIN_CPU calls returned with the map after them,
+        and the records."""
+        torch, port, t = self.torch, self.port, self.trk
+        ops = port["ops"]
+        cpu = device == "cpu"
+        cfg = copy.deepcopy(t.cfg)
+        cfg.system.fused_tracking = True
+        cfg.system.chained_tracking = True
+        cfg.system.chain_depth = depth
+        cfg.system.threaded_local_mapping = threaded
+        cfg.system.async_local_ba = asy
+        cfg.system.prewarm = prewarm
+        cfg.system.link_rtt_ms = rtt
+        sync = (lambda: None) if cpu else torch.cuda.synchronize
+        t_sys = time.perf_counter()
+        s = port["system"].System(cfg, H, W, device=device)
+        tr = s.tracking
+        lm = tr.local_mapping
+        if serialize:
+            kick = lm.kick_async
+
+            def kick_and_wait(run_ba=True):
+                kick(run_ba=run_ba)
+                lm._q.join()
+
+            lm.kick_async = kick_and_wait
+        heads = {"processed": 0, "consumed": 0, "respeculated": 0}
+        head, respec = tr._process_chain_head, tr._respeculate_queue
+
+        def counted_head():
+            pose = head()
+            heads["processed"] += 1
+            heads["consumed"] += bool(tr._used_spec)
+            return pose
+
+        def counted_respec():
+            heads["respeculated"] += 1
+            return respec()
+
+        tr._process_chain_head, tr._respeculate_queue = counted_head, counted_respec
+        pw = s._prewarm_thread
+        if pw is not None:
+            pw.core_ready.wait()
+        pairs = t.loop_pairs[:n]
+        rec, recording = [], [False]
+        wrappers = ((ops.fast_cuda, "fast_score_levels"), (ops.finish_cuda, "orient_brief"),
+                    (ops.stereo_cuda, "sad_windows"))
+        origs = [getattr(mod, fn) for mod, fn in wrappers]
+
+        def recorder(j):
+            def call(*args):
+                out = origs[j](*args)
+                if recording[0]:
+                    rec[-1][j].append((clone(args), clone(out)))
+                return out
+            return call
+
+        if record:
+            for j, (mod, fn) in enumerate(wrappers):
+                setattr(mod, fn, recorder(j))
+        for m in self.counters().values():
+            m.launches = 0
+        returned, first = [], {}
+        t_first = ramp_s = None
+        try:
+            handle = s.submit_frontend(*pairs[0])
+            sync()
+            t_start = time.perf_counter()
+            for i in range(n):
+                cur = handle
+                if i + 1 < n:
+                    # frames 2.. of the record: chained frames in flight
+                    recording[0] = record and 2 <= i + 1 < 2 + CHAIN_RECORD_FRAMES
+                    if recording[0]:
+                        rec.append(([], [], [], i + 1, len(tr._pendq)))
+                    handle = s.submit_frontend(*pairs[i + 1])
+                    recording[0] = False
+                pose = s.track_stereo(*pairs[i], timestamp=0.1 * i, frontend_handle=cur)
+                if i < N_CHAIN_CPU:
+                    returned.append(None if pose is None else np.array(pose))
+                if i + 1 == N_CHAIN_CPU:
+                    m = tr.map
+                    first = dict(poses=returned, kf_stamps=[float(v) for v in
+                                                            m.kf_timestamp[:m.n_keyframes]],
+                                 map_points=int(m.n_points),
+                                 pt_pos=np.array(m.pt_pos[:m.n_points]))
+                if i == 0:
+                    sync()
+                    t_first = time.perf_counter() - t_sys
+                if i == RAMP - 1:
+                    if pw is not None:
+                        pw.join()     # the walk is idle before the window
+                    sync()
+                    ramp_s = time.perf_counter() - t_sys
+                    t_ramp = time.perf_counter()
+            sync()
+            t_end = time.perf_counter()
+            est = s.trajectory_twc()    # flushes the chain, joins the worker
+            sync()
+        finally:
+            for (mod, fn), f in zip(wrappers, origs):
+                setattr(mod, fn, f)
+        state = self._thr_state(s, est)
+        exc = None if pw is None else pw.exc
+        out = dict(
+            frames=n, chain_depth=depth, threaded_local_mapping=threaded, async_local_ba=asy,
+            prewarm=prewarm, link_rtt_ms=s.link_rtt_ms,
+            monolithic=lm.monolithic_device, serialized=serialize,
+            ate_m=port["trajectory"].ate_rmse(est, t.loop_gt[:n]),
+            **{k: v for k, v in state.items() if k != "twc"},
+            heads_processed=heads["processed"], speculations_consumed=heads["consumed"],
+            heads_redispatched=heads["processed"] - heads["consumed"],
+            queue_respeculations=heads["respeculated"],
+            frontend_launches={k: m.launches for k, m in self.counters().items()},
+            prewarm_exc=None if exc is None else repr(exc))
+        if not cpu:
+            out.update(fps=(n - RAMP) / (t_end - t_ramp), fps_all=n / (t_end - t_start),
+                       full_loop_ramp_s=ramp_s, first_frame_s=t_first)
+        s.shutdown()
+        require(lm._worker is None, "shutdown left the worker running")
+        return out, est, first, rec
+
+    def _ch_print(self, name, run):
+        fps = (f"{run['fps']:.3f} frames/s over frames {RAMP}-{run['frames']} "
+               f"({run['fps_all']:.3f} over all), " if "fps" in run else "")
+        print(f"pipeline {name}: {run['frames']} frames, depth {run['chain_depth']}, {fps}ATE "
+              f"{run['ate_m']:.4f} m, {run['lost_frames']} lost, {run['keyframes']} keyframes, "
+              f"{run['map_points']} map points; {run['heads_processed']} frames through the "
+              f"pipeline, {run['speculations_consumed']} speculations consumed, "
+              f"{run['heads_redispatched']} re-dispatched at consumption, "
+              f"{run['queue_respeculations']} queue re-speculations; link "
+              f"{run['link_rtt_ms']} ms (monolithic {run['monolithic']}); K1-K3 launches "
+              f"{run['frontend_launches']}; on {card_line()}")
+
+    def ch_chained(self):
+        """(a) Chained tracking at depth 1 and 2 over the first N_CHAIN
+        frames, single-threaded with synchronous BA, beside phase 5's
+        unchained run after N_CHAIN frames: 0 lost, |dATE| <
+        CHAIN_ATE_GATE, keyframes within CHAIN_KF_GATE, K1-K3 once a frame
+        and bit-equal to their plain versions on CHAIN_RECORD_FRAMES frames
+        in flight; the first N_CHAIN_CPU frames of depth 1 again on the CPU
+        path: the poses each call returned and the map after them equal bit
+        for bit."""
+        t = self.trk
+        inl = t.thr_inline[N_CHAIN]
+        ate_rmse = self.port["trajectory"].ate_rmse
+        ate_u = ate_rmse(list(inl["twc"]), t.loop_gt[:N_CHAIN])
+        self.ch = SimpleNamespace(out={"a": {"unchained": dict(
+            frames=N_CHAIN, run="phase 5's first frames", fps=inl["fps"], ate_m=ate_u,
+            keyframes=inl["keyframes"], map_points=inl["map_points"],
+            lost_frames=inl["lost_frames"])}})
+        runs = self.ch.out["a"]
+        firsts = {}
+        for depth in (1, 2):
+            run, est, first, rec = self._ch_run(N_CHAIN, depth, record=depth == 1)
+            run["cross_ate_m"] = ate_rmse(est, list(inl["twc"]))
+            if rec:
+                run["kernels_bit_equal_on_frames"] = self._thr_check_kernels(rec)
+                for k, v in run["frontend_launches"].items():
+                    self.kernels[k]["launches_chained"] = v
+            runs[f"depth{depth}"], firsts[depth] = run, first
+            self._ch_print(f"(a) chained depth {depth}", run)
+        u = runs["unchained"]
+        print(f"pipeline (a) unchained (phase 5): {u['fps']:.3f} frames/s over frames "
+              f"{RAMP}-{N_CHAIN}, ATE {ate_u:.4f} m, {u['keyframes']} keyframes")
+        cpu, _, cpu_first, _ = self._ch_run(N_CHAIN_CPU, 1, device="cpu")
+        card = firsts[1]
+        same = dict(
+            poses=all((a is None and b is None) or (a is not None and b is not None
+                                                      and np.array_equal(a, b))
+                      for a, b in zip(card["poses"], cpu_first["poses"])),
+            kf_stamps=card["kf_stamps"] == cpu_first["kf_stamps"],
+            map_points=card["map_points"] == cpu_first["map_points"],
+            pt_pos=np.array_equal(card["pt_pos"], cpu_first["pt_pos"]))
+        runs["card_vs_cpu_first_frames"] = dict(frames=N_CHAIN_CPU, bit_equal=same,
+                                               returned_poses=sum(p is not None
+                                                                  for p in card["poses"]))
+        print(f"pipeline (a) card vs CPU path over the first {N_CHAIN_CPU} chained frames: "
+              f"{same}")
+        require(all(same.values()), f"chained card != CPU path: {same}")
+        for depth in (1, 2):
+            run = runs[f"depth{depth}"]
+            want = {k: N_CHAIN for k in run["frontend_launches"]}
+            require(run["frontend_launches"] == want,
+                    f"depth {depth}: launch counts {run['frontend_launches']} != {want}")
+            require(run["lost_frames"] == 0 and run["failures"] == 0,
+                    f"depth {depth}: {run['lost_frames']} lost, {run['failures']} failures")
+            require(abs(run["ate_m"] - ate_u) < CHAIN_ATE_GATE,
+                    f"depth {depth}: ATE {run['ate_m']} m against unchained {ate_u} m")
+            require(abs(run["keyframes"] - u["keyframes"]) <= CHAIN_KF_GATE,
+                    f"depth {depth}: {run['keyframes']} keyframes, unchained {u['keyframes']}")
+            require(run["speculations_consumed"] > 0, f"depth {depth}: no speculation used")
+
+    def ch_bench(self):
+        """(b) bench.py's configuration (bench.py:292-296): prewarm, the
+        async local BA, the worker and chained tracking at depth 2, over
+        the first N_BENCH frames: full_loop_ramp_s as bench.py defines it
+        (System's construction to the end of frame RAMP - 1, the walk's
+        core awaited before the first frame and the walk joined there),
+        frames/s over frames RAMP-N_BENCH, ATE and cross-ATE to the
+        inline run (phase 5's, after as many frames) < THR_CROSS_ATE; 0
+        lost, no worker or walk exception, K1-K3 once a frame."""
+        t = self.trk
+        run, est, _, _ = self._ch_run(N_BENCH, 2, threaded=True, asy=True, prewarm=True)
+        inl = t.thr_inline[N_BENCH]
+        run["cross_ate_m"] = self.port["trajectory"].ate_rmse(est, list(inl["twc"]))
+        run["inline_fps"] = inl["fps"]
+        self.ch.out["b"] = run
+        self._ch_print("(b) bench.py's configuration", run)
+        print(f"  full_loop_ramp_s {run['full_loop_ramp_s']:.2f} (first frame after "
+              f"{run['first_frame_s']:.2f} s), cross-ATE to the inline run "
+              f"{run['cross_ate_m']:.4f} m, inline {inl['fps']:.3f} frames/s; prewarm "
+              f"exception {run['prewarm_exc']}, worker exception {run['worker_exc']}")
+        want = {k: N_BENCH for k in run["frontend_launches"]}
+        require(run["frontend_launches"] == want,
+                f"launch counts {run['frontend_launches']} != {want}")
+        require(run["prewarm_exc"] is None, f"prewarm: {run['prewarm_exc']}")
+        require(run["worker_exc"] is None, f"worker exception {run['worker_exc']}")
+        require(run["lost_frames"] == 0 and run["failures"] == 0,
+                f"{run['lost_frames']} lost, {run['failures']} failures")
+        require(run["ate_m"] < 0.5, f"ATE {run['ate_m']} m")
+        require(run["cross_ate_m"] < THR_CROSS_ATE, f"cross-ATE {run['cross_ate_m']} m")
+
+    def ch_link(self):
+        """(c) The link: the probed host<->device round trip and the family
+        it selects; then link_rtt_ms pinned at 0 and at 100, N_LINK
+        threaded, chained frames each (the worker serialized, so that the
+        two runs take the same steps and differ only in the families'
+        program shapes): 0 lost each, trajectories within LINK_ATOL."""
+        from iv_slam_tpu_torch.utils import linkprobe
+
+        cfg = self.trk.cfg
+        rtt = linkprobe.probe_rtt_ms(force=True, device=self.trk.tr.device)
+        high = rtt > cfg.system.link_rtt_threshold_ms
+        runs = {"probe": dict(rtt_ms=rtt, threshold_ms=cfg.system.link_rtt_threshold_ms,
+                              family="monolithic" if high else "chunked")}
+        ests = {}
+        try:
+            for name, pin in (("chunked", 0.0), ("monolithic", 100.0)):
+                run, ests[name], _, _ = self._ch_run(N_LINK, 2, threaded=True, asy=True,
+                                                     rtt=pin, serialize=True)
+                runs[name] = run
+                self._ch_print(f"(c) link_rtt_ms {pin}", run)
+        finally:
+            linkprobe.set_rtt_ms(None)
+        diff = float(np.abs(np.stack([T[:3, 3] for T in ests["chunked"]])
+                            - np.stack([T[:3, 3] for T in ests["monolithic"]])).max())
+        runs["max_position_diff_m"] = diff
+        self.ch.out["c"] = runs
+        print(f"pipeline (c) probed RTT {rtt:.4f} ms (threshold "
+              f"{cfg.system.link_rtt_threshold_ms} ms): the {runs['probe']['family']} family; "
+              f"pinned 0 vs 100 ms: largest position difference {diff:.2e} m")
+        require(not runs["chunked"]["monolithic"] and runs["monolithic"]["monolithic"],
+                "the pinned RTTs did not select the two families")
+        for name in ("chunked", "monolithic"):
+            require(runs[name]["lost_frames"] == 0 and runs[name]["failures"] == 0,
+                    f"{name}: {runs[name]['lost_frames']} lost")
+            require(runs[name]["worker_exc"] is None, f"{name}: {runs[name]['worker_exc']}")
+        require(diff < LINK_ATOL, f"the families' trajectories differ by {diff} m")
+
+    def ch_cold(self):
+        """(d) Cold start: this script again in two fresh processes (this
+        one is warm), one with prewarm and one without, each tracking the
+        first N_COLD frames in bench.py's configuration: its
+        full_loop_ramp_s and the time from its launch to its first tracked
+        frame."""
+        import tempfile
+
+        work = tempfile.mkdtemp(prefix="chip_smoke_cold_")
+        path = os.path.join(work, "pairs.npy")
+        np.save(path, np.stack([np.stack(p) for p in self.trk.loop_pairs[:N_COLD]]))
+        runs = {}
+        try:
+            for name in ("prewarm", "plain"):
+                t0 = time.time()
+                proc = subprocess.run(
+                    [sys.executable, os.path.abspath(__file__), "--cold-start", name, path,
+                     repr(t0)], capture_output=True, text=True, timeout=600, cwd=HERE)
+                require(proc.returncode == 0, f"cold start ({name}) exited "
+                        f"{proc.returncode}: {proc.stderr[-3000:]}")
+                runs[name] = json.loads(proc.stdout.strip().splitlines()[-1])
+                runs[name]["process_s"] = time.time() - t0
+                r = runs[name]
+                print(f"pipeline (d) cold start, {name}: full_loop_ramp_s "
+                      f"{r['full_loop_ramp_s']:.2f}, first tracked frame "
+                      f"{r['first_frame_s']:.2f} s after the launch (System built after "
+                      f"{r['system_s']:.2f} s), {r['lost_frames']} lost, process "
+                      f"{r['process_s']:.1f} s, prewarm exception {r['prewarm_exc']}")
+        finally:
+            import shutil
+
+            shutil.rmtree(work, ignore_errors=True)
+        self.ch.out["d"] = runs
+        for name, r in runs.items():
+            require(r["lost_frames"] == 0 and r["prewarm_exc"] is None,
+                    f"cold start {name}: {r['lost_frames']} lost, {r['prewarm_exc']}")
+
+    def ch_uploads(self):
+        """(e) Host-to-device copies of one fused step from host state
+        (track: the ids and poses in one packed copy), one chained step
+        (track_chained: none) and one keyframe event with its local BA, on
+        phase 5's System after the keyframe-event profile: its last two
+        frames for the steps, then one more frame of the path tracked and
+        a keyframe forced on it. Counted at the dispatcher
+        (HostToDeviceCount); torch.profiler's Memcpy HtoD events of the
+        step's packed upload alone stand beside it (the CUDA driver writes a
+        small pinned copy into the command stream, and CUPTI then reports
+        no memcpy for it: the profiler undercounts)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        from iv_slam_tpu_torch.utils import argpack
+
+        torch, t = self.torch, self.trk
+        s = t.loop_sys
+        tr = s.tracking
+        fr, last = tr.current, tr.last_frame
+        dev = fr.kp.xy.device
+        res, _ = tr._fused.track(fr, last, last.map_pt, tr.velocity @ last.pose, tr._dmap)
+        T_prev = torch.as_tensor(last.pose, device=dev)
+        torch.cuda.synchronize()
+
+        def copies(fn):
+            with HostToDeviceCount() as c:
+                fn()
+            torch.cuda.synchronize()
+            return c.n
+
+        step = copies(lambda: tr._fused.track(fr, last, last.map_pt, tr.velocity @ last.pose,
+                                              tr._dmap))
+        chained = copies(lambda: tr._fused.track_chained(fr, fr, res.assign_map, res.T,
+                                                         T_prev, tr._dmap))
+        host = [np.asarray(last.map_pt, np.int32), np.asarray(last.pose, np.float32),
+                np.asarray(last.pose, np.float32)]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            argpack.upload(host, dev)
+            torch.cuda.synchronize()
+        upload_prof = sum(e.count for e in prof.key_averages()
+                          if e.device_type.name == "CUDA" and e.key.startswith("Memcpy HtoD"))
+        upload_disp = copies(lambda: argpack.upload(host, dev))
+        if fr.frame_id == tr.last_kf_frame_id:
+            # the keyframe forced on it by the profile: record its trajectory
+            # entry against it, as tracking records a frame after its own
+            # keyframe decision, so that the next frame's motion model
+            # starts from its pose
+            tr.rel_poses[-1] = (fr.pose @ np.linalg.inv(tr.map.kf_pose[tr.ref_kf])).astype(
+                np.float32)
+            tr.rel_refs[-1] = tr.ref_kf
+        self._track_next()
+        n_ba = len(tr.local_mapping.ba_rungs)
+        event = copies(tr._create_new_keyframe)
+        rungs = tr.local_mapping.ba_rungs
+        out = dict(fused_step_htod=step, chained_step_htod=chained, keyframe_event_htod=event,
+                   keyframe_event_ba_rung=rungs[-1] if len(rungs) > n_ba else None,
+                   step_upload_htod=upload_disp, step_upload_htod_profiler=upload_prof,
+                   keyframe_event_htod_profiler=t.loop["keyframe_event_profile"]["htod"])
+        self.ch.out["e"] = out
+        print(f"pipeline (e) host-to-device copies (dispatcher): {step} a fused step, "
+              f"{chained} a chained step, {event} a keyframe event (BA rung "
+              f"{out['keyframe_event_ba_rung']}); torch.profiler: {upload_prof} Memcpy HtoD "
+              f"for the step's packed upload (the dispatcher: {upload_disp}), "
+              f"{out['keyframe_event_htod_profiler']} for the profiled keyframe event")
+        require(chained == 0, f"the chained step copied {chained} times to the card")
+        require(step == 1, f"the fused step copied {step} times to the card")
+
+    def ch_vocab(self):
+        """(f) The vocabulary's C parser (csrc/vocab_native.c) against its
+        plain version on a DBoW2 text file of Vocabulary.synthesize(*VOCAB_KL):
+        the arrays equal; both times (host clock)."""
+        import tempfile
+
+        voc_mod = self.port["vocabulary"]
+        voc = voc_mod.Vocabulary.synthesize(*VOCAB_KL)
+        work = tempfile.mkdtemp(prefix="chip_smoke_voc_")
+        path = os.path.join(work, "voc.txt")
+        try:
+            voc.save_dbow2_text(path)
+            voc_mod.parse_vocab_text(path)      # built and loaded before the clock
+            t0 = time.perf_counter()
+            got = voc_mod.parse_vocab_text(path)
+            c_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = voc_mod.parse_vocab_text_plain(path)
+            plain_s = time.perf_counter() - t0
+            size = os.path.getsize(path)
+        finally:
+            import shutil
+
+            shutil.rmtree(work, ignore_errors=True)
+        equal = got[:4] == want[:4] and all(
+            a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(got[4:], want[4:]))
+        self.ch.out["f"] = dict(k=VOCAB_KL[0], L=VOCAB_KL[1], nodes=len(got[4]), bytes=size,
+                                c_s=c_s, plain_s=plain_s, equal=equal)
+        print(f"pipeline (f) DBoW2 text, k={VOCAB_KL[0]} L={VOCAB_KL[1]} ({len(got[4])} nodes, "
+              f"{size / 1e6:.1f} MB): C parser {c_s:.3f} s, plain {plain_s:.3f} s, equal "
+              f"{equal}")
+        require(equal, "the C parser's arrays differ from the plain version's")
+
+
+def cold_start(mode, pairs_path, t_launch) -> int:
+    """phase 15 (d) in a fresh process: bench.py's configuration (fused,
+    chained at depth 2, the worker, the async local BA; prewarm when mode
+    is "prewarm") over the given pairs; prints one JSON line."""
+    t_launch = float(t_launch)
+    import torch
+
+    sys.path.insert(0, HERE)
+    from iv_slam_tpu_torch import config
+    from iv_slam_tpu_torch.slam import system
+
+    pairs = np.load(pairs_path)
+    cfg = config.Config()
+    cfg.camera = config.CameraConfig(fx=FX, fy=FX, cx=W / 2.0, cy=H / 2.0, bf=0.54 * FX,
+                                     width=W, height=H, th_depth=35.0, fps=10.0)
+    cfg.orb = config.ORBConfig(n_features=2000, n_levels=8, ini_th_fast=20, min_th_fast=7)
+    cfg.system.fused_tracking = cfg.system.chained_tracking = True
+    cfg.system.chain_depth = 2
+    cfg.system.threaded_local_mapping = cfg.system.async_local_ba = True
+    cfg.system.prewarm = mode == "prewarm"
+    t_sys = time.perf_counter()
+    system_s = time.time() - t_launch
+    s = system.System(cfg, H, W)
+    pw = s._prewarm_thread
+    if pw is not None:
+        pw.core_ready.wait()
+    handle = s.submit_frontend(*pairs[0])
+    first = ramp = None
+    for i in range(len(pairs)):
+        cur = handle
+        if i + 1 < len(pairs):
+            handle = s.submit_frontend(*pairs[i + 1])
+        s.track_stereo(*pairs[i], timestamp=0.1 * i, frontend_handle=cur)
+        if i == 0:
+            torch.cuda.synchronize()
+            first = time.time() - t_launch
+        if i == len(pairs) - 1:
+            if pw is not None:
+                pw.join()
+            torch.cuda.synchronize()
+            ramp = time.perf_counter() - t_sys
+    s.trajectory_twc()
+    exc = None if pw is None else pw.exc
+    out = dict(mode=mode, frames=len(pairs), full_loop_ramp_s=ramp, first_frame_s=first,
+               system_s=system_s, lost_frames=int(sum(s.tracking.lost_flags)),
+               prewarm_exc=None if exc is None else repr(exc))
+    s.shutdown()
+    print(json.dumps(out))
+    return 0
+
 def dp_rank_main(rank, world, port_no, work):
     """A rank of phase 10 (g): joins the gloo group on card 0, loads the
     weights and the batch, takes one step on its half, and rank 0 saves the
@@ -4157,8 +4659,6 @@ def main() -> int:
     # phase 12: the product's claims, also before any profiling; each run
     # stands alone
     for name, fn in (("claims setup", smoke.cl_setup),
-                     (f"claims (a) IV cycle, {CLAIMS_CASE}", smoke.cl_iv),
-                     ("claims (b) C++ oracle, seqA", smoke.cl_oracle),
                      ("claims (c) whole cycle", smoke.cl_cycle),
                      ("claims (d) KITTI all on", smoke.cl_kitti)):
         if len(smoke.kernels) != 3 or smoke.cl is None and fn != smoke.cl_setup:
@@ -4191,6 +4691,19 @@ def main() -> int:
             smoke.failures.append(f"{name}: skipped, an earlier phase failed")
         else:
             smoke.phase(name, fn)
+    # phase 15: the pipeline (chained tracking, prewarm, the link, the
+    # vocabulary's C parser), on phase 5's frames, also before any
+    # profiling; (e), the uploads, runs with the profiling phases
+    for name, fn in (("pipeline (a) chained tracking", smoke.ch_chained),
+                     ("pipeline (b) bench.py's configuration", smoke.ch_bench),
+                     ("pipeline (c) the link", smoke.ch_link),
+                     ("pipeline (d) cold start", smoke.ch_cold),
+                     ("pipeline (f) the vocabulary's C parser", smoke.ch_vocab)):
+        if not loop_ok or len(smoke.kernels) != 3 or smoke.ch is None and \
+                fn != smoke.ch_chained:
+            smoke.failures.append(f"{name}: skipped, an earlier phase failed")
+        else:
+            smoke.phase(name, fn)
     if len(smoke.kernels) == 3:
         smoke.phase("kernel device times", smoke.device_times)
     if smoke.trk is not None and smoke.trk.record is not None:
@@ -4200,6 +4713,10 @@ def main() -> int:
     smoke.phase("profile", smoke.profile, fe, left, right)
     if loop_ok:
         smoke.phase("keyframe event profile", smoke.keyframe_event_profile)
+    if smoke.ch is not None:
+        smoke.phase("pipeline (e) uploads", smoke.ch_uploads)
+    else:
+        smoke.failures.append("pipeline (e) uploads: skipped, an earlier phase failed")
     if intro_ok:
         smoke.phase("introspection profile", smoke.intro_profile)
 
@@ -4221,14 +4738,15 @@ def main() -> int:
               f"{k['launches_run_mono']} on run_mono, {k['launches_run_rgbd']} on run_rgbd, "
               f"{k['launches_octree']} on extract_octtree, {k['launches_claims']} on the "
               f"claims runs, {k['launches_viewer']} on the viewer run, "
-              f"{k['launches_threads']} on the worker's run, on {card}")
+              f"{k['launches_threads']} on the worker's run, {k['launches_chained']} on the "
+              f"chained run, on {card}")
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms", "event_ms", "plain_event_ms",
              "launches_introspection", "launches_loop_closing", "launches_mono",
              "launches_rgbd", "launches_datagen", "launches_replay",
              "launches_sharded_datagen", "launches_run_stereo", "launches_run_mono",
              "launches_run_rgbd", "launches_octree", "launches_claims", "launches_viewer",
-             "launches_threads")
+             "launches_threads", "launches_chained")
     kernels = [{k: smoke.kernels[n][k] for k in order}
                for n in ("fast_score", "orient_brief", "sad_windows")]
     print(json.dumps({"frontend": smoke.fps,
@@ -4248,6 +4766,7 @@ def main() -> int:
     print(json.dumps({"claims": dict(smoke.claims_line(), card=card)}, default=float))
     print(json.dumps({"drawing": dict(smoke.vw.out, card=card)}, default=float))
     print(json.dumps({"threads": dict(smoke.thr.out, card=card)}, default=float))
+    print(json.dumps({"pipeline": dict(smoke.ch.out, card=card)}, default=float))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
@@ -4257,4 +4776,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cold-start"]:
+        sys.exit(cold_start(*sys.argv[2:5]))
     sys.exit(main())

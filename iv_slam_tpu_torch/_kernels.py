@@ -10,7 +10,8 @@ rebuilt within one checkout. No header of PyTorch is included: a file
 builds in seconds rather than minutes.
 
 A ``csrc/<name>.c`` is host code (the PNG row unfilter of ``io/png.py``, the
-JPEG entropy coder of ``io/jpeg.py``):
+JPEG entropy coder of ``io/jpeg.py``, the vocabulary's parser, Hamming
+matrix and tree descent of ``slam/vocabulary.py``):
 it is built the same way with the host C compiler (``$CC``, else ``cc``,
 ``gcc``, ``clang`` or ``g++``) and loaded with ``ctypes``.
 
@@ -39,7 +40,7 @@ NVCC_FLAGS = [
 CC_FLAGS = ["-O2", "-shared", "-fPIC"]
 
 SOURCES = ("fast_score", "orient_brief", "sad_windows")
-HOST_SOURCES = ("png_unfilter", "jpeg_huffman")
+HOST_SOURCES = ("png_unfilter", "jpeg_huffman", "vocab_native")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()  # loader threads may ask for one library together

@@ -23,9 +23,9 @@ the frame after track_stereo returns and changes nothing the system
 computes. --no-run_single_threaded runs the reference's threaded
 configuration: keyframe events on the LocalMapping worker thread and the
 async local BA (with --real_time_pacing, frames paced at the dataset's
-timestamps, as the reference's driver does then). Not ported yet, and
-refused with NotImplementedError: --prewarm and --chained_tracking
-(ROADMAP A16, through tracking.check_config).
+timestamps, as the reference's driver does then). --prewarm starts the
+warm-up walk (slam/prewarm.py) and --chained_tracking pipelines the fused
+step (slam/tracking.py); both need --fused_tracking.
 """
 
 from __future__ import annotations
@@ -102,9 +102,14 @@ def parse_args(argv=None):
                    help="single-dispatch fused tracking step against the "
                         "device-resident map mirror (slam/fused_track.py)")
     p.add_argument("--prewarm", action="store_true",
-                   help="not ported yet (ROADMAP A16)")
+                   help="warm the fused step's and the keyframe event's device "
+                        "work at startup on a background thread "
+                        "(slam/prewarm.py; needs --fused_tracking)")
     p.add_argument("--chained_tracking", action="store_true",
-                   help="not ported yet (ROADMAP A16)")
+                   help="one-frame speculative pipelining of the fused "
+                        "step: the step for frame n+1 dispatches "
+                        "from frame n's device results; host bookkeeping "
+                        "runs one frame behind (needs --fused_tracking)")
     p.add_argument("--rectify_images", action="store_true",
                    help="rectify with the settings' LEFT./RIGHT. blocks "
                         "(stereo_kitti.cc:286-343)")
@@ -239,9 +244,6 @@ def main(argv=None) -> dict:
     """Run the driver; returns the stats it prints and writes."""
     args = parse_args(argv)
     cfg = make_config(args)
-    from ..slam.tracking import check_config
-
-    check_config(cfg)
     device = common.device_of(args)
 
     from ..io import datasets, rectify, trajectory

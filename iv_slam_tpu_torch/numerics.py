@@ -131,6 +131,34 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def inverse(a: torch.Tensor) -> torch.Tensor:
+    """Inverse of small (..., n, n) float32 matrices as LAPACK's getrf +
+    getrs compute it (jnp.linalg.inv's route): LU with partial pivoting
+    (the first row of largest magnitude; the column below the pivot scaled
+    by its reciprocal; rank-1 updates), then the unit-lower and the upper
+    triangular solves of the permuted identity, column by column. Each
+    product and difference is its own rounded op, so the card and the CPU
+    round alike (torch.linalg.inv does not)."""
+    n = a.shape[-1]
+    a = a.clone()
+    idx = torch.arange(n, device=a.device)
+    b = torch.eye(n, dtype=a.dtype, device=a.device).expand(a.shape).clone()
+    for k in range(n - 1):
+        p = k + a[..., k:, k].abs().argmax(dim=-1, keepdim=True)     # (..., 1)
+        perm = torch.where(idx == k, p, torch.where(idx == p, k, idx))
+        rows = perm[..., :, None].expand(a.shape)
+        a, b = a.gather(-2, rows), b.gather(-2, rows)
+        l = a[..., k + 1:, k] * (1.0 / a[..., k, k])[..., None]
+        a[..., k + 1:, k + 1:] = a[..., k + 1:, k + 1:] - l[..., :, None] * a[..., k, None, k + 1:]
+        a[..., k + 1:, k] = l
+    for k in range(n):             # L y = P I (unit lower)
+        b[..., k + 1:, :] = b[..., k + 1:, :] - a[..., k + 1:, k, None] * b[..., k, None, :]
+    for k in range(n - 1, -1, -1):  # U x = y
+        b[..., k, :] = b[..., k, :] / a[..., k, k, None]
+        b[..., :k, :] = b[..., :k, :] - a[..., :k, k, None] * b[..., k, None, :]
+    return b
+
+
 def tree_sum(x: torch.Tensor) -> torch.Tensor:
     """Sum over the first axis in float32, as a fixed pairwise tree: the
     rows are padded with zeros to a power of two, then the upper half is

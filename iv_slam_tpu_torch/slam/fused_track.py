@@ -15,8 +15,12 @@ trials run as one batch, solvers/pose_opt.py), and every gather index is
 clamped where ``jnp`` would clip it. The host reads one flat float32 pack
 per frame, in the reference's layout (``tracking.py:808-858`` reads it).
 
-Not ported yet: ``track_chained``/``step_chained`` (chained
-tracking, ROADMAP A16).
+``track`` takes the three host inputs (the last frame's map slots, the
+predicted and the last pose) as one packed copy (utils/argpack.py);
+``track_chained`` takes every input from the device: the previous step's
+assignment map and pose chain, with the motion model applied on the
+device, so chained tracking (slam/tracking.py) dispatches a frame with no
+host upload and no sync.
 """
 
 from __future__ import annotations
@@ -26,9 +30,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import numerics
 from ..geometry import camera
 from ..ops import match as match_ops
 from ..solvers import pose_opt
+from ..utils import argpack
 from . import resolve_device
 
 LOCAL_CAP = 4096
@@ -200,26 +206,33 @@ class FusedTracker:
                           torch.maximum(ovf1, ovf2).to(f)])])       # (20,)
         return res, torch.cat([pack.reshape(-1), small])
 
-    def _upload(self, a: np.ndarray, dtype) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(a, dtype))
-        if self.device.type == "cuda":
-            t = t.pin_memory().to(self.device, non_blocking=True)
-        return t
-
     def track(self, frame, last_frame, last_pt_ids, T_pred, dmap):
         """Returns (FusedResult, flat pack), both on the device.
 
         The frames' keypoints, u_right, depth and quality are the device
         tensors the frontend left on them; the three host inputs (last
-        frame's map slots, the predicted and the last pose) are uploaded
-        from pinned memory without a host sync."""
+        frame's map slots, the predicted and the last pose) ride one packed
+        copy from pinned memory, without a host sync."""
+        return argpack.call_packed(
+            self._step,
+            frame.kp.xy, frame.kp.octave, frame.kp.angle, frame.kp.desc,
+            frame.ur_dev, frame.kp.valid, frame.qual_dev, frame.depth_dev,
+            last_frame.kp.xy, last_frame.kp.octave, last_frame.kp.angle,
+            last_frame.kp.valid, np.asarray(last_pt_ids, np.int32),
+            np.asarray(T_pred, np.float32), np.asarray(last_frame.pose, np.float32),
+            *dmap.live_views())
+
+    def track_chained(self, frame, last_frame, last_assign_dev, T_dev, T_prev_dev, dmap):
+        """The step for the frame after `last_frame` from the previous
+        step's DEVICE results: its assignment map (the last frame's map
+        slots) and the pose chain, T_pred = (T_i T_{i-1}^-1) T_i with
+        T_i = T_dev, T_{i-1} = T_prev_dev, on the device. No host upload,
+        no sync. The inverse is the reference's general one (LU, as
+        jnp.linalg.inv) and it and the products go through numerics.py, so
+        the card and the CPU path round alike."""
+        T_pred = numerics.matmul(numerics.matmul(T_dev, numerics.inverse(T_prev_dev)), T_dev)
         return self._step(
             frame.kp.xy, frame.kp.octave, frame.kp.angle, frame.kp.desc,
             frame.ur_dev, frame.kp.valid, frame.qual_dev, frame.depth_dev,
             last_frame.kp.xy, last_frame.kp.octave, last_frame.kp.angle,
-            last_frame.kp.valid,
-            self._upload(last_pt_ids, np.int32),
-            self._upload(T_pred, np.float32),
-            self._upload(last_frame.pose, np.float32),
-            *dmap.live_views(),
-        )
+            last_frame.kp.valid, last_assign_dev, T_pred, T_dev, *dmap.live_views())

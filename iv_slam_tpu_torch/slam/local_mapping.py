@@ -9,8 +9,9 @@ and the worker thread (LocalMapping::Run, System.cc:172-197):
   and run_ba) -> KeyFrameCulling (705)
 
 The device work of an event (triangulation against up to 16 covisible
-neighbors in chunks of TRI_CHUNK, fusion in chunks of FUSE_CHUNK targets,
-the local BA) runs on the device of the tracker's frames; everything that
+neighbors in chunks of ``tri_chunk``, fusion in chunks of ``fuse_chunk``
+targets, the local BA) runs on the device of the tracker's frames, each
+call's host arrays shipped as one packed copy (utils/argpack.py); everything that
 decides which points survive is host numpy, order for order the
 reference's: dict insertion order of the observation lists and of
 ``recent_points``, ``covisible_keyframes`` order, ``np.unique`` in the fuse
@@ -47,14 +48,20 @@ The TF32 switches are process-wide and set once at import; the FCN's
 cuDNN flags are entered on the tracking thread only, and no worker op is
 a convolution.
 
-Not ported yet: ``set_link_profile`` and the monolithic shapes (ROADMAP
-A16; the port always runs the chunked shapes).
+Program-shape families (``set_link_profile``, chosen by System from the
+measured link, utils/linkprobe.py): chunked by default (8-neighbour
+triangulation, 16-target fuse, the async local BA segmented under the
+worker); a high-RTT link selects the monolithic ones (16 neighbours, 64
+targets, one unsegmented solve), fewer host syncs per event. The two give
+the same estimates. The ``IVT_FUSE_CHUNK`` and ``IVT_TRI_CHUNK``
+environment variables, read at import, override the chunk sizes.
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import os
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -67,15 +74,17 @@ from ..config import Config
 from ..ops import match as match_ops
 from ..ops import triangulate as tri
 from ..solvers import local_ba
+from ..utils import argpack
 from . import resolve_device
 
 log = logging.getLogger(__name__)
 
 
 class LocalMapping:
-    # neighbors per triangulation call and targets per forward-fuse call
-    TRI_CHUNK = 8
-    FUSE_CHUNK = 16
+    # neighbors per triangulation call and targets per forward-fuse call of
+    # the chunked family; the environment overrides them (a bisection aid)
+    TRI_CHUNK = int(os.environ.get("IVT_TRI_CHUNK", "8"))
+    FUSE_CHUNK = int(os.environ.get("IVT_FUSE_CHUNK", "16"))
     # reverse-fuse point-axis cap: the union of up to 64 covisible
     # keyframes' points; beyond it the candidate set is truncated
     P_CAP = 16384
@@ -102,6 +111,10 @@ class LocalMapping:
         self.worker_exc = None
         self._map_changed = False  # worker -> tracking: resync the mirror
         self.post_kf_hook = None   # loop closing, installed by Tracking
+        # program-shape family (set_link_profile): chunked by default
+        self.fuse_chunk = self.FUSE_CHUNK
+        self.tri_chunk = self.TRI_CHUNK
+        self.monolithic_device = False
         cam = cfg.camera
         f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=self.device)  # noqa: E731
         self._cam = tuple(f32(v) for v in (cam.fx, cam.fy, cam.cx, cam.cy, cam.bf))
@@ -116,11 +129,21 @@ class LocalMapping:
             return contextlib.nullcontext()
         return self.stage_timer.time(name)
 
+    def set_link_profile(self, high_rtt: bool):
+        """Select the event's program-shape family from the measured link
+        (SystemConfig.link_adaptive). high_rtt=True: the monolithic
+        shapes (64-target fuse, 16-neighbour triangulation, one
+        unsegmented async local BA), the fewest host syncs. The
+        IVT_FUSE_CHUNK / IVT_TRI_CHUNK environment overrides win."""
+        if "IVT_FUSE_CHUNK" not in os.environ:
+            self.fuse_chunk = 64 if high_rtt else self.FUSE_CHUNK
+        if "IVT_TRI_CHUNK" not in os.environ:
+            self.tri_chunk = 16 if high_rtt else self.TRI_CHUNK
+        self.monolithic_device = high_rtt
+
     def _up(self, a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type == "cuda":
-            t = t.pin_memory().to(self.device, non_blocking=True)
-        return t
+        """One array to the device (a frame without its device tables)."""
+        return argpack.upload([a], self.device)[0]
 
     def insert_keyframe(self, kf_id: int):
         self.queue.append(kf_id)
@@ -164,9 +187,10 @@ class LocalMapping:
                 with self.map.lock:
                     self._run_local_ba(kf_id)
                 # the worker steps a segmented async BA here, off the map
-                # lock; without the worker the helper thread solves it
+                # lock; without the worker, or in the monolithic family,
+                # the helper thread solves it
                 h = self._pending_ba
-                if h is not None and self._worker is not None:
+                if h is not None and self._worker is not None and not self.monolithic_device:
                     h.drive()
         with self._stage("lm_cull_keyframes"), self.map.lock:
             self._cull_keyframes(kf_id)
@@ -248,7 +272,7 @@ class LocalMapping:
     def _create_new_map_points(self, kf_id: int, n_neighbors: int = 10):
         """LocalMapping::CreateNewMapPoints (273-525): triangulate new points
         against the best covisible keyframes, one device call per chunk of
-        TRI_CHUNK neighbors (padded slots carry all-False free masks)."""
+        tri_chunk neighbors (padded slots carry all-False free masks)."""
         m = self.map
         # host reads and uploads under the map lock; the device calls run
         # without it; the apply re-locks and revalidates
@@ -257,7 +281,7 @@ class LocalMapping:
         if snap is None:
             return
         cur, cand, chunk_args = snap
-        nb_cap = self.TRI_CHUNK
+        nb_cap = self.tri_chunk
         all_rows = []
         for ci, (n_chunk, args) in enumerate(chunk_args):
             flat = tri.triangulate_event_compact(*args).cpu().numpy()
@@ -348,7 +372,7 @@ class LocalMapping:
         if not cand:
             return None
 
-        nb_cap = self.TRI_CHUNK
+        nb_cap = self.tri_chunk
         cand = cand[:16]
         f32s = np.float32
 
@@ -364,23 +388,26 @@ class LocalMapping:
 
             free2 = np.stack([c["free2"] for c in chunk]
                              + [np.zeros_like(chunk[0]["free2"])] * len(pad))
-            return (
-                cur.kp.xy, cur.kp.desc, self._up(free1),
+            # the keypoint tables stack from the frames' device tensors; the
+            # free masks, the epipolar geometry and the poses ride one
+            # packed copy, made here under the map lock
+            return argpack.to_device((
+                cur.kp.xy, cur.kp.desc, free1,
                 dev_or_up(cur.ur_dev, cur.u_right), dev_or_up(cur.depth_dev, cur.depth),
                 cur.kp.octave,
                 dstack(lambda c: c["nf"].kp.xy),
                 dstack(lambda c: c["nf"].kp.desc),
-                self._up(free2),
+                free2,
                 dstack(lambda c: dev_or_up(c["nf"].ur_dev, c["nf"].u_right)),
                 dstack(lambda c: dev_or_up(c["nf"].depth_dev, c["nf"].depth)),
                 dstack(lambda c: c["nf"].kp.octave),
-                self._up(np.stack([c["F12"] for c in rows]).astype(f32s)),
-                self._up(np.stack([c["epipole2"] for c in rows]).astype(f32s)),
-                self._up(np.full(nb_cap, is_mono)),
-                self._up(np.asarray(T1, f32s)),
-                self._up(np.stack([c["T2"] for c in rows]).astype(f32s)),
+                np.stack([c["F12"] for c in rows]).astype(f32s),
+                np.stack([c["epipole2"] for c in rows]).astype(f32s),
+                np.full(nb_cap, is_mono),
+                np.array(T1, f32s),
+                np.stack([c["T2"] for c in rows]).astype(f32s),
                 self._sf, *self._cam,
-            )
+            ), self.device)
 
         chunks = [cand[i:i + nb_cap] for i in range(0, len(cand), nb_cap)]
         return cur, cand, [(len(chunk), build_args(chunk)) for chunk in chunks]
@@ -429,7 +456,7 @@ class LocalMapping:
                 self._apply_fuse_triples(kf_id, targets, pid_arr, triples)
 
     def _assemble_fuse(self, kf_id: int):
-        """The fuse calls: FORWARD chunks (<= FUSE_CHUNK covisible targets x
+        """The fuse calls: FORWARD chunks (<= fuse_chunk covisible targets x
         the current keyframe's points), then the REVERSE call (the current
         keyframe as the single target x the union of the targets' points).
         Returns [(fn, args, targets, pid_arr), ...]."""
@@ -454,8 +481,8 @@ class LocalMapping:
             return []
         calls = []
         if len(cur_pts):
-            for i in range(0, len(targets), self.FUSE_CHUNK):
-                calls.append(self._fuse_args(targets[i:i + self.FUSE_CHUNK], cur_pts,
+            for i in range(0, len(targets), self.fuse_chunk):
+                calls.append(self._fuse_args(targets[i:i + self.fuse_chunk], cur_pts,
                                              fwd_p_cap=2048))
         if len(fuse_pts):
             calls.append(self._fuse_args([kf_id], fuse_pts))
@@ -484,9 +511,8 @@ class LocalMapping:
             torch.stack([f.kp.valid for f in rows]),
             torch.stack([f.ur_dev if f.ur_dev is not None
                          else self._up(np.asarray(f.u_right, np.float32)) for f in rows]),
-            self._up(np.stack([m.kf_pose[nb] for nb in targets]
-                              + [m.kf_pose[targets[0]]] * (nb_cap - len(targets)))
-                     .astype(np.float32)),
+            np.stack([m.kf_pose[nb] for nb in targets]
+                     + [m.kf_pose[targets[0]]] * (nb_cap - len(targets))).astype(np.float32),
         )
         tail = (self._sf, self._log_scale, *self._cam[:4], *self._wh, self._cam[4],
                 self._fuse_th)
@@ -497,8 +523,8 @@ class LocalMapping:
             pid_idx[: len(pts)] = pid_arr
             kf_ok = np.zeros(nb_cap, bool)
             kf_ok[: len(targets)] = True
-            args = (*kf_args, self._up(kf_ok), *dmap.full_views(), self._up(pid_idx),
-                    *tail)
+            args = argpack.to_device((*kf_args, kf_ok, *dmap.full_views(), pid_idx, *tail),
+                                     self.device)
             return match_ops.fuse_into_keyframes_compact_indexed, args, targets, pid_arr
 
         # no device mirror (classic tracking): upload the candidate tables
@@ -514,8 +540,8 @@ class LocalMapping:
         normal[: len(pts)] = m.pt_normal[pid_arr]
         mind[: len(pts)] = m.pt_min_dist[pid_arr]
         maxd[: len(pts)] = m.pt_max_dist[pid_arr]
-        args = (*kf_args, *(self._up(a) for a in (pos, desc, normal, mind, maxd, mask)),
-                *tail)
+        args = argpack.to_device((*kf_args, pos, desc, normal, mind, maxd, mask, *tail),
+                                 self.device)
         return match_ops.fuse_into_keyframes_compact, args, targets, pid_arr
 
     def _apply_fuse_triples(self, kf_id, all_targets, pid_arr, triples):
@@ -627,7 +653,7 @@ class LocalMapping:
             # the next forced join (or, without the worker, when tracking's
             # per-frame poll finds it done). Segmented under the worker,
             # which drives it off the map lock; else on the helper thread
-            segmented = self._worker is not None
+            segmented = self._worker is not None and not self.monolithic_device
             if not segmented and self._ba_pool is None:
                 self._ba_pool = ThreadPoolExecutor(max_workers=1,
                                                    thread_name_prefix="iv-local-ba")

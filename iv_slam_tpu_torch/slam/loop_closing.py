@@ -38,6 +38,7 @@ from ..ops import match as match_ops
 from ..solvers import essential_graph as eg
 from ..solvers import sim3_opt, sim3_solver
 from ..solvers.local_ba import apply_global_ba, global_bundle_adjustment_async
+from ..utils import argpack
 from .keyframe_db import KeyFrameBow, KeyFrameDatabase
 from .vocabulary import Vocabulary, l1_score
 
@@ -450,12 +451,17 @@ class LoopClosing:
             normal[:npch] = m.pt_normal[pch]
             mind[:npch] = m.pt_min_dist[pch]
             maxd[:npch] = m.pt_max_dist[pch]
-            pts = tuple(self._up(a) for a in (pos, desc, normal, mind, maxd))
-            for ti, tch in enumerate(t_chunks):
+            masks = []
+            for tch in t_chunks:
                 mask = np.zeros((T_CH, P_CH), bool)
                 mask[: len(tch), :npch] = True
+                masks.append(mask)
+            # the point tables and every target chunk's mask: one packed copy
+            up = argpack.upload([pos, desc, normal, mind, maxd, *masks], dev)
+            pts, masks = up[:5], up[5:]
+            for ti, tch in enumerate(t_chunks):
                 flat = match_ops.fuse_into_keyframes_compact(
-                    *kf_stacks[ti], *pts, self._up(mask), *tail, scw=True)
+                    *kf_stacks[ti], *pts, masks[ti], *tail, scw=True)
                 flats.append((tch, pch, flat))
 
         touched = set()

@@ -17,9 +17,18 @@ closing (``cfg.system.use_bow``, ``enable_loop_closing``); a deferred
 global BA merges at the next frame or when the trajectory is read.
 ``activate_localization_mode`` tracks without mapping.
 ``enable_datagen`` turns on IV-SLAM's training-data generation
-(``cfg.iv.enabled``; supervised from GT poses, or unsupervised). The config
-switches that ``tracking.check_config`` names (chained tracking, prewarm, a
-pinned link profile) are not ported yet and raise NotImplementedError.
+(``cfg.iv.enabled``; supervised from GT poses, or unsupervised).
+
+At construction, with ``cfg.system.link_adaptive`` (the default), System
+measures the host<->device round trip once (utils/linkprobe.py; a pinned
+``cfg.system.link_rtt_ms`` replaces the measurement) and picks the keyframe
+event's program-shape family (``LocalMapping.set_link_profile``: above
+``link_rtt_threshold_ms`` the monolithic shapes) before anything runs.
+``cfg.system.prewarm`` (with fused tracking) then starts the warm-up walk
+(slam/prewarm.py) on a background thread; the trajectory outputs and
+``shutdown`` join it and raise its exception, so a failed walk cannot pass
+a run. ``cfg.system.chained_tracking`` pipelines the fused step
+(slam/tracking.py); the outputs and ``shutdown`` drain the pipeline first.
 """
 
 from __future__ import annotations
@@ -31,6 +40,8 @@ import numpy as np
 
 from ..config import Config
 from ..io import trajectory
+from ..utils import linkprobe
+from . import prewarm
 from .map_store import MapStore
 from .tracking import State, Tracking
 
@@ -39,6 +50,18 @@ class System:
     def __init__(self, cfg: Config, height: int, width: int, device=None):
         self.cfg = cfg
         self.tracking = Tracking(cfg, height, width, device=device)
+        self._prewarm_thread = None
+        # the measured link picks the keyframe event's shape family BEFORE
+        # the warm-up walks it
+        self.link_rtt_ms = None
+        if cfg.system.link_adaptive:
+            if cfg.system.link_rtt_ms is not None:
+                linkprobe.set_rtt_ms(cfg.system.link_rtt_ms)
+            self.link_rtt_ms = linkprobe.probe_rtt_ms(device=self.tracking.device)
+            self.tracking.local_mapping.set_link_profile(
+                self.link_rtt_ms > cfg.system.link_rtt_threshold_ms)
+        if cfg.system.prewarm and cfg.system.fused_tracking:
+            self._prewarm_thread = prewarm.prewarm_async(self.tracking)
 
     # --- tracking entry points (System.h:76-118) ---------------------------
 
@@ -140,11 +163,23 @@ class System:
     def reset(self):
         self.tracking._reset()
 
+    def join_prewarm(self):
+        """Wait for the warm-up walk; raise what it raised."""
+        t = self._prewarm_thread
+        if t is None:
+            return
+        t.join()
+        if t.exc is not None:
+            raise RuntimeError("the prewarm walk failed") from t.exc
+
     def _join(self):
-        """Drain the LocalMapping worker, then merge a deferred global BA and
-        an async local BA, so that the outputs compose against the final
-        keyframe poses (the reference joins its threads on Shutdown)."""
+        """Join the warm-up walk, drain the tracking pipeline and the
+        LocalMapping worker, then merge a deferred global BA and an async
+        local BA, so that the outputs compose against the final keyframe
+        poses (the reference joins its threads on Shutdown)."""
         tr = self.tracking
+        self.join_prewarm()
+        tr.flush_chain()
         tr.local_mapping.join()
         lc = getattr(tr, "loop_closing", None)
         if lc is not None and lc.collect_gba():

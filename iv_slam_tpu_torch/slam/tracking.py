@@ -60,12 +60,26 @@ decision and creation. A busy worker (3 events queued) refuses new
 keyframes unless the keyframe gap reaches ``max_frames`` with fewer than
 6 queued.
 
-Not ported yet, and refused by ``check_config``: chained tracking,
-prewarm and a pinned link profile (ROADMAP A16).
+Chained tracking (``cfg.system.chained_tracking`` with fused tracking,
+stereo, no GT depth, not in localization mode; ``chain_depth`` frames in
+flight): each frame's fused step is dispatched at once, from the previous
+step's device results while a chain is live (FusedTracker.track_chained)
+or from host state to start one, and its result pack is pulled to pinned
+host memory behind a CUDA event; the host bookkeeping runs ``chain_depth``
+frames behind and consumes a speculation only when its inputs are the
+ones a fresh dispatch would see (no keyframe pose moved, MapStore
+.poses_ver; no map event since its dispatch, the mirror version
+``_mirror_ver``; the previous frame's fused result accepted). Otherwise
+the head frame is dispatched fresh, with the unchained step's semantics,
+and every queued frame is re-speculated from host state. ``flush_chain``
+drains the queue: trajectory reads, shutdown, the non-chained entry
+points. A chained ``track_stereo`` returns the pose of the frame it
+finished (None while the queue fills).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import enum
 import logging
@@ -79,6 +93,7 @@ from ..geometry import camera
 from ..ops import match as match_ops
 from ..ops import bow_match
 from ..solvers import initializer, pnp, pose_opt
+from ..utils import argpack
 from . import resolve_device
 from .device_map import DeviceMap
 from .frame import Frame, MonoFrontend, RGBDFrontend, StereoFrontend, sample_gt_depth
@@ -98,24 +113,8 @@ class State(enum.Enum):
     LOST = 3
 
 
-def check_config(cfg: Config) -> None:
-    """Raise NotImplementedError for a switch this port does not run yet."""
-    s = cfg.system
-    todo = [
-        (s.chained_tracking, "chained_tracking", "A16"),
-        (s.prewarm, "prewarm", "A16"),
-        # the port always runs the chunked shape family, the reference's
-        # choice on a low-RTT link, and probes no link
-        (s.link_rtt_ms is not None, "link_rtt_ms (a pinned link profile)", "A16"),
-    ]
-    for on, name, item in todo:
-        if on:
-            raise NotImplementedError(f"{name} is not ported yet (ROADMAP {item})")
-
-
 class Tracking:
     def __init__(self, cfg: Config, height: int, width: int, device=None):
-        check_config(cfg)
         self.cfg = cfg
         self.height = height
         self.width = width
@@ -147,6 +146,22 @@ class Tracking:
         self._fused: Optional[FusedTracker] = None
         self._dmap: Optional[DeviceMap] = None
         self._dmap_dirty = True  # the mirror needs a (re)sync
+        # the mirror's content version: bumped by every map event that voids
+        # in-flight speculative steps (worker events, BA and global-BA
+        # merges, loop corrections, resets). A speculation stamps it at
+        # dispatch and is consumed only while it is unchanged. _dmap_dirty
+        # alone would not do: a later frame's dispatch clears it after the
+        # resync, and an older speculation, computed against since-recycled
+        # rows, would then pass
+        self._mirror_ver = 0
+        # chained tracking: dispatched frames not yet processed, oldest
+        # first (at most chain_depth once full); the record _track_fused
+        # consumes; whether the last processed frame's fused result was
+        # accepted and its speculation used
+        self._pendq = collections.deque()
+        self._spec = None
+        self._chain_ok = False
+        self._used_spec = False
 
         sf = cfg.orb.scale_factors()
         self.inv_level_sigma2 = (1.0 / (sf * sf)).astype(np.float32)
@@ -239,9 +254,19 @@ class Tracking:
         from `submit_frontend` (called while the previous frame was tracking)
         to overlap the frontend's device work with host-side tracking.
 
+        In chained mode (cfg.system.chained_tracking) this frame's fused
+        step is dispatched at once and the host bookkeeping runs
+        chain_depth frames behind: the returned pose is the frame that
+        finished (None until one has).
+
         gt_depth_map: optional full-resolution GT depth image (the AirSim PFM
         path, stereo_airsim.cc:339-360), sampled per keypoint as the
         reference's mvKeysGTDepth (Frame.cc:152-191)."""
+        if (self.cfg.system.chained_tracking and self.cfg.system.fused_tracking
+                and gt_depth_map is None and not self.only_tracking):
+            return self._track_stereo_chained(img_left, img_right, timestamp, cost_map,
+                                              gt_pose, gt_cov, img_name, frontend_handle)
+        self.flush_chain()
         self._poll_async_merges()
         # the fused step reads the frame's device tensors, so the frontend's
         # host views can wait for the step's single download
@@ -268,6 +293,164 @@ class Tracking:
             self._track()
         return frame.pose
 
+    # ------------------------------------------------- chained (pipelined)
+
+    def _track_stereo_chained(self, img_left, img_right, timestamp, cost_map, gt_pose,
+                              gt_cov, img_name, frontend_handle) -> Optional[np.ndarray]:
+        """Pipelined tracking: dispatch this frame's fused step now (chained
+        off the queue tail's device results while a chain is live, else
+        from host state), then process the oldest frame(s) once more than
+        chain_depth are queued. A speculation is validated when its frame
+        is processed (_track_fused)."""
+        self._poll_async_merges()
+        with self._stage("frontend"):
+            if frontend_handle is not None:
+                frame = self.frontend.collect(frontend_handle, timestamp, gt_pose, gt_cov,
+                                              img_name, defer=True)
+            else:
+                frame = self.frontend.process(img_left, img_right, timestamp, cost_map,
+                                              gt_pose, gt_cov, img_name, defer=True)
+        depth = max(1, int(self.cfg.system.chain_depth))
+        q = self._pendq
+        spec = None
+        if q and self.state == State.OK and q[-1]["res"] is not None:
+            tail = q[-1]
+            # the version is read BEFORE the sync: an event landing at any
+            # time after this makes the stamp mismatch at consumption (a
+            # spurious mismatch costs one fresh dispatch)
+            mver = self._mirror_ver
+            self._sync_mirror()
+            with self._stage("spec_dispatch"):
+                res, flat = self._fused.track_chained(
+                    frame, tail["frame"], tail["res"].assign_map, tail["res"].T,
+                    tail["T_prev"], self._dmap)
+            spec = dict(frame=frame, res=res, ver=self.map.poses_ver, mver=mver,
+                        T_prev=tail["res"].T, pull=self._pull_async(flat))
+        elif not q:
+            spec = self._host_dispatch_spec(frame)
+            if spec is None:
+                # no pipeline (initialization, lost, fallback): process now
+                self.current = frame
+                with self._stage("track"):
+                    self._track()
+                return frame.pose
+        q.append(spec if spec is not None else dict(
+            frame=frame, res=None, ver=-1, mver=-1, T_prev=None, pull=None))
+        prev_pose = None
+        while len(q) > depth:
+            prev_pose = self._process_chain_head()
+        return prev_pose
+
+    def _sync_mirror(self):
+        """Resync the device mirror if a map event made it stale (the flag
+        is cleared BEFORE the sync: an event landing during it sets it
+        again and the next dispatch resyncs)."""
+        if self._dmap_dirty:
+            self._dmap_dirty = False
+            with self._stage("dmap_sync"), self.map.lock:
+                self._dmap.sync(self.map)
+
+    def _ensure_fused(self):
+        if self._fused is None:
+            self._fused = FusedTracker(self.cfg, self.height, self.width, device=self.device)
+            self._dmap = DeviceMap(device=self.device)
+            self.local_mapping.dmap = self._dmap
+
+    def _host_dispatch_spec(self, frame):
+        """A fresh (unchained) speculative dispatch for `frame` from host
+        state: valid only when `frame` directly follows last_frame (the
+        queue is empty, or every earlier frame is processed). Returns the
+        spec record, or None when the fused step's gate does not hold."""
+        if not (self.state == State.OK and self.velocity is not None
+                and self.last_frame is not None and self.last_frame.pose is not None):
+            return None
+        self._ensure_fused()
+        mver = self._mirror_ver  # before the sync, as in the chained dispatch
+        self._sync_mirror()
+        self._update_last_frame()
+        T_pred = self.velocity @ self.last_frame.pose
+        with self._stage("spec_dispatch"):
+            res, flat = self._fused.track(frame, self.last_frame, self.last_frame.map_pt,
+                                          T_pred, self._dmap)
+        T_prev = argpack.upload([np.asarray(self.last_frame.pose, np.float32)],
+                                self.device)[0]
+        return dict(frame=frame, res=res, ver=self.map.poses_ver, mver=mver, T_prev=T_prev,
+                    pull=self._pull_async(flat))
+
+    def _process_chain_head(self):
+        """Pop and process the oldest queued frame. When its speculation was
+        not used, its fused result was refused, or a map event voided the
+        queued speculations, re-speculate the whole queue from the current
+        host state (the head just became last_frame, so the first queued
+        frame is its direct successor)."""
+        q = self._pendq
+        head = q.popleft()
+        self.current = head["frame"]
+        self._spec = head
+        self._chain_ok = False
+        self._used_spec = False
+        with self._stage("track"):
+            self._track()
+        self._spec = None
+        stale = any(e["res"] is not None and e["mver"] != self._mirror_ver for e in q)
+        if q and (not self._chain_ok or not self._used_spec or stale):
+            self._respeculate_queue()
+        return head["frame"].pose
+
+    def _respeculate_queue(self):
+        """Strip the queued speculations and rebuild them from host state:
+        a fresh dispatch for the first queued frame, chained dispatches for
+        the rest."""
+        q = self._pendq
+        for e in q:
+            e.update(res=None, pull=None, ver=-1, mver=-1)
+        mver_q = self._mirror_ver  # before any dispatch
+        prev = None
+        for e in q:
+            if prev is None:
+                spec = self._host_dispatch_spec(e["frame"])
+                if spec is None:
+                    return  # the gate does not hold (lost, reset): leave them fresh
+                e.update(spec)
+            else:
+                with self._stage("spec_dispatch"):
+                    res, flat = self._fused.track_chained(
+                        e["frame"], prev["frame"], prev["res"].assign_map, prev["res"].T,
+                        prev["T_prev"], self._dmap)
+                e.update(res=res, ver=self.map.poses_ver, mver=mver_q,
+                         T_prev=prev["res"].T, pull=self._pull_async(flat))
+            prev = e
+
+    def _pull_async(self, flat: torch.Tensor):
+        """Start the device-to-host copy of a result pack: a non-blocking
+        copy into pinned host memory and a CUDA event recorded behind it
+        (the consumer waits on the event before it reads, _pulled). On the
+        CPU the pack is read at once."""
+        if flat.device.type != "cuda":
+            return flat.numpy(), None
+        host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+        host.copy_(flat, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(flat.device))
+        return host, ev
+
+    @staticmethod
+    def _pulled(pull) -> np.ndarray:
+        """The host pack of a pull, once its copy has landed."""
+        host, ev = pull
+        if ev is None:
+            return host
+        ev.synchronize()
+        return host.numpy()
+
+    def flush_chain(self):
+        """Drain the pipeline: process every queued frame, oldest first, so
+        the host state is current (trajectory reads, shutdown, the
+        non-chained entry points)."""
+        q = self._pendq
+        while q:
+            self._process_chain_head()
+
     def submit_frontend(self, img_left, img_right, cost_map=None):
         handle = self.frontend.submit(img_left, img_right, cost_map)
         # the classic path downloads the host pack in collect(): start the
@@ -289,6 +472,7 @@ class Tracking:
         initializer builds the first map, then the per-frame loop is the
         stereo one (mono frames carry no depth). gt_depth_map as in
         track_stereo (mono_airsim.cc)."""
+        self.flush_chain()
         self._poll_async_merges()
         if not hasattr(self, "mono_frontend"):
             self.mono_frontend = MonoFrontend(self.cfg, self.height, self.width,
@@ -323,6 +507,7 @@ class Tracking:
         """RGB-D tracking (Tracking::GrabImageRGBD): depth-seeded frames go
         through the stereo state machine. depth_scale turns the map's values
         into metres (1 / DepthMapFactor, examples/run_rgbd.py)."""
+        self.flush_chain()
         self._poll_async_merges()
         if not hasattr(self, "rgbd_frontend"):
             self.rgbd_frontend = RGBDFrontend(self.cfg, self.height, self.width,
@@ -527,29 +712,33 @@ class Tracking:
     def _track_fused(self) -> bool:
         """The fused step (slam/fused_track.py): motion search + pose LM +
         full-map local search + pose LM against the device map, one
-        download. Falls back to the classic path on failure."""
+        download. Falls back to the classic path on failure. A chained
+        frame's speculative step is consumed when its inputs are provably
+        the ones a fresh dispatch would see: no keyframe pose moved since
+        (the re-anchor of _update_last_frame would change nothing) and no
+        map event landed (the mirror version: the step read a mirror
+        without the event's new, culled or recycled points)."""
         frame = self.current
         last = self.last_frame
-        if last is None or last.pose is None:
-            frame.materialize()  # the classic fallback needs the host views
-            return False
-        if self._fused is None:
-            self._fused = FusedTracker(self.cfg, self.height, self.width, device=self.device)
-            self._dmap = DeviceMap(device=self.device)
-            self.local_mapping.dmap = self._dmap
-        if self._dmap_dirty:
-            # cleared BEFORE the sync: a worker event landing during it
-            # sets the flag again and the next frame resyncs
-            self._dmap_dirty = False
-            with self._stage("dmap_sync"), self.map.lock:
-                self._dmap.sync(self.map)
-        self._update_last_frame()
-        T_pred = self.velocity @ last.pose
-        with self._stage("fused_dispatch"):
-            _res, flat = self._fused.track(frame, last, last.map_pt, T_pred, self._dmap)
+        spec = self._spec
+        used_spec = (spec is not None and spec["frame"] is frame
+                     and spec["ver"] == self.map.poses_ver
+                     and spec["mver"] == self._mirror_ver)
+        self._used_spec = used_spec
+        if not used_spec:
+            if last is None or last.pose is None:
+                frame.materialize()  # the classic fallback needs the host views
+                return False
+            self._ensure_fused()
+            self._sync_mirror()
+            self._update_last_frame()
+            T_pred = self.velocity @ last.pose
+            with self._stage("fused_dispatch"):
+                _res, flat = self._fused.track(frame, last, last.map_pt, T_pred, self._dmap)
         # one download for the step's results and the deferred frame views
+        # (a chained frame's copy was started at its dispatch)
         with self._stage("fused_readback"):
-            out = flat.cpu().numpy()
+            out = self._pulled(spec["pull"]) if used_spec else flat.cpu().numpy()
         n = frame.map_pt.shape[0]
         pack = out[: 10 * n].reshape(n, 10)
         small = out[10 * n:]
@@ -599,6 +788,7 @@ class Tracking:
             if counter:
                 self.ref_kf = max(counter, key=counter.get)
                 frame.ref_kf = self.ref_kf
+        self._chain_ok = True  # the fused result was accepted: the chain holds
         return True
 
     def mark_map_dirty(self):
@@ -606,8 +796,10 @@ class Tracking:
 
     def _mark_mirror_stale(self):
         """A map event landed: resync the device mirror before the next
-        fused step."""
+        fused step, and void every in-flight speculation (its step read
+        rows the event may have recycled)."""
         self._dmap_dirty = True
+        self._mirror_ver += 1
 
     def _update_last_frame(self):
         """Tracking::UpdateLastFrame: refresh the last frame's pose from its
@@ -1092,6 +1284,11 @@ class Tracking:
         self._reset()
 
     def _reset(self):
+        # queued speculations mirror a dead map: strip them but keep the
+        # frames, so each is still processed (fresh) and the trajectory
+        # has no gap
+        for e in self._pendq:
+            e.update(res=None, pull=None, ver=-1)
         # drain the worker before discarding the map it is mutating
         try:
             self.local_mapping.join()
@@ -1149,4 +1346,5 @@ class Tracking:
         """Absolute Twc per frame, composed like SaveTrajectoryKITTI
         (System.cc:709-772): Tcw = Tcr * Trw with the current keyframe
         poses."""
+        self.flush_chain()
         return self._finalized_twc + self._compose_session()

@@ -16,16 +16,24 @@ Thirdparty/DBoW2/DBoW2/TemplatedVocabulary.h, FORB.cpp):
 
 Files: ``save``/``load`` write and read the reference's npz layout, and
 ``save_dbow2_text``/``load_dbow2_text`` the DBoW2 text format, so a file
-written by either package loads in the other. The reference's C++ host
-extension is not used; its numpy fallbacks (``iv_slam_tpu/native``) are
-copied here.
+written by either package loads in the other.
+
+The reference's host helpers (its C++ extension, ``native/``) are
+``csrc/vocab_native.c``, built by the host C compiler at first use and
+called through ctypes: ``parse_vocab_text`` (an ORBvoc-sized text file,
+~1.1M nodes, in seconds rather than the Python loop's tens of seconds),
+``hamming_matrix`` and ``vocab_transform``. Their plain versions are the
+NumPy forms beside them (``*_plain``); a failed build raises.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, List
 
 import numpy as np
+
+from .. import _kernels
 
 # vocabularies at ORBvoc scale (~1M leaves) pay ~50-70 ms of cache-hostile
 # host tree descent per transform; those take the device descent
@@ -33,13 +41,13 @@ import numpy as np
 DEVICE_TRANSFORM_MIN_NODES = 200_000
 
 
-def hamming_matrix_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+def hamming_matrix_plain(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     """(N, 32) u8 x (M, 32) u8 -> (N, M) int32 Hamming distances."""
     x = np.bitwise_xor(a[:, None, :], b[None, :, :])
     return np.unpackbits(x, axis=-1).sum(axis=-1).astype(np.int32)
 
 
-def parse_vocab_text(path: str):
+def parse_vocab_text_plain(path: str):
     """DBoW2 text file -> (k, L, scoring, weighting, parents, descs,
     weights, leaves); node 0 is the implicit root."""
     with open(path) as f:
@@ -58,8 +66,8 @@ def parse_vocab_text(path: str):
             np.array(weights, np.float32), np.array(leaves, np.uint8))
 
 
-def vocab_transform(children: np.ndarray, node_desc: np.ndarray,
-                    desc: np.ndarray) -> np.ndarray:
+def vocab_transform_plain(children: np.ndarray, node_desc: np.ndarray,
+                          desc: np.ndarray) -> np.ndarray:
     """(N, 32) u8 -> (N,) int32 leaf node ids: from the root, step to the
     child at the least Hamming distance (the first of equals; valid
     children sit at the front of a row) until a node has no children."""
@@ -77,6 +85,84 @@ def vocab_transform(children: np.ndarray, node_desc: np.ndarray,
         d = np.where(kids >= 0, d, np.iinfo(np.int32).max)
         node[active] = kids[np.arange(len(active)), d.argmin(axis=1)]
     return node
+
+
+_native_fns = {}
+
+
+def _native(name: str, argtypes):
+    fn = _native_fns.get(name)
+    if fn is None:
+        fn = getattr(_kernels.load("vocab_native"), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _native_fns[name] = fn
+    return fn
+
+
+_P, _L = ctypes.c_void_p, ctypes.c_long
+
+
+def parse_vocab_text(path: str):
+    """parse_vocab_text_plain in C (csrc/vocab_native.c): the same tuple,
+    the same arrays."""
+    with open(path, "rb") as f:
+        data = f.read()
+    cap = data.count(b"\n") + data.count(b"\r") + 2   # lines bound the nodes
+    header = np.zeros(4, np.int32)
+    parents = np.empty(cap, np.int32)
+    descs = np.empty((cap, 32), np.uint8)
+    weights = np.empty(cap, np.float32)
+    leaves = np.empty(cap, np.uint8)
+    n_nodes, bad = ctypes.c_long(0), ctypes.c_long(0)
+    fn = _native("parse_vocab_text", [ctypes.c_char_p, _L, _P, _P, _P, _P, _P, _L,
+                                      ctypes.POINTER(ctypes.c_long),
+                                      ctypes.POINTER(ctypes.c_long)])
+    rc = fn(data, len(data), header.ctypes.data, parents.ctypes.data, descs.ctypes.data,
+            weights.ctypes.data, leaves.ctypes.data, cap, ctypes.byref(n_nodes),
+            ctypes.byref(bad))
+    if rc == 1:
+        raise ValueError(f"{path}: the header needs four integers (k L scoring weighting)")
+    if rc == 2:
+        raise ValueError(f"{path}: line {bad.value}: a node field does not parse")
+    if rc != 0:
+        raise RuntimeError(f"parse_vocab_text: error {rc}")
+    n = n_nodes.value
+    k, L, scoring, weighting = (int(v) for v in header)
+    return (k, L, scoring, weighting, parents[:n].copy(), descs[:n].copy(),
+            weights[:n].copy(), leaves[:n].copy())
+
+
+def hamming_matrix(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """hamming_matrix_plain in C."""
+    a = np.ascontiguousarray(a, np.uint8)
+    b = np.ascontiguousarray(b, np.uint8)
+    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != 32 or b.shape[1] != 32:
+        raise ValueError(f"hamming_matrix: (N, 32) and (M, 32) descriptors, got "
+                         f"{a.shape} and {b.shape}")
+    out = np.empty((a.shape[0], b.shape[0]), np.int32)
+    fn = _native("hamming_matrix", [_P, _L, _P, _L, _P])
+    fn(a.ctypes.data, a.shape[0], b.ctypes.data, b.shape[0], out.ctypes.data)
+    return out
+
+
+def vocab_transform(children: np.ndarray, node_desc: np.ndarray,
+                    desc: np.ndarray) -> np.ndarray:
+    """vocab_transform_plain in C."""
+    children = np.ascontiguousarray(children, np.int32)
+    node_desc = np.ascontiguousarray(node_desc, np.uint8)
+    desc = np.ascontiguousarray(desc, np.uint8)
+    if (children.ndim != 2 or node_desc.shape[1:] != (32,) or desc.ndim != 2
+            or desc.shape[1] != 32 or len(node_desc) < len(children)):
+        raise ValueError(f"vocab_transform: children {children.shape}, node_desc "
+                         f"{node_desc.shape}, desc {desc.shape}")
+    out = np.empty(desc.shape[0], np.int32)
+    fn = _native("vocab_transform", [_P, _L, _L, _P, _P, _L, _P])
+    rc = fn(children.ctypes.data, children.shape[0], children.shape[1],
+            node_desc.ctypes.data, desc.ctypes.data, desc.shape[0], out.ctypes.data)
+    if rc != 0:
+        raise IndexError("vocab_transform: a child id lies outside the node table")
+    return out
 
 
 def _majority_descriptor(descs: np.ndarray) -> np.ndarray:
@@ -121,7 +207,7 @@ class Vocabulary:
             idx = rng.choice(len(descs), size=k, replace=False)
             centers = descs[idx].copy()
             for _ in range(kmeans_iters):
-                assign = hamming_matrix_np(descs, centers).argmin(axis=1)
+                assign = hamming_matrix(descs, centers).argmin(axis=1)
                 new_centers = []
                 for c in range(k):
                     members = descs[assign == c]
@@ -132,7 +218,7 @@ class Vocabulary:
                     centers = new
                     break
                 centers = new
-            assign = hamming_matrix_np(descs, centers).argmin(axis=1)
+            assign = hamming_matrix(descs, centers).argmin(axis=1)
             kids = []
             for c in range(k):
                 members = descs[assign == c]
@@ -227,14 +313,19 @@ class Vocabulary:
 
     @staticmethod
     def load_dbow2_text(path: str) -> "Vocabulary":
+        """A DBoW2 text file; each node's children in file order."""
         k, L, _scoring, _weighting, parents, descs, weights, leaves = parse_vocab_text(path)
         n = len(parents)
         children = np.full((n, k), -1, np.int32)
-        fill = np.zeros(n, np.int32)
-        for i in range(1, n):
-            p = parents[i]
-            children[p, fill[p]] = i
-            fill[p] += 1
+        # child i goes to its parent's next free slot: its rank among the
+        # parent's children in id order
+        ids = np.arange(1, n)
+        par = parents[1:].astype(np.int64)
+        order = np.argsort(par, kind="stable")
+        first = np.searchsorted(par[order], par[order], side="left")
+        slot = np.empty(n - 1, np.int64)
+        slot[order] = np.arange(n - 1) - first
+        children[par, slot] = ids
         return Vocabulary(children, descs, weights, leaves.astype(bool), k, L)
 
     # ----------------------------------------------------------- transform

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from ..geometry import camera
+from ..utils import argpack
 from .ba_core import BAProblem, _Ctx, ba_solve
 
 
@@ -228,7 +229,9 @@ def _trim_window(m, local_kfs, fixed_kfs, pts):
 
 
 def _upload(prob_np, device) -> BAProblem:
-    return BAProblem(*(torch.as_tensor(a).to(device) for a in prob_np))
+    """A BAProblem of host arrays (or tensors) on `device`: the host
+    fields ride one packed copy (utils/argpack.py)."""
+    return argpack.to_device(BAProblem(*prob_np), device)
 
 
 def _solve(cfg, prob_np, device, **opts):

@@ -1,1 +1,2 @@
-"""Host utilities: per-stage timers."""
+"""Host utilities: per-stage timers, argument packing (one host-to-device
+copy a call) and the host<->device link probe."""

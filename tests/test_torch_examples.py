@@ -30,9 +30,9 @@ The viewer flags (--enable_viewer, --live_viewer_port, --logging_level)
 leave run_stereo's trajectory bit-equal and draw what the reference's driver
 draws; evaluate_batch --viz writes the reference's figures.
 --no-run_single_threaded (the LocalMapping worker) runs and tracks as the
-single-threaded run. Flags whose feature is not ported raise
-NotImplementedError naming their ROADMAP item, and no driver runs on the
-CPU unless asked.
+single-threaded run; --prewarm and --chained_tracking (with
+--fused_tracking) each write the trajectory of the run without them,
+within 2e-3; no driver runs on the CPU unless asked.
 """
 
 import dataclasses
@@ -209,10 +209,39 @@ def test_threaded_run_stereo(kitti):
     np.testing.assert_array_equal(kf[:, 0], kf_single[:, 0])
 
 
-@pytest.mark.parametrize("flags,item", [(["--prewarm"], "A16"), (["--chained_tracking"], "A16")])
-def test_unported_flags_raise(tmp_path, flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        run_stereo.main(["--data_path", str(tmp_path), "--device", "cpu", *flags])
+@pytest.fixture(scope="module")
+def fused_run(kitti):
+    """run_stereo --fused_tracking over the layout: the run the pipeline
+    flags are held against."""
+    out = kitti["root"] / "fused"
+    argv = [a if a != str(kitti["out"]) else str(out) for a in kitti["argv"]]
+    stats = run_stereo.main(argv + ["--fused_tracking"])
+    return out, stats
+
+
+@pytest.mark.parametrize("flags", [["--prewarm"], ["--chained_tracking"]])
+def test_pipeline_flags_run(kitti, fused_run, monkeypatch, flags):
+    """--prewarm (the warm-up walk, here at its smallest rungs: the full
+    ladder is minutes of CPU time) and --chained_tracking, with
+    --fused_tracking: no failure, every output, the trajectory within 2e-3
+    of the run without the flag and its keyframe stamps."""
+    from iv_slam_tpu_torch.slam import prewarm
+    from iv_slam_tpu_torch.solvers.local_ba import LBA_RUNGS
+
+    walk = prewarm.prewarm_async
+    monkeypatch.setattr(prewarm, "prewarm_async", lambda tr: walk(
+        tr, live_rungs=[1024], fuse_shapes=[(16, 1024)], ba_rungs=[LBA_RUNGS[0]]))
+    base, base_stats = fused_run
+    out = kitti["root"] / flags[0][2:]
+    argv = [a if a != str(kitti["out"]) else str(out) for a in kitti["argv"]]
+    stats = run_stereo.main(argv + ["--fused_tracking", *flags])
+    assert stats["frames"] == N_FRAMES and stats["failures"] == 0 == base_stats["failures"]
+    assert abs(stats["ate_rmse"] - base_stats["ate_rmse"]) < 2e-3
+    np.testing.assert_allclose(np.loadtxt(out / "Trajectory_KITTI_000.txt"),
+                               np.loadtxt(base / "Trajectory_KITTI_000.txt"), rtol=0, atol=2e-3)
+    kf, kf_base = (np.loadtxt(d / "KeyFrameTrajectory_TUM_000.txt", ndmin=2)
+                   for d in (out, base))
+    np.testing.assert_array_equal(kf[:, 0], kf_base[:, 0])
 
 
 def _free_port():

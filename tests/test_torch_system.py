@@ -39,9 +39,9 @@ on the CPU path.
   either with BoW, loop closing, mono or RGB-D tracking, the vis or the
   constrained BA) each
   construct, track two frames and shut down with the worker stopped; the
-  switches this port does not run yet (chained tracking, prewarm, a
-  pinned link profile: A16) raise NotImplementedError, and System needs
-  CUDA unless given a device.
+  pipeline switches (chained tracking, prewarm, a pinned link profile,
+  and chaining with the threaded switches) each track three frames with
+  no loss, and System needs CUDA unless given a device.
 """
 
 import os
@@ -333,7 +333,7 @@ def test_threaded_switch_runs(sequence, vocabulary, name):
     assert lm._worker is None and lm.worker_exc is None
 
 
-# not ported yet (A16), alone and with the threaded switches
+# the pipeline switches, alone and chaining with the threaded switches
 SWITCHES = {
     "chained_tracking": lambda c: setattr(c.system, "chained_tracking", True),
     "prewarm": lambda c: setattr(c.system, "prewarm", True),
@@ -345,8 +345,29 @@ SWITCHES = {
 
 
 @pytest.mark.parametrize("name", list(SWITCHES))
-def test_unported_switch_raises(name):
-    cfg = make_config()
+def test_pipeline_switch_runs(sequence, monkeypatch, name):
+    """Each switch, with fused tracking: three frames tracked, state OK, no
+    frame lost (the prewarm walk at its smallest rungs, and joined
+    without an exception; the pinned link profile selects the monolithic
+    shapes)."""
+    from iv_slam_tpu_torch.slam import prewarm
+    from iv_slam_tpu_torch.solvers.local_ba import LBA_RUNGS
+    from iv_slam_tpu_torch.utils import linkprobe
+
+    walk = prewarm.prewarm_async
+    monkeypatch.setattr(prewarm, "prewarm_async", lambda tr: walk(
+        tr, live_rungs=[1024], fuse_shapes=[(16, 1024)], ba_rungs=[LBA_RUNGS[0]]))
+    cfg = make_config(fused=True)
     SWITCHES[name](cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
-        System(cfg, 240, 320, device="cpu")
+    try:
+        s = System(cfg, 240, 320, device="cpu")
+        for i, (left, right) in enumerate(sequence[1][:3]):
+            s.track_stereo(left, right, timestamp=i * 0.1)
+        assert len(s.trajectory_twc()) == 3
+        assert s.state == State.OK and s.failure_count == 0
+        assert not any(s.tracking.lost_flags)
+        assert s.tracking.local_mapping.monolithic_device == (name == "link_rtt_ms")
+        assert (s._prewarm_thread is not None) == (name == "prewarm")
+        s.shutdown()
+    finally:
+        linkprobe.set_rtt_ms(None)   # the pinned value is process-wide
