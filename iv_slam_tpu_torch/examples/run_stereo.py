@@ -97,7 +97,8 @@ def parse_args(argv=None):
     p.add_argument("--load_rel_pose_uncertainty", action="store_true")
     p.add_argument("--profile_stages", action="store_true",
                    help="per-stage wall-clock report (frontend / track / "
-                        "keyframe events / datagen) printed at shutdown")
+                        "keyframe events / local mapping / loop closing / "
+                        "datagen) printed at shutdown")
     p.add_argument("--fused_tracking", action="store_true",
                    help="single-dispatch fused tracking step against the "
                         "device-resident map mirror (slam/fused_track.py)")
@@ -325,10 +326,13 @@ def main(argv=None) -> dict:
 
     os.makedirs(args.out_visualization_path, exist_ok=True)
 
+    timer = None
     if args.profile_stages:
-        from ..utils.profiling import StageTimer
+        from ..utils import profiling
 
-        sys_.tracking.stage_timer = StageTimer()
+        # installed: one recorder for Tracking, LocalMapping and LoopClosing
+        timer = profiling.StageTimer()
+        profiling.install(timer)
 
     viewer = Viewers(args, sys_, seq)
 
@@ -390,8 +394,9 @@ def main(argv=None) -> dict:
     )
     if seq.gt_poses is not None and not interrupted:
         stats["ate_rmse"] = trajectory.ate_rmse(sys_.trajectory_twc(), list(seq.gt_poses))
-    if args.profile_stages and sys_.tracking.stage_timer is not None:
-        print(sys_.tracking.stage_timer.report())
+    if timer is not None:
+        print(timer.report())
+        profiling.install(None)
     if any(viewer.draw_ms.values()):
         stats["viewer"] = viewer.summary()
     print(json.dumps(stats))

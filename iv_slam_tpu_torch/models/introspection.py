@@ -28,6 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils.profiling import span
 from .layers import resize as _resize
 from .mobilenet import MobileNetV2Dilated, _conv_bn
 
@@ -97,9 +98,10 @@ def predict(model: IntrospectionNet, img_u8: torch.Tensor,
             net_hw: Tuple[int, int] = (512, 512)) -> torch.Tensor:
     """uint8 RGB (B, H, W, 3) -> the (B, 1, net_h / 8, net_w / 8) float32
     prediction: normalize, resize to net_hw, forward."""
-    x = normalize_image(img_u8).permute(0, 3, 1, 2).contiguous()
-    x = _resize(x, net_hw)
-    with fcn_numerics(x.device):
+    with span("fcn.preprocess"):
+        x = normalize_image(img_u8).permute(0, 3, 1, 2).contiguous()
+        x = _resize(x, net_hw)
+    with span("fcn.forward"), fcn_numerics(x.device):
         return model(x)
 
 
@@ -110,8 +112,10 @@ def inference_cost_map(model: IntrospectionNet, img_u8: torch.Tensor,
     """uint8 RGB (H, W, 3) or (B, H, W, 3) -> uint8 cost map (H', W') or
     (B, H', W') at out_hw, on the image's device: ``predict``, resize to
     out_hw, sigmoid(20 (x - 0.5)), then clip(x * 255) truncated to uint8."""
-    pred = predict(model, img_u8 if img_u8.ndim == 4 else img_u8[None], net_hw)
-    pred = _resize(pred, out_hw)
-    pred = torch.sigmoid(20.0 * (pred - 0.5))
-    cost = torch.clamp(pred[:, 0] * 255.0, 0, 255).to(torch.uint8)
+    with span("fcn.cost_map"):
+        pred = predict(model, img_u8 if img_u8.ndim == 4 else img_u8[None], net_hw)
+        with span("fcn.postprocess"):
+            pred = _resize(pred, out_hw)
+            pred = torch.sigmoid(20.0 * (pred - 0.5))
+            cost = torch.clamp(pred[:, 0] * 255.0, 0, 255).to(torch.uint8)
     return cost[0] if img_u8.ndim == 3 else cost

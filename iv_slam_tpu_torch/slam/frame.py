@@ -32,6 +32,7 @@ from ..models.introspection import inference_cost_map
 from ..ops import pyramid as pyr
 from ..ops import stereo
 from ..ops.extractor import Keypoints, OrbExtractor
+from ..utils.profiling import span
 from . import resolve_device
 
 
@@ -72,6 +73,8 @@ class Frame:
     ur_dev: object = None
     depth_dev: object = None
     qual_dev: object = None
+    # StereoFrontend's count of the frame at submit: the id of its spans
+    frame_no: Optional[int] = None
     _angle: np.ndarray = None
     _desc: np.ndarray = None
 
@@ -295,6 +298,8 @@ class FrameHandle:
     # by prefetch_host
     host_copy: Optional[torch.Tensor] = None
     copied: Optional[torch.cuda.Event] = None
+    # the frontend's count of the frame at submit: the id of its spans
+    frame_no: Optional[int] = None
 
 
 class StereoFrontend:
@@ -320,6 +325,7 @@ class StereoFrontend:
         self._qual256 = numerics.quality_table(256.0).to(dev)
         self._fcn = None
         self._frame_count = 0
+        self.next_frame_no = 0   # the frame_no the next submit takes
 
     def attach_introspection(self, net, net_hw=(512, 512)):
         """Run the introspection FCN (models.IntrospectionNet, in eval mode)
@@ -342,28 +348,31 @@ class StereoFrontend:
             return inference_cost_map(net, rgb, tuple(pair.shape[1:]), net_hw)
         return None
 
-    def _step(self, pair: torch.Tensor, cost: Optional[torch.Tensor]) -> FrameHandle:
+    def _step(self, pair: torch.Tensor, cost: Optional[torch.Tensor],
+              frame_no: Optional[int] = None) -> FrameHandle:
         """(2, H, W) uint8 device pair (+ the left image's (H, W) uint8 cost
         map, or None) -> queued frame work."""
         cam = self.cfg.camera
         # left/right as ONE batch axis (the reference's two extraction
         # threads, Frame.cc:116-124); the right image gets a zero cost map,
         # the exact unweighted semantics
-        levels = pyr.build_pyramid(pair, self.shapes)
-        qlevels = None
-        if cost is not None:
-            qlevels = pyr.build_pyramid(torch.stack([cost, torch.zeros_like(cost)]),
-                                        self.shapes)
-        kb, canvas = self.extractor.extract_from_pyramid_batched(
-            levels, qlevels, return_canvas=True)
+        with span("frontend.extract", frame=frame_no):
+            levels = pyr.build_pyramid(pair, self.shapes)
+            qlevels = None
+            if cost is not None:
+                qlevels = pyr.build_pyramid(torch.stack([cost, torch.zeros_like(cost)]),
+                                            self.shapes)
+            kb, canvas = self.extractor.extract_from_pyramid_batched(
+                levels, qlevels, return_canvas=True)
         kl = Keypoints(*(a[0] for a in kb))
         kr = Keypoints(*(a[1] for a in kb))
-        u_right, depth = stereo.match_stereo(
-            kl.xy, kl.octave, kl.desc, kl.valid,
-            kr.xy, kr.octave, kr.desc, kr.valid,
-            canvas[0], canvas[1], self.level_offsets, self.level_widths,
-            self.scale_factors, cam.bf, cam.baseline,
-        )
+        with span("frontend.stereo", frame=frame_no):
+            u_right, depth = stereo.match_stereo(
+                kl.xy, kl.octave, kl.desc, kl.valid,
+                kr.xy, kr.octave, kr.desc, kr.valid,
+                canvas[0], canvas[1], self.level_offsets, self.level_widths,
+                self.scale_factors, cam.bf, cam.baseline,
+            )
         if cost is not None:
             # seed per-keypoint quality from the cost map at the keypoint
             # pixel: 2/(1 + cost/256) - 1 (Frame.cc:130-143; /256 here, /255
@@ -378,7 +387,7 @@ class StereoFrontend:
         host_pack = torch.stack(
             [kl.xy[:, 0], kl.xy[:, 1], kl.octave.to(torch.float32),
              kl.valid.to(torch.float32), u_right, depth, qual], dim=1)
-        return FrameHandle(kl, kr, u_right, depth, qual, host_pack)
+        return FrameHandle(kl, kr, u_right, depth, qual, host_pack, frame_no=frame_no)
 
     def submit(self, img_left: np.ndarray, img_right: np.ndarray,
                cost_map=None) -> FrameHandle:
@@ -386,9 +395,10 @@ class StereoFrontend:
         (and the left image's (H, W) uint8 cost map, when given: a numpy
         array or a tensor) is uploaded from pinned memory without a stream
         sync, so frame n+1 can be submitted while frame n computes."""
-        pair = torch.from_numpy(np.ascontiguousarray(np.stack([img_left, img_right])))
-        if self.device.type == "cuda":
-            pair = pair.pin_memory().to(self.device, non_blocking=True)
+        with span("frontend.upload", frame=self.next_frame_no):
+            pair = torch.from_numpy(np.ascontiguousarray(np.stack([img_left, img_right])))
+            if self.device.type == "cuda":
+                pair = pair.pin_memory().to(self.device, non_blocking=True)
         return self.submit_device(pair, cost_map)
 
     def submit_device(self, pair: torch.Tensor, cost_map=None) -> FrameHandle:
@@ -398,8 +408,10 @@ class StereoFrontend:
             raise ValueError(
                 f"submit_device: need a (2, H, W) uint8 tensor on {self.device}, "
                 f"got {tuple(pair.shape)} {pair.dtype} on {pair.device}")
+        frame_no = self.next_frame_no
+        self.next_frame_no += 1
         pair = pair.contiguous()
-        return self._step(pair, self._cost_map(cost_map, pair))
+        return self._step(pair, self._cost_map(cost_map, pair), frame_no)
 
     def prefetch_host(self, handle: FrameHandle) -> None:
         """Queue the device->host copy of the handle's host pack into pinned
@@ -439,13 +451,15 @@ class StereoFrontend:
             ur_dev=handle.u_right,
             depth_dev=handle.depth,
             qual_dev=handle.qual,
+            frame_no=handle.frame_no,
         )
         if not defer:
-            if handle.host_copy is not None:
-                handle.copied.synchronize()
-                pack = handle.host_copy.numpy()
-            else:
-                pack = handle.host_pack.cpu().numpy()
+            with span("frontend.collect", frame=handle.frame_no):
+                if handle.host_copy is not None:
+                    handle.copied.synchronize()
+                    pack = handle.host_copy.numpy()
+                else:
+                    pack = handle.host_pack.cpu().numpy()
             _unpack_host(fr, pack)
             fr.defer = False
             fr.host_pack = None

@@ -35,6 +35,7 @@ from ..geometry import camera
 from ..ops import match as match_ops
 from ..solvers import pose_opt
 from ..utils import argpack
+from ..utils.profiling import span
 from . import resolve_device
 
 LOCAL_CAP = 4096
@@ -139,11 +140,12 @@ class FusedTracker:
                  & last_valid)
 
         def motion_search(th):
-            return match_ops.search_by_projection_last_frame(
-                cur_xy, cur_oct, cur_angle, cur_desc, cur_ur, cur_valid,
-                pt_pos, pt_desc, last_oct, last_angle, pt_ok,
-                T_pred, T_last, K.fx, K.fy, K.cx, K.cy, K.bf, self.baseline,
-                self.img_w, self.img_h, self.scale_factors, th)
+            with span("fused.motion_search"):
+                return match_ops.search_by_projection_last_frame(
+                    cur_xy, cur_oct, cur_angle, cur_desc, cur_ur, cur_valid,
+                    pt_pos, pt_desc, last_oct, last_angle, pt_ok,
+                    T_pred, T_last, K.fx, K.fy, K.cx, K.cy, K.bf, self.baseline,
+                    self.img_w, self.img_h, self.scale_factors, th)
 
         # widen the window when matches are scarce (Tracking.cc:1333-1343):
         # both windows are searched, so the choice waits on no host read
@@ -159,8 +161,9 @@ class FusedTracker:
         inv_s2_full = self.inv_level_sigma2[cur_oct]
 
         def run_pose_opt(T0, slots):
-            return self._pose_opt(T0, slots, obs_full, inv_s2_full, cur_qual,
-                                  map_pos, map_qual, map_valid)
+            with span("fused.pose_opt"):
+                return self._pose_opt(T0, slots, obs_full, inv_s2_full, cur_qual,
+                                      map_pos, map_qual, map_valid)
 
         res1, ovf1 = run_pose_opt(T_pred, slot1)
         slot1_in = torch.where(res1.inlier, slot1, -1)
@@ -169,25 +172,26 @@ class FusedTracker:
         # to the frustum-gated survivors first (the gate is the matcher's
         # own isInFrustum, so results are identical while the gated count
         # is <= LOCAL_CAP; the count ships in the host pack)
-        P = map_pos.shape[0]
-        gate = match_ops.frustum_gate(
-            map_pos, map_normal, map_mind, map_maxd, map_valid,
-            res1.T, K.fx, K.fy, K.cx, K.cy, self.img_w, self.img_h)
-        n_gate = gate.sum(dtype=torch.int32)
-        tables = (map_pos, map_desc, map_normal, map_mind, map_maxd, map_valid)
-        sel = None
-        if P > LOCAL_CAP:
-            sel, sel_ok, _ = match_ops.compact(gate, LOCAL_CAP)
-            tables = tuple(t[sel] for t in tables)
-            tables = tables[:-1] + (tables[-1] & sel_ok,)
+        with span("fused.local_search"):
+            P = map_pos.shape[0]
+            gate = match_ops.frustum_gate(
+                map_pos, map_normal, map_mind, map_maxd, map_valid,
+                res1.T, K.fx, K.fy, K.cx, K.cy, self.img_w, self.img_h)
+            n_gate = gate.sum(dtype=torch.int32)
+            tables = (map_pos, map_desc, map_normal, map_mind, map_maxd, map_valid)
+            sel = None
+            if P > LOCAL_CAP:
+                sel, sel_ok, _ = match_ops.compact(gate, LOCAL_CAP)
+                tables = tuple(t[sel] for t in tables)
+                tables = tables[:-1] + (tables[-1] & sel_ok,)
 
-        assign2, _ = match_ops.search_by_projection_local_map(
-            cur_xy, cur_oct, cur_desc, cur_ur, cur_valid, slot1_in >= 0,
-            *tables, res1.T, K.fx, K.fy, K.cx, K.cy, K.bf, self.img_w, self.img_h,
-            self.scale_factors, self.log_scale, self.th_local, self.nn_local)
-        if sel is not None:
-            # map compacted-row indices back to full-table slots
-            assign2 = torch.where(assign2 >= 0, sel[torch.clamp(assign2, min=0)], -1)
+            assign2, _ = match_ops.search_by_projection_local_map(
+                cur_xy, cur_oct, cur_desc, cur_ur, cur_valid, slot1_in >= 0,
+                *tables, res1.T, K.fx, K.fy, K.cx, K.cy, K.bf, self.img_w, self.img_h,
+                self.scale_factors, self.log_scale, self.th_local, self.nn_local)
+            if sel is not None:
+                # map compacted-row indices back to full-table slots
+                assign2 = torch.where(assign2 >= 0, sel[torch.clamp(assign2, min=0)], -1)
         merged = torch.where(slot1_in >= 0, slot1_in, assign2)
         res2, ovf2 = run_pose_opt(res1.T, merged)
         final_assign = torch.where(res2.inlier, merged, -1)

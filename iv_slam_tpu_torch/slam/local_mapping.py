@@ -59,7 +59,6 @@ environment variables, read at import, override the chunk sizes.
 
 from __future__ import annotations
 
-import contextlib
 import logging
 import os
 import queue
@@ -75,6 +74,7 @@ from ..ops import match as match_ops
 from ..ops import triangulate as tri
 from ..solvers import local_ba
 from ..utils import argpack
+from ..utils.profiling import span
 from . import resolve_device
 
 log = logging.getLogger(__name__)
@@ -99,7 +99,7 @@ class LocalMapping:
         # device map mirror (the tracker's DeviceMap), set by Tracking when
         # fused tracking runs: fuse gathers its candidate tables from it
         self.dmap = None
-        # optional per-stage timer: an object whose time(name) is a context
+        # optional recorder of its stages (utils/profiling.py): None, the installed one
         self.stage_timer = None
         # per event: the BA rung solved; overflows of the compact tables
         self.ba_rungs: List[tuple] = []
@@ -123,11 +123,6 @@ class LocalMapping:
         self._sf = torch.as_tensor(np.asarray(sf, np.float32), device=self.device)
         self._log_scale = f32(np.log(sf[1] / sf[0]) if len(sf) > 1 else 1.0)
         self._fuse_th = f32(3.0)
-
-    def _stage(self, name: str):
-        if self.stage_timer is None:
-            return contextlib.nullcontext()
-        return self.stage_timer.time(name)
 
     def set_link_profile(self, high_rtt: bool):
         """Select the event's program-shape family from the measured link
@@ -174,16 +169,16 @@ class LocalMapping:
     def _process_one(self, kf_id: int, run_ba: bool = True):
         # a keyframe event is a forced join point for the previous event's
         # async BA (its window overlaps this one)
-        with self._stage("lm_join_prev_ba"):
+        with span("lm_join_prev_ba", kf=kf_id, timer=self.stage_timer):
             self.apply_pending_ba()
-        with self._stage("lm_cull_points"), self.map.lock:
+        with span("lm_cull_points", kf=kf_id, timer=self.stage_timer), self.map.lock:
             self._cull_map_points(kf_id)
-        with self._stage("lm_triangulate"):
+        with span("lm_triangulate", kf=kf_id, timer=self.stage_timer):
             self._create_new_map_points(kf_id)
-        with self._stage("lm_fuse"):
+        with span("lm_fuse", kf=kf_id, timer=self.stage_timer):
             self._search_in_neighbors(kf_id)
         if self.map.n_keyframes > 2 and run_ba:
-            with self._stage("lm_local_ba"):
+            with span("lm_local_ba", kf=kf_id, timer=self.stage_timer):
                 with self.map.lock:
                     self._run_local_ba(kf_id)
                 # the worker steps a segmented async BA here, off the map
@@ -192,7 +187,7 @@ class LocalMapping:
                 h = self._pending_ba
                 if h is not None and self._worker is not None and not self.monolithic_device:
                     h.drive()
-        with self._stage("lm_cull_keyframes"), self.map.lock:
+        with span("lm_cull_keyframes", kf=kf_id, timer=self.stage_timer), self.map.lock:
             self._cull_keyframes(kf_id)
 
     # ------------------------------------------------------ worker thread

@@ -26,7 +26,6 @@ PRNGKey(kf_id), which torch cannot reproduce.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -39,6 +38,7 @@ from ..solvers import essential_graph as eg
 from ..solvers import sim3_opt, sim3_solver
 from ..solvers.local_ba import apply_global_ba, global_bundle_adjustment_async
 from ..utils import argpack
+from ..utils.profiling import span
 from .keyframe_db import KeyFrameBow, KeyFrameDatabase
 from .vocabulary import Vocabulary, l1_score
 
@@ -57,7 +57,7 @@ class LoopClosing:
         self.last_loop_kf = -1
         self.consistent_groups: List[Tuple[set, int]] = []
         self.n_loops_closed = 0
-        # optional per-stage timer: an object whose time(name) is a context
+        # optional recorder of its stages (utils/profiling.py): None, the installed one
         self.stage_timer = None
         # persistent loop-closure edges (KeyFrame::GetLoopEdges): past
         # closures stay as normal edges in later essential graphs
@@ -70,11 +70,6 @@ class LoopClosing:
 
     # ------------------------------------------------------------- helpers
 
-    def _stage(self, name: str):
-        if self.stage_timer is None:
-            return contextlib.nullcontext()
-        return self.stage_timer.time(name)
-
     def _up(self, a) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a)).to(self.device)
 
@@ -82,21 +77,21 @@ class LoopClosing:
 
     def process_keyframe(self, kf_id: int, fix_scale: bool = True) -> bool:
         """Returns True if a loop was detected and corrected."""
-        with self._stage("lc_bow"):
+        with span("lc_bow", kf=kf_id, timer=self.stage_timer):
             self.bow.ensure(kf_id)
             self.kfdb.add(kf_id, self.bow.kf_bow[kf_id])
         if self.map.n_keyframes < 11 or kf_id < self.last_loop_kf + 10:
             return False
-        with self._stage("lc_detect"):
+        with span("lc_detect", kf=kf_id, timer=self.stage_timer):
             candidates = self._detect_loop(kf_id)
         if not candidates:
             return False
-        with self._stage("lc_sim3"):
+        with span("lc_sim3", kf=kf_id, timer=self.stage_timer):
             match = self._compute_sim3(kf_id, candidates, fix_scale)
         if match is None:
             return False
         loop_kf, S_corr, matched = match
-        with self._stage("lc_correct"):
+        with span("lc_correct", kf=kf_id, timer=self.stage_timer):
             self._correct_loop(kf_id, loop_kf, S_corr, matched, fix_scale=fix_scale)
         self.last_loop_kf = kf_id
         self.n_loops_closed += 1

@@ -41,6 +41,7 @@ import numpy as np
 from ..config import Config
 from ..io import trajectory
 from ..utils import linkprobe
+from ..utils.profiling import span
 from . import prewarm
 from .map_store import MapStore
 from .tracking import State, Tracking
@@ -78,15 +79,20 @@ class System:
         gt_depth_map: Optional[np.ndarray] = None,
     ) -> Optional[np.ndarray]:
         """Returns the camera pose Tcw, or None while not initialized."""
-        return self.tracking.track_stereo(
-            img_left, img_right, timestamp, cost_map=cost_map, gt_pose=gt_pose,
-            gt_cov=gt_cov, img_name=img_name, frontend_handle=frontend_handle,
-            gt_depth_map=gt_depth_map)
+        frame_no = (self.tracking.frontend.next_frame_no if frontend_handle is None
+                    else frontend_handle.frame_no)
+        with span("system.track", frame=frame_no):
+            return self.tracking.track_stereo(
+                img_left, img_right, timestamp, cost_map=cost_map, gt_pose=gt_pose,
+                gt_cov=gt_cov, img_name=img_name, frontend_handle=frontend_handle,
+                gt_depth_map=gt_depth_map)
 
     def submit_frontend(self, img_left, img_right, cost_map=None):
         """Queue the next frame's frontend, so its device work overlaps the
-        host tracking of the current frame."""
-        return self.tracking.submit_frontend(img_left, img_right, cost_map)
+        host tracking of the current frame. The handle carries the frame's
+        ``frame_no``, the id of its spans here and in ``track_stereo``."""
+        with span("system.submit", frame=self.tracking.frontend.next_frame_no):
+            return self.tracking.submit_frontend(img_left, img_right, cost_map)
 
     def track_mono(
         self,

@@ -80,7 +80,6 @@ finished (None while the queue fills).
 from __future__ import annotations
 
 import collections
-import contextlib
 import enum
 import logging
 from typing import List, Optional
@@ -94,6 +93,7 @@ from ..ops import match as match_ops
 from ..ops import bow_match
 from ..solvers import initializer, pnp, pose_opt
 from ..utils import argpack
+from ..utils.profiling import span
 from . import resolve_device
 from .device_map import DeviceMap
 from .frame import Frame, MonoFrontend, RGBDFrontend, StereoFrontend, sample_gt_depth
@@ -177,13 +177,8 @@ class Tracking:
         self.failure_count = 0
         self._finalized_twc: List[np.ndarray] = []  # frames of closed sub-sessions
         self._session_start = 0
-        # optional per-stage timer: an object whose time(name) is a context
+        # optional recorder of its stages (utils/profiling.py): None, the installed one
         self.stage_timer = None
-
-    def _stage(self, name: str):
-        if self.stage_timer is None:
-            return contextlib.nullcontext()
-        return self.stage_timer.time(name)
 
     def _setup_threaded_mapping(self):
         """Start the LocalMapping worker (the reference's thread
@@ -279,7 +274,7 @@ class Tracking:
             and self.last_frame.pose is not None
             and gt_depth_map is None
         )
-        with self._stage("frontend"):
+        with span("frontend", timer=self.stage_timer):
             if frontend_handle is not None:
                 frame = self.frontend.collect(frontend_handle, timestamp, gt_pose, gt_cov,
                                               img_name, defer=defer)
@@ -289,7 +284,7 @@ class Tracking:
         if gt_depth_map is not None:
             frame.kp_gt_depth = sample_gt_depth(gt_depth_map, frame.xy, frame.valid)
         self.current = frame
-        with self._stage("track"):
+        with span("track", timer=self.stage_timer):
             self._track()
         return frame.pose
 
@@ -303,7 +298,7 @@ class Tracking:
         chain_depth are queued. A speculation is validated when its frame
         is processed (_track_fused)."""
         self._poll_async_merges()
-        with self._stage("frontend"):
+        with span("frontend", timer=self.stage_timer):
             if frontend_handle is not None:
                 frame = self.frontend.collect(frontend_handle, timestamp, gt_pose, gt_cov,
                                               img_name, defer=True)
@@ -320,7 +315,7 @@ class Tracking:
             # spurious mismatch costs one fresh dispatch)
             mver = self._mirror_ver
             self._sync_mirror()
-            with self._stage("spec_dispatch"):
+            with span("spec_dispatch", frame=frame.frame_no, timer=self.stage_timer):
                 res, flat = self._fused.track_chained(
                     frame, tail["frame"], tail["res"].assign_map, tail["res"].T,
                     tail["T_prev"], self._dmap)
@@ -331,7 +326,7 @@ class Tracking:
             if spec is None:
                 # no pipeline (initialization, lost, fallback): process now
                 self.current = frame
-                with self._stage("track"):
+                with span("track", timer=self.stage_timer):
                     self._track()
                 return frame.pose
         q.append(spec if spec is not None else dict(
@@ -347,7 +342,7 @@ class Tracking:
         again and the next dispatch resyncs)."""
         if self._dmap_dirty:
             self._dmap_dirty = False
-            with self._stage("dmap_sync"), self.map.lock:
+            with span("dmap_sync", timer=self.stage_timer), self.map.lock:
                 self._dmap.sync(self.map)
 
     def _ensure_fused(self):
@@ -369,7 +364,7 @@ class Tracking:
         self._sync_mirror()
         self._update_last_frame()
         T_pred = self.velocity @ self.last_frame.pose
-        with self._stage("spec_dispatch"):
+        with span("spec_dispatch", frame=frame.frame_no, timer=self.stage_timer):
             res, flat = self._fused.track(frame, self.last_frame, self.last_frame.map_pt,
                                           T_pred, self._dmap)
         T_prev = argpack.upload([np.asarray(self.last_frame.pose, np.float32)],
@@ -389,7 +384,7 @@ class Tracking:
         self._spec = head
         self._chain_ok = False
         self._used_spec = False
-        with self._stage("track"):
+        with span("track", timer=self.stage_timer):
             self._track()
         self._spec = None
         stale = any(e["res"] is not None and e["mver"] != self._mirror_ver for e in q)
@@ -413,7 +408,7 @@ class Tracking:
                     return  # the gate does not hold (lost, reset): leave them fresh
                 e.update(spec)
             else:
-                with self._stage("spec_dispatch"):
+                with span("spec_dispatch", frame=e["frame"].frame_no, timer=self.stage_timer):
                     res, flat = self._fused.track_chained(
                         e["frame"], prev["frame"], prev["res"].assign_map, prev["res"].T,
                         prev["T_prev"], self._dmap)
@@ -477,12 +472,12 @@ class Tracking:
         if not hasattr(self, "mono_frontend"):
             self.mono_frontend = MonoFrontend(self.cfg, self.height, self.width,
                                               device=self.device)
-        with self._stage("frontend"):
+        with span("frontend", timer=self.stage_timer):
             frame = self.mono_frontend.process(img, timestamp, cost_map, gt_pose, img_name)
         if gt_depth_map is not None:
             frame.kp_gt_depth = sample_gt_depth(gt_depth_map, frame.xy, frame.valid)
         self.current = frame
-        with self._stage("track"):
+        with span("track", timer=self.stage_timer):
             self._track_mono_flow()
         return frame.pose
 
@@ -512,11 +507,11 @@ class Tracking:
         if not hasattr(self, "rgbd_frontend"):
             self.rgbd_frontend = RGBDFrontend(self.cfg, self.height, self.width,
                                               device=self.device)
-        with self._stage("frontend"):
+        with span("frontend", timer=self.stage_timer):
             frame = self.rgbd_frontend.process(img, depth_map, timestamp, depth_scale,
                                                img_name)
         self.current = frame
-        with self._stage("track"):
+        with span("track", timer=self.stage_timer):
             self._track()
         return frame.pose
 
@@ -567,10 +562,10 @@ class Tracking:
                         frame.map_pt[i] = -1
                 self._delete_temporal_points()
             elif self._need_new_keyframe():
-                with self._stage("keyframe_event"):
+                with span("keyframe_event", kf=self.map.n_keyframes, timer=self.stage_timer):
                     self._create_new_keyframe()
             self._record_trajectory(lost=False)
-            with self._stage("datagen"):
+            with span("datagen", timer=self.stage_timer):
                 self._run_datagen(frame)
         else:
             self.state = State.LOST
@@ -733,11 +728,11 @@ class Tracking:
             self._sync_mirror()
             self._update_last_frame()
             T_pred = self.velocity @ last.pose
-            with self._stage("fused_dispatch"):
+            with span("fused_dispatch", frame=frame.frame_no, timer=self.stage_timer):
                 _res, flat = self._fused.track(frame, last, last.map_pt, T_pred, self._dmap)
         # one download for the step's results and the deferred frame views
         # (a chained frame's copy was started at its dispatch)
-        with self._stage("fused_readback"):
+        with span("fused_readback", frame=frame.frame_no, timer=self.stage_timer):
             out = self._pulled(spec["pull"]) if used_spec else flat.cpu().numpy()
         n = frame.map_pt.shape[0]
         pack = out[: 10 * n].reshape(n, 10)

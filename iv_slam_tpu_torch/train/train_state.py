@@ -32,6 +32,7 @@ from torch import nn
 
 from ..models.layers import flax_init_
 from ..slam import resolve_device
+from ..utils.profiling import span
 from .losses import DEEP_SUP_SCALE, deep_sup_loss, masked_mse
 
 
@@ -120,32 +121,42 @@ def train_step(state: TrainState, batch: Dict[str, np.ndarray], dp=None,
     the whole batch, so the ranks' losses add up to the whole batch's and
     the summed gradients are its gradient; the BatchNorms average their
     statistics over the ranks when ``models.set_process_group`` gave them
-    the group."""
+    the group. Its spans carry ``step=``, the state's step count."""
+    with span("train.step", step=state.step):
+        return _train_step(state, batch, dp, deep_sup_scale)
+
+
+def _train_step(state, batch, dp, deep_sup_scale):
     model = state.model
     device = next(model.parameters()).device
+    step = state.step
     model.train()
     rows = slice(None) if dp is None else dp.rows(len(batch["image"]))
-    image, target, mask = batch_tensors(batch, device, rows)
-    mask_sum = None
-    if dp is not None:
-        mask_sum = torch.tensor(float(np.asarray(batch["mask"], np.float64).sum()),
-                                dtype=torch.float32, device=device)
-    out = model(image)
-    if isinstance(out, tuple):
-        # deep-supervision decoders return (pred, pred_deepsup)
-        loss, main = deep_sup_loss(out[0], out[1], target, mask, deep_sup_scale, mask_sum)
-    else:
-        loss = main = masked_mse(out, target, mask, mask_sum)
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    metrics = torch.stack([loss.detach(), main.detach()])
-    if dp is not None:
-        from ..parallel.mesh import all_reduce_grads, all_reduce_sum
+    with span("train.upload", step=step):
+        image, target, mask = batch_tensors(batch, device, rows)
+        mask_sum = None
+        if dp is not None:
+            mask_sum = torch.tensor(float(np.asarray(batch["mask"], np.float64).sum()),
+                                    dtype=torch.float32, device=device)
+    with span("train.forward", step=step):
+        out = model(image)
+        if isinstance(out, tuple):
+            # deep-supervision decoders return (pred, pred_deepsup)
+            loss, main = deep_sup_loss(out[0], out[1], target, mask, deep_sup_scale, mask_sum)
+        else:
+            loss = main = masked_mse(out, target, mask, mask_sum)
+    with span("train.backward", step=step):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        metrics = torch.stack([loss.detach(), main.detach()])
+        if dp is not None:
+            from ..parallel.mesh import all_reduce_grads, all_reduce_sum
 
-        all_reduce_grads(model, dp)
-        metrics = all_reduce_sum(metrics, dp)
-    state.optimizer.step()
-    state.scheduler.step()
+            all_reduce_grads(model, dp)
+            metrics = all_reduce_sum(metrics, dp)
+    with span("train.optimizer", step=step):
+        state.optimizer.step()
+        state.scheduler.step()
     state.step += 1
     return {"loss": metrics[0], "mse": metrics[1]}
 
