@@ -23,7 +23,8 @@ It drives the port only (no JAX, nothing of ``iv_slam_tpu``):
      with the CPU path (plain versions) on a small pair;
   4. tracking phase, at bench.py's full-loop world and configuration
      (tests/synth_world.py PlaneWorld, seed 11, 376x1241, 2000 features),
-     frames from the card's StereoFrontend (K1-K3 on every frame, counted):
+     frames from the card's StereoFrontend (K1-K3 on every frame, counted;
+     K4, the pose LM, twice a fused step, counted):
      (a) a map from frame 0 (MapStore, DeviceMap.sync), then FusedTracker
      steps over frames 1-14 of the accelerating path with the motion model,
      each held to the reference's limits (>= 20 motion matches, >= 30
@@ -32,7 +33,10 @@ It drives the port only (no JAX, nothing of ``iv_slam_tpu``):
      search compacts the table), 14 frames tracked between two of them,
      each pose held against ground truth and both compaction overflows to 0;
      one step of (b) again on the CPU path (same inputs), compared; host
-     syncs inside a step (CUDA sync debug mode);
+     syncs inside a step (CUDA sync debug mode); K4 held bit for bit
+     against its plain twin on the card at the two pose-LM calls of that
+     step (its table of pose_cap rows), then timed with CUDA events, its
+     bound counting the trials the LM took on those inputs;
   5. full loop, the main path end to end: the first 60 frames of bench.py's
      120-frame world through System(cfg, 376, 1241) on the card (fused
      tracking, the other switches at their defaults: unchained,
@@ -407,6 +411,21 @@ VOCAB_KL = (10, 5)
 PEAK_BYTES = 3.35e12
 PEAK_OPS = 67e12
 
+FRONTEND_KERNELS = ("fast_score", "orient_brief", "sad_windows")   # K1-K3
+
+# the pose LM's least work (K4), in float operations an edge, counted from
+# its plain twin's arithmetic: an iteration's rows (residual 36, chi2 and
+# IRLS weight 10, Jacobian 70, the 3 x 43 products and 3 x 42 tree
+# additions); a trial's cost (residual 36, chi2 6, Huber 6, the sum 1),
+# once a round at its start and once for each trial an iteration takes
+# (the trials after the one where the loop stops are never needed); a
+# round's reclassification (residual 36, chi2 6, compare and mask 2). The
+# ten 6x6 solves and exponentials an iteration (under 1,000 operations)
+# are left out.
+LM_ROW_OPS = 36 + 10 + 70 + 3 * 43 + 3 * 42
+LM_COST_OPS = 36 + 6 + 6 + 1
+LM_CLASSIFY_OPS = 36 + 6 + 2
+
 # K1's least work a pixel, in two-input operations on the ring bytes: the
 # 16 circular 9-window minima and maxima, 42 each (suffix and prefix runs
 # inside ring halves 0-7 and 8-15, then one a window); 15 maxima of the
@@ -578,6 +597,20 @@ def bound_ms(n_bytes: float, n_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def lm_operations(rounds, n_valid: int) -> int:
+    """The pose LM's least operations: rounds holds, for each round, the
+    edges of its set and the trials each of its iterations took."""
+    return sum(n * (LM_COST_OPS + sum(LM_ROW_OPS + t * LM_COST_OPS for t in trials))
+               + n_valid * LM_CLASSIFY_OPS for n, trials in rounds)
+
+
+def lm_bytes(n: int) -> int:
+    """The pose LM's least bytes for n edges: its inputs read once (T0, Xw,
+    obs, inv_sigma2, qual, valid, the intrinsics) and its outputs written
+    once (T, inlier, chi2, n_inliers)."""
+    return 64 + 12 * n + 12 * n + 4 * n + 4 * n + n + 20 + 64 + n + 4 * n + 4
+
+
 def touched(torch, canvas, flat_idx) -> int:
     """Distinct bytes of a uint8 canvas that the flat indices reach: what a
     function reading those pixels must move at the least."""
@@ -695,9 +728,15 @@ class Smoke:
             return None
 
     def counters(self):
+        """The frontend's kernels' wrappers (K1-K3: once a frame); K4's,
+        twice a fused step, is counted by the tracking phase."""
         ops = self.port["ops"]
         return {"fast_score": ops.fast_cuda, "orient_brief": ops.finish_cuda,
                 "sad_windows": ops.stereo_cuda}
+
+    def frontend_checked(self):
+        """K1-K3 held against their plain versions at phase 2."""
+        return all(n in self.kernels for n in FRONTEND_KERNELS)
 
     # ---- phase 1 ---------------------------------------------------------
     def build(self):
@@ -788,7 +827,7 @@ class Smoke:
         self.kernels["fast_score"] = dict(
             name="fast_score", route="cuda", source="iv_slam_tpu_torch/csrc/fast_score.cu",
             replaces="iv_slam_tpu/ops/fast_pallas.py:77", max_abs_err=float(worst),
-            bound_ms=bnd, bound_by=by, library_ms=None, fns=fns,
+            bound_ms=bnd, bound_by=by, library_ms=None, fns=fns, launches_per_frame=1,
             event_ms=event_ms(torch, fns[0]), plain_event_ms=event_ms(torch, fns[1], iters=10))
 
     def check_orient_brief(self, rec, main=True):
@@ -839,7 +878,7 @@ class Smoke:
         self.kernels["orient_brief"] = dict(
             name="orient_brief", route="cuda", source="iv_slam_tpu_torch/csrc/orient_brief.cu",
             replaces="iv_slam_tpu/ops/finish_pallas.py:83", max_abs_err=err,
-            bound_ms=bnd, bound_by=by, library_ms=None, fns=fns,
+            bound_ms=bnd, bound_by=by, library_ms=None, fns=fns, launches_per_frame=1,
             event_ms=event_ms(torch, fns[0]), plain_event_ms=event_ms(torch, fns[1], iters=10))
 
     def check_sad(self, rec, main=True):
@@ -904,7 +943,7 @@ class Smoke:
         self.kernels["sad_windows"] = dict(
             name="sad_windows", route="cuda", source="iv_slam_tpu_torch/csrc/sad_windows.cu",
             replaces="iv_slam_tpu/ops/stereo_pallas.py:88", max_abs_err=err,
-            bound_ms=bnd, bound_by=by, library_ms=None, fns=fns,
+            bound_ms=bnd, bound_by=by, library_ms=None, fns=fns, launches_per_frame=1,
             event_ms=event_ms(torch, fns[0]), plain_event_ms=event_ms(torch, fns[1], iters=10))
 
     # ---- phase 3 ---------------------------------------------------------
@@ -1007,14 +1046,16 @@ class Smoke:
         up to PROFILE_TRIES times before the check fails."""
         for k in self.kernels.values():
             kern, plain = k.pop("fns")
+            want = k["launches_per_frame"]
             for attempt in range(PROFILE_TRIES):
                 k["ms"], per_call = device_ms(self.torch, kern)
-                if per_call == 1:
+                if per_call == want:
                     break
                 print(f"{k['name']}: profile {attempt + 1} held {per_call} kernels a call, "
-                      f"not 1 (events lost)")
-            require(per_call == 1, f"{k['name']}: profiled {per_call} kernels a call, not 1")
-            k["plain_ms"], _ = device_ms(self.torch, plain, iters=5)
+                      f"not {want} (events lost)")
+            require(per_call == want,
+                    f"{k['name']}: profiled {per_call} kernels a call, not {want}")
+            k["plain_ms"], _ = device_ms(self.torch, plain, iters=k.pop("plain_iters", 5))
 
     def profile(self, fe, left, right):
         """Device time by kernel over a few pipelined frames (informational)."""
@@ -1070,6 +1111,7 @@ class Smoke:
                                    record=None, out={})
         for m in self.counters().values():
             m.launches = 0
+        port["pose_opt_cuda"].launches = 0
         print(f"tracking: frame capacity {fe.extractor.capacity}, pose-LM table "
               f"{port['fused'].pose_cap(fe.extractor.capacity)} rows, local-search "
               f"table {port['fused'].LOCAL_CAP} rows")
@@ -1100,10 +1142,19 @@ class Smoke:
         reads its host pack (tracking.py:808-865); fails the phase below the
         reference's limits of 20 motion matches and 30 inliers."""
         torch, t = self.torch, self.trk
-        if record:  # keep this step's inputs for the CPU comparison
-            orig = t.tr._step
+        po = self.port["pose_opt"]
+        if record:  # keep this step's inputs for the CPU comparison, and
+            # its pose-LM calls' inputs for K4's check
+            orig, orig_lm = t.tr._step, po.pose_optimization
             t.tr._step = lambda *a: (setattr(t, "record", [x.clone() for x in a]),
                                      orig(*a))[1]
+            t.lm_record = []
+
+            def lm(*a, **kw):
+                t.lm_record.append((clone(a), dict(kw)))
+                return orig_lm(*a, **kw)
+
+            po.pose_optimization = lm
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         try:
@@ -1112,6 +1163,7 @@ class Smoke:
         finally:
             if record:
                 del t.tr._step
+                po.pose_optimization = orig_lm
         t.step_ms.append((time.perf_counter() - t0) * 1e3)
         n = fr.map_pt.shape[0]
         pack, small = out[:10 * n].reshape(n, 10), out[10 * n:]
@@ -1218,13 +1270,81 @@ class Smoke:
                      b_overflow_pose=max(ovf), b_max_err_m=max_t, b_max_err_deg=max_r)
 
     def track_launches(self):
-        """K1-K3 ran once on every frame of the tracking phase."""
+        """K1-K3 ran once on every frame of the tracking phase, K4 twice on
+        every fused step."""
         t = self.trk
         launches = {k: m.launches for k, m in self.counters().items()}
         want = {k: t.frames for k in launches}
-        print(f"tracking: launches over its {t.frames} frames: {launches}")
+        lm, steps = self.port["pose_opt_cuda"].launches, len(t.step_ms)
+        print(f"tracking: launches over its {t.frames} frames: {launches}; K4 pose_lm "
+              f"{lm} over its {steps} fused steps")
         require(launches == want, f"launch counts {launches} != {want}")
+        require(lm == 2 * steps, f"K4 launched {lm} times in {steps} fused steps, not 2 a step")
         t.out["frontend_launches"] = launches
+        t.out["pose_lm_launches"] = lm
+        t.pose_lm_launches = lm
+
+    def check_pose_lm(self):
+        """K4 bit-equal to its plain twin on the card at the two pose-LM calls
+        of the recorded step of (b), then timed: device ms a fused step (both
+        calls), the bound from these inputs, the trials the LM took."""
+        torch, t, port = self.torch, self.trk, self.port
+        po = port["pose_opt"]
+        calls = t.lm_record
+        require(len(calls) == 2, f"{len(calls)} pose-LM calls recorded in a fused step, not 2")
+        cap = port["fused"].pose_cap(t.fe.extractor.capacity)
+        rounds, n_bytes, n_ops, err, rows = [], 0, 0, 0.0, []
+        orig_round = po._lm_round
+
+        def lm_round(*a):
+            T, trials = orig_round(*a)
+            rounds.append((int(a[6].sum()), [int(v) for v in trials.cpu()]))
+            return T, trials
+
+        for i, (a, kw) in enumerate(calls):
+            n = a[1].shape[0]
+            require(a[0].device.type == "cuda" and n == cap,
+                    f"call {i + 1}: {n} edges on {a[0].device}, not the main path's {cap}")
+            got = po.pose_optimization(*a, **kw)
+            rounds.clear()
+            po._lm_round = lm_round
+            try:
+                ref = po.pose_optimization_plain(*a, **kw)
+            finally:
+                po._lm_round = orig_round
+            torch.cuda.synchronize()
+            for f in got._fields:
+                g, r = getattr(got, f), getattr(ref, f)
+                require(g.dtype == r.dtype and g.shape == r.shape,
+                        f"call {i + 1}: {f} {g.dtype} {tuple(g.shape)} != {r.dtype} "
+                        f"{tuple(r.shape)}")
+                e = float((g.double() - r.double()).abs().max()) if g.numel() else 0.0
+                err = max(err, e)
+                require(torch.equal(g, r), f"call {i + 1}: K4 != plain in {f}: max err {e}")
+            n_valid = int(a[5].sum())
+            n_bytes += lm_bytes(n)
+            n_ops += lm_operations(rounds, n_valid)
+            trials = [v for _, tr in rounds for v in tr]
+            rows.append(dict(edges=n, valid=n_valid, n_rounds=kw.get("n_rounds"),
+                             round_edges=[r[0] for r in rounds],
+                             trials_per_iteration_mean=float(np.mean(trials)),
+                             trials_per_iteration_max=max(trials),
+                             n_inliers=int(got.n_inliers)))
+        bnd, by = bound_ms(n_bytes, n_ops)
+        fns = (lambda: [po.pose_optimization(*a, **kw) for a, kw in calls],
+               lambda: [po.pose_optimization_plain(*a, **kw) for a, kw in calls])
+        print(f"K4 pose_lm: the two pose-LM calls of a fused step of (b), {cap}-edge tables "
+              f"({[r['valid'] for r in rows]} valid edges, trials an iteration "
+              f"{[r['trials_per_iteration_mean'] for r in rows]} on average): T, inlier, "
+              f"chi2 and n_inliers bit-equal to the plain twin on the card; bound "
+              f"{n_bytes} bytes, {n_ops} operations a fused step")
+        t.out["pose_lm_calls"] = rows
+        self.kernels["pose_lm"] = dict(
+            name="pose_lm", route="cuda", source="iv_slam_tpu_torch/csrc/pose_lm.cu",
+            replaces=None, launches=t.pose_lm_launches, max_abs_err=err,
+            bound_ms=bnd, bound_by=by, library_ms=None, fns=fns, launches_per_frame=2,
+            plain_iters=2, event_ms=event_ms(torch, fns[0], iters=20),
+            plain_event_ms=event_ms(torch, fns[1], iters=3, warmup=1))
 
     def track_cpu_vs_card(self):
         """One recorded step of (b) again on the CPU path, same inputs."""
@@ -4508,7 +4628,7 @@ def main() -> int:
     from iv_slam_tpu_torch.ops import bow, extractor, gp, match, triangulate
     from iv_slam_tpu_torch.slam import (device_map, frame, fused_track, keyframe_db,
                                         loop_closing, map_store, system, vocabulary)
-    from iv_slam_tpu_torch.solvers import ba_core, initializer, local_ba
+    from iv_slam_tpu_torch.solvers import ba_core, initializer, local_ba, pose_opt, pose_opt_cuda
     from iv_slam_tpu_torch.introspection import dataset_creator, feature_evaluator
     from iv_slam_tpu_torch.models import export, zoo
     from iv_slam_tpu_torch.parallel import datagen as sharded_datagen
@@ -4534,7 +4654,8 @@ def main() -> int:
             "feature_evaluator": feature_evaluator, "datasets": datasets, "png": png,
             "jpeg": jpeg,
             "rectify": rectify, "run_stereo": run_stereo, "run_mono": run_mono,
-            "run_rgbd": run_rgbd, "evaluate_batch": evaluate_batch, "profiling": profiling}
+            "run_rgbd": run_rgbd, "evaluate_batch": evaluate_batch, "profiling": profiling,
+            "pose_opt": pose_opt, "pose_opt_cuda": pose_opt_cuda}
 
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -4556,7 +4677,7 @@ def main() -> int:
         smoke.phase("K2 orient_brief vs plain", smoke.check_orient_brief, rec)
         smoke.phase("K3 sad_windows vs plain", smoke.check_sad, rec)
         del rec
-    if len(smoke.kernels) == 3:
+    if smoke.frontend_checked():
         smoke.phase("slice", smoke.drive_slice, fe, left, right)
     else:
         smoke.failures.append("slice: skipped, a kernel check failed")
@@ -4569,7 +4690,8 @@ def main() -> int:
                      ("tracking (b) 16k live rung", smoke.track_b),
                      ("tracking frontend launches", smoke.track_launches),
                      ("tracking card vs CPU path", smoke.track_cpu_vs_card),
-                     ("tracking step syncs", smoke.track_step_syncs)):
+                     ("tracking step syncs", smoke.track_step_syncs),
+                     ("K4 pose_lm vs plain at the fused step's inputs", smoke.check_pose_lm)):
         if len(smoke.failures) > n_fail:
             smoke.failures.append(f"{name}: skipped, an earlier tracking phase failed")
         else:
@@ -4661,7 +4783,7 @@ def main() -> int:
     for name, fn in (("claims setup", smoke.cl_setup),
                      ("claims (c) whole cycle", smoke.cl_cycle),
                      ("claims (d) KITTI all on", smoke.cl_kitti)):
-        if len(smoke.kernels) != 3 or smoke.cl is None and fn != smoke.cl_setup:
+        if not smoke.frontend_checked() or smoke.cl is None and fn != smoke.cl_setup:
             smoke.failures.append(f"{name}: skipped, an earlier phase failed")
         else:
             smoke.phase(name, fn)
@@ -4682,7 +4804,7 @@ def main() -> int:
     # phase 14: the thread architecture, on phase 5's frames and phase 7's
     # LC world, also before any profiling
     for name, fn, ok in (("threads (a) inline, worker, async BA", smoke.thr_runs,
-                          lambda: loop_ok and len(smoke.kernels) == 3),
+                          lambda: loop_ok and smoke.frontend_checked()),
                          ("threads (b) serialized worker", smoke.thr_serialized,
                           lambda: smoke.thr is not None),
                          ("threads (c) LC world through the worker", smoke.thr_loop_closing,
@@ -4699,13 +4821,15 @@ def main() -> int:
                      ("pipeline (c) the link", smoke.ch_link),
                      ("pipeline (d) cold start", smoke.ch_cold),
                      ("pipeline (f) the vocabulary's C parser", smoke.ch_vocab)):
-        if not loop_ok or len(smoke.kernels) != 3 or smoke.ch is None and \
+        if not loop_ok or not smoke.frontend_checked() or smoke.ch is None and \
                 fn != smoke.ch_chained:
             smoke.failures.append(f"{name}: skipped, an earlier phase failed")
         else:
             smoke.phase(name, fn)
-    if len(smoke.kernels) == 3:
+    if smoke.frontend_checked() and "pose_lm" in smoke.kernels:
         smoke.phase("kernel device times", smoke.device_times)
+    else:
+        smoke.failures.append("kernel device times: skipped, a kernel check failed")
     if smoke.trk is not None and smoke.trk.record is not None:
         smoke.phase("tracking step profile", smoke.track_step_profile)
     else:
@@ -4725,7 +4849,7 @@ def main() -> int:
         return 1
     for name, n in smoke.cl.launches.items():
         smoke.kernels[name]["launches_claims"] = n
-    for k in smoke.kernels.values():
+    for k in (smoke.kernels[n] for n in FRONTEND_KERNELS):
         print(f"{k['name']}: max abs err {k['max_abs_err']}, {k['launches']} launches, "
               f"device {k['ms']:.4f} ms/frame (events {k['event_ms']:.4f}), plain "
               f"{k['plain_ms']:.4f} ms/frame (events {k['plain_event_ms']:.4f}), bound "
@@ -4740,15 +4864,23 @@ def main() -> int:
               f"claims runs, {k['launches_viewer']} on the viewer run, "
               f"{k['launches_threads']} on the worker's run, {k['launches_chained']} on the "
               f"chained run, on {card}")
-    order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+    k = smoke.kernels["pose_lm"]
+    print(f"pose_lm: max abs err {k['max_abs_err']}, {k['launches']} launches over the "
+          f"tracking phase's fused steps (2 a step), device {k['ms']:.4f} ms/fused step "
+          f"(events {k['event_ms']:.4f}), plain {k['plain_ms']:.4f} ms/fused step (events "
+          f"{k['plain_event_ms']:.4f}), bound {k['bound_ms']:.5f} ms ({k['bound_by']}), "
+          f"on {card}")
+    order = ("name", "route", "source", "replaces", "launches", "launches_per_frame",
+             "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms", "event_ms", "plain_event_ms",
              "launches_introspection", "launches_loop_closing", "launches_mono",
              "launches_rgbd", "launches_datagen", "launches_replay",
              "launches_sharded_datagen", "launches_run_stereo", "launches_run_mono",
              "launches_run_rgbd", "launches_octree", "launches_claims", "launches_viewer",
              "launches_threads", "launches_chained")
-    kernels = [{k: smoke.kernels[n][k] for k in order}
-               for n in ("fast_score", "orient_brief", "sad_windows")]
+    # K4 is counted on the tracking phase only: its other launches_* are None
+    kernels = [{k: smoke.kernels[n].get(k) for k in order}
+               for n in FRONTEND_KERNELS + ("pose_lm",)]
     print(json.dumps({"frontend": smoke.fps,
                       "card": card}))
     print(json.dumps({"tracking": dict(smoke.trk.out, card=card)}))

@@ -39,7 +39,11 @@ NVCC_FLAGS = [
 
 CC_FLAGS = ["-O2", "-shared", "-fPIC"]
 
-SOURCES = ("fast_score", "orient_brief", "sad_windows")
+# per-source additions: the pose LM rounds every product and sum on its own,
+# as the eager operations of its plain twin do
+EXTRA_FLAGS = {"pose_lm": ["-fmad=false"]}
+
+SOURCES = ("fast_score", "orient_brief", "sad_windows", "pose_lm")
 HOST_SOURCES = ("png_unfilter", "jpeg_huffman", "vocab_native")
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -71,7 +75,7 @@ def _source(name: str) -> str:
 
 
 def _flags(name: str):
-    return CC_FLAGS if name in HOST_SOURCES else NVCC_FLAGS
+    return (CC_FLAGS if name in HOST_SOURCES else NVCC_FLAGS) + EXTRA_FLAGS.get(name, [])
 
 
 def _lib_path(name: str) -> str:
@@ -94,9 +98,9 @@ def build(names: Iterable[str] = SOURCES, verbose: bool = False) -> float:
         for n in todo:
             out = _lib_path(n)
             if n in HOST_SOURCES:
-                cmd = [_cc(), *CC_FLAGS]
+                cmd = [_cc(), *_flags(n)]
             else:
-                cmd = [_nvcc(), *NVCC_FLAGS]
+                cmd = [_nvcc(), *_flags(n)]
                 if verbose:
                     cmd += ["-Xptxas", "-v"]
             # a per-process temporary name: concurrent builders never

@@ -24,6 +24,13 @@ cost, and stops at rho >= 0 or NaN. That gives the sequential loop's T,
 lambda, ni and chi2, the no-exit case after MAX_TRIALS rejections
 included.
 
+On the card one launch of a hand-written kernel runs it all
+(``csrc/pose_lm.cu``, wrapper ``pose_opt_cuda.py``): ``pose_optimization``
+sends CUDA tensors there and CPU tensors to the plain twin,
+``pose_optimization_plain``, the eager form below, which the kernel equals
+bit for bit on the card. Each call records the span ``pose_lm.kernel`` or
+``pose_lm.plain``.
+
 Every sum, solve, root and matrix product goes through ``numerics``, so a
 trial whose gain lies at the float32 rounding of the cost sum is accepted
 or rejected alike on the CPU and on the GPU. The cost sums and the 6x6
@@ -42,6 +49,8 @@ import torch
 
 from .. import numerics
 from ..geometry import camera, se3
+from ..utils.profiling import span
+from . import pose_opt_cuda
 
 DELTA_MONO_SQ = 5.991
 DELTA_STEREO_SQ = 7.815
@@ -194,6 +203,28 @@ def _lm_round(
 
 
 def pose_optimization(
+    T0: torch.Tensor,          # (4, 4) initial Tcw
+    Xw: torch.Tensor,          # (N, 3) world points
+    obs: torch.Tensor,         # (N, 3) [u, v, u_r]; u_r < 0 => mono edge
+    inv_sigma2: torch.Tensor,  # (N,) per-octave information
+    qual: torch.Tensor,        # (N,) introspection quality scores (1 = clean)
+    valid: torch.Tensor,       # (N,) bool edge exists
+    K: camera.Intrinsics,
+    n_rounds: int = 4,
+    n_iters: int = 10,
+) -> PoseOptResult:
+    """The pose LM: one kernel launch for CUDA tensors (the intrinsics on the
+    same device), the plain twin for CPU tensors."""
+    if T0.device.type == "cuda":
+        with span("pose_lm.kernel"):
+            return PoseOptResult(*pose_opt_cuda.pose_lm(
+                T0, Xw, obs, inv_sigma2, qual, valid, K, n_rounds, n_iters))
+    with span("pose_lm.plain"):
+        return pose_optimization_plain(T0, Xw, obs, inv_sigma2, qual, valid, K,
+                                       n_rounds, n_iters)
+
+
+def pose_optimization_plain(
     T0: torch.Tensor,          # (4, 4) initial Tcw
     Xw: torch.Tensor,          # (N, 3) world points
     obs: torch.Tensor,         # (N, 3) [u, v, u_r]; u_r < 0 => mono edge

@@ -5,7 +5,11 @@ main-path shapes are checked by chip_smoke.py; these cases cover the edges
 it does not reach: tiny and odd image sizes and level lists mixing them,
 keypoint counts that do not fill a block, keypoints 0-5 and 18-19 px
 from the canvas edges, clip-limit window centers, SAD canvases that are
-views at every byte offset mod 16, and the wrappers' refusals. Beyond the
+views at every byte offset mod 16, and the wrappers' refusals. The pose LM
+kernel (csrc/pose_lm.cu) against its plain twin: table sizes 1 to 3,001
+edges (shared-memory and scratch rows), mono and stereo edges, quality
+below 1, gross outliers, rejected and all-rejected trials, every edge
+masked, 2 and 4 rounds, and the two pose LMs of a real fused step. Beyond the
 kernels: the vocabulary's device descent against the host descent on the
 1M-leaf synthesized tree, the Sim3 RANSAC and the monocular initializer on
 the card against the CPU path with the same sampled indices, and the
@@ -312,3 +316,184 @@ def test_train_step_card_equals_cpu(dev):
             torch.testing.assert_close(card[k], v, rtol=1e-4, atol=1e-5)
         else:
             assert float((card[k] - v).abs().max()) <= 2e-3, k
+
+
+# ---- the pose LM kernel -------------------------------------------------------
+
+KITTI_K = (718.856, 718.856, 620.5, 188.0, 0.54 * 718.856)
+
+
+def _lm_problem(seed, n, stereo=0.7, outliers=0.1, qual_lo=1.0, valid=1.0, start=1.0):
+    """A pose-LM problem at KITTI's intrinsics: n points 4-40 m ahead of a
+    known pose, 0.7 px noise, the given shares of stereo edges, gross
+    outliers (20-60 px) and valid edges, quality in [qual_lo, 1], octaves
+    0-7, and T0 `start` times a 0.01 rad / 0.1 m draw off the true pose."""
+    from iv_slam_tpu_torch.geometry import camera, se3
+
+    rng = np.random.default_rng(seed)
+    fx, fy, cx, cy, bf = KITTI_K
+    Xc = np.stack([rng.uniform(-20, 20, n), rng.uniform(-3, 3, n), rng.uniform(4, 40, n)], 1)
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32))  # noqa: E731
+    T_gt = se3.se3_exp(f32([0.02, -0.01, 0.015, 0.3, -0.1, 0.5])).numpy().astype(np.float64)
+    Xw = (Xc - T_gt[:3, 3]) @ T_gt[:3, :3]
+    u, v = fx * Xc[:, 0] / Xc[:, 2] + cx, fy * Xc[:, 1] / Xc[:, 2] + cy
+    obs = np.stack([u, v, u - bf / Xc[:, 2]], 1) + rng.normal(0, 0.7, (n, 3))
+    obs[rng.uniform(size=n) >= stereo, 2] = -1.0
+    out = rng.uniform(size=n) < outliers
+    obs[out, :2] += rng.uniform(20, 60, (out.sum(), 2)) * rng.choice([-1, 1], (out.sum(), 2))
+    dxi = rng.normal(0, 1, 6) * np.array([0.01] * 3 + [0.1] * 3) * start
+    return dict(T0=se3.se3_exp(f32(dxi)) @ f32(T_gt), Xw=f32(Xw), obs=f32(obs),
+                inv_sigma2=f32(1.0 / 1.2 ** (2 * rng.integers(0, 8, n))),
+                qual=f32(rng.uniform(qual_lo, 1.0, n)),
+                valid=torch.tensor(rng.uniform(size=n) < valid),
+                K=camera.Intrinsics(*(torch.tensor(k, dtype=torch.float32) for k in KITTI_K)))
+
+
+def _small_far_problem(seed):
+    """A 8-29 edge problem with random shares and a start up to 20 times
+    the usual draw: such tables end some LM iterations with all ten trials
+    rejected."""
+    rng = np.random.default_rng(seed + 10 ** 6)
+    n, start, outliers = int(rng.integers(8, 30)), rng.uniform(0, 20), rng.uniform(0, 0.5)
+    return _lm_problem(seed, n, stereo=rng.uniform(), outliers=outliers, qual_lo=0.1,
+                       start=start)
+
+
+@pytest.fixture(scope="module")
+def fused_slice_calls():
+    """The inputs of the two pose LMs of test_torch_fused_track.py's slice
+    (two tests/synth_world.py frames at 240x320, a map from frame 0, the
+    fused step of frame 1), recorded on the CPU path."""
+    from synth_world import make_sequence
+    from torch_parity import init_map
+
+    from iv_slam_tpu_torch import config
+    from iv_slam_tpu_torch.slam import fused_track
+    from iv_slam_tpu_torch.slam.device_map import DeviceMap
+    from iv_slam_tpu_torch.slam.frame import StereoFrontend
+    from iv_slam_tpu_torch.slam.map_store import MapStore
+    from iv_slam_tpu_torch.solvers import pose_opt
+
+    world, frames, _ = make_sequence(np.random.default_rng(7), n_frames=2, step=0.08)
+    cfg = config.Config()
+    cfg.camera = config.CameraConfig(fx=400.0, fy=400.0, cx=160.0, cy=120.0,
+                                     bf=float(world.bf), width=world.w, height=world.h)
+    cfg.orb = config.ORBConfig(n_features=800, n_levels=4)
+    fe = StereoFrontend(cfg, world.h, world.w, device="cpu")
+    f0, f1 = fe.process(*frames[0], 0.0), fe.process(*frames[1], 0.1)
+    m = MapStore(n_levels=4, scale_factor=cfg.orb.scale_factor)
+    init_map(m, f0, cfg.camera)
+    dmap = DeviceMap(device="cpu")
+    dmap.sync(m)
+    tr = fused_track.FusedTracker(cfg, world.h, world.w, device="cpu")
+    calls, orig = [], pose_opt.pose_optimization
+
+    def record(*a, **kw):
+        calls.append((a, kw))
+        return orig(*a, **kw)
+
+    fused_track.pose_opt.pose_optimization = record
+    try:
+        tr.track(f1, f0, f0.map_pt, f0.pose, dmap)
+    finally:
+        fused_track.pose_opt.pose_optimization = orig
+    assert len(calls) == 2
+    return calls
+
+
+LM_CASES = {
+    "n1": lambda: _lm_problem(1, 1),
+    "n1024-mixed": lambda: _lm_problem(2, 1024, qual_lo=0.3, valid=0.95),
+    "n1536-mixed": lambda: _lm_problem(3, 1536, qual_lo=0.3, valid=0.95),
+    "n2047-odd": lambda: _lm_problem(4, 2047, stereo=0.5, qual_lo=0.5),
+    "n3001-scratch": lambda: _lm_problem(5, 3001, qual_lo=0.5, valid=0.9),
+    "mono-only": lambda: _lm_problem(6, 700, stereo=0.0, qual_lo=0.3),
+    "gross-outliers": lambda: _lm_problem(7, 900, outliers=0.4),
+    "far-start": lambda: _lm_problem(20, 800, start=4.0, qual_lo=0.3, outliers=0.2),
+    "all-masked": lambda: dict(_lm_problem(9, 500), valid=torch.zeros(500, dtype=torch.bool)),
+}
+# small far-start tables whose first round rejects all ten trials of an
+# iteration in the twin on the CPU; the test takes the first that does on the
+# card too (where that hangs on the last ulp of a float64 cost sum)
+ALL_REJECTED_SEEDS = (61, 271, 272, 274, 280, 330, 343, 352, 378, 390)
+
+
+def _on(dev, p):
+    from iv_slam_tpu_torch.geometry import camera
+
+    K = camera.Intrinsics(*(k.to(dev) for k in p["K"]))
+    return tuple(p[k].to(dev) for k in ("T0", "Xw", "obs", "inv_sigma2", "qual", "valid")) + (K,)
+
+
+def _first_round_trials(args):
+    """The twin's trials in each iteration of the first (robust) round."""
+    from iv_slam_tpu_torch.solvers import pose_opt
+
+    T0, Xw, obs, inv_s2, qual, valid, K = args
+    is_st = obs[:, 2] >= 0
+    dsq = torch.where(is_st, 7.815, 5.991) * qual * qual
+    return pose_opt._lm_round(T0, Xw, obs, inv_s2, dsq, is_st, valid, K, True, 10)[1].tolist()
+
+
+@pytest.mark.parametrize("n_rounds", [2, 4])
+@pytest.mark.parametrize("case", [*LM_CASES, "all-rejected", "fused-slice-1", "fused-slice-2"])
+def test_pose_lm_kernel_equals_plain(dev, request, case, n_rounds):
+    """One launch, bit-equal to pose_optimization_plain on the card: the
+    pose, inlier flags, chi2 and inlier count."""
+    from iv_slam_tpu_torch.solvers import pose_opt, pose_opt_cuda
+
+    if case.startswith("fused-slice"):
+        a, _ = request.getfixturevalue("fused_slice_calls")[int(case[-1]) - 1]
+        args = _on(dev, dict(zip(("T0", "Xw", "obs", "inv_sigma2", "qual", "valid", "K"), a)))
+    elif case == "all-rejected":
+        for seed in ALL_REJECTED_SEEDS:
+            args = _on(dev, _small_far_problem(seed))
+            if max(_first_round_trials(args)) == 10:
+                break
+        else:
+            pytest.fail("no table of ALL_REJECTED_SEEDS rejects ten trials on the card")
+    else:
+        args = _on(dev, LM_CASES[case]())
+    if case == "far-start":
+        assert max(_first_round_trials(args)) > 1
+    before = pose_opt_cuda.launches
+    got = pose_opt.pose_optimization(*args, n_rounds=n_rounds)
+    assert pose_opt_cuda.launches == before + 1
+    ref = pose_opt.pose_optimization_plain(*args, n_rounds=n_rounds)
+    torch.cuda.synchronize()
+    for f in ("T", "inlier", "chi2", "n_inliers"):
+        g, r = getattr(got, f), getattr(ref, f)
+        assert g.dtype == r.dtype and g.shape == r.shape and g.device == r.device, f
+        assert torch.equal(g, r), (f, g, r)
+    if case == "all-masked":
+        assert torch.equal(got.T, args[0]) and int(got.n_inliers) == 0
+
+
+def test_pose_lm_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    from iv_slam_tpu_torch.solvers import pose_opt, pose_opt_cuda
+
+    names = ("T0", "Xw", "obs", "inv_sigma2", "qual", "valid")
+    p = _lm_problem(10, 64)
+    K_cpu = p["K"]
+    *a, K = _on(dev, p)
+    p = dict(zip(names, a))
+
+    def call(K=K, n_rounds=4, n_iters=10, **over):
+        a = [over.get(k, p[k]) for k in names]
+        return pose_opt.pose_optimization(*a, K, n_rounds=n_rounds, n_iters=n_iters)
+
+    before = pose_opt_cuda.launches
+    bad = [dict(Xw=p["Xw"].double()), dict(obs=p["obs"][:, :2]), dict(T0=p["T0"][:3]),
+           dict(valid=p["valid"].to(torch.uint8)), dict(qual=p["qual"][:-1]),
+           dict(inv_sigma2=p["inv_sigma2"].cpu()), dict(K=K_cpu),
+           dict(K=K._replace(fx=K.fx.double())), dict(n_iters=0), dict(n_rounds=-1)]
+    for over in bad:
+        with pytest.raises(ValueError):
+            call(**over)
+    empty = {k: v[:0] for k, v in p.items() if k != "T0"}
+    with pytest.raises(ValueError):
+        call(**empty)
+    *big, _ = _on(dev, _lm_problem(11, 5462))   # the kernel takes 1 to 5,461 edges
+    with pytest.raises(ValueError):
+        call(**dict(zip(names, big)))
+    assert pose_opt_cuda.launches == before

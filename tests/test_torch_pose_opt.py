@@ -15,6 +15,12 @@ The port runs an iteration's LM trials as one batch; ``_lm_round``'s trial
 counts and poses must equal a plain statement of the reference's
 sequential trial loop on every problem, one with iterations that need
 more than one trial, one whose edges are all masked (NaN steps) included.
+
+On the card ``pose_optimization`` is one launch of csrc/pose_lm.cu (held
+bit-equal to the twin there by tests/test_torch_cuda.py). Here: a model of
+that kernel's order of float32 additions for H and g equals
+``numerics.tree_sum`` bit for bit, and on the CPU ``pose_optimization``
+takes the twin.
 """
 
 import jax.numpy as jnp
@@ -29,6 +35,8 @@ from iv_slam_tpu_torch import numerics
 from iv_slam_tpu_torch.geometry import camera as tcam
 from iv_slam_tpu_torch.geometry import se3 as tse3
 from iv_slam_tpu_torch.solvers import pose_opt as tpo
+from iv_slam_tpu_torch.solvers import pose_opt_cuda
+from iv_slam_tpu_torch.utils import profiling
 from test_pose_opt import make_scene
 from torch_parity import run_reference
 
@@ -184,3 +192,79 @@ def test_jacobian_and_huber_match_jax(rng):
         np.testing.assert_array_equal(
             tpo._huber_rho0(as_t(chi2), as_t(dsq), on).numpy(),
             np.asarray(jpo._huber_rho0(jnp.asarray(chi2), jnp.asarray(dsq), on)))
+
+
+def kernel_tree_sum(x: np.ndarray) -> np.ndarray:
+    """csrc/pose_lm.cu's column sums (phase B) over the (R, C) float32 rows:
+    rows padded with zeros to P = 2^ceil(log2 R); S = min(P, 512) slots,
+    slot j = l * W + w of lane l < L = min(S, 32) and warp w < W = S / L;
+    each slot sums its rows k * S + j (k < P / S) as the evens' tree plus
+    the odds' tree, then the lanes' tree by shuffles (v[l] + v[l + o],
+    o = L/2 ... 1), then the warps' tree in shared memory (o = W/2 ... 1)."""
+    R = x.shape[0]
+    P = 1 << max(R - 1, 0).bit_length()
+    S = min(P, 512)
+    L = min(S, 32)
+    W = S // L
+    rows = np.zeros((P,) + x.shape[1:], np.float32)
+    rows[:R] = x
+
+    def local(k, step, m, j):
+        if m == 1:
+            return rows[k * S + j]
+        return local(k, 2 * step, m // 2, j) + local(k + step, 2 * step, m // 2, j)
+
+    slots = np.stack([local(0, 1, P // S, j) for j in range(S)]).reshape(L, W, -1)
+
+    def shuffle_tree(v, n):
+        o = n // 2
+        while o > 0:
+            v = v[:o] + v[o:2 * o]
+            o //= 2
+        return v[0]
+
+    lanes = np.stack([shuffle_tree(slots[:, w], L) for w in range(W)])
+    return shuffle_tree(lanes, W)
+
+
+@pytest.mark.parametrize("n_edges", [1, 7, 1024, 1536, 2000])
+def test_kernel_reduction_order_is_tree_sum(n_edges):
+    """H and g's 42 columns over 3N rows: the kernel's order of float32
+    additions is numerics.tree_sum's, bit for bit (signed zeros too), on
+    rows spanning 12 decades with exact zeros and negative zeros, where
+    another order of the same additions gives other sums."""
+    rng = np.random.default_rng(n_edges)
+    x = (rng.normal(size=(3 * n_edges, 42)) * 10.0 ** rng.integers(-6, 6, (3 * n_edges, 42))
+         ).astype(np.float32)
+    x[rng.uniform(size=x.shape) < 0.1] = 0.0
+    x[rng.uniform(size=x.shape) < 0.05] = -0.0
+    x[:, 0] = -0.0   # a column of negative zeros sums to +0 with the padding
+    want = numerics.tree_sum(torch.from_numpy(x)).numpy()
+    got = kernel_tree_sum(x)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    if n_edges >= 7:   # the order matters on these rows
+        seq = np.zeros(42, np.float32)
+        for row in x:
+            seq = seq + row
+        assert not np.array_equal(seq, want)
+
+
+def test_pose_optimization_on_the_cpu_is_the_twin():
+    """CPU tensors take pose_optimization_plain: the same result, no kernel
+    launch, and one pose_lm.plain span."""
+    inp, _, _ = problem(True)
+    t = {k: as_t(v) for k, v in inp.items() if k != "K"}
+    K = port_K(inp["K"])
+    args = (t["T0"], t["Xw"], t["obs"], t["inv_sigma2"], t["qual"], t["valid"], K)
+    launches = pose_opt_cuda.launches
+    timer = profiling.StageTimer()
+    prev = profiling.install(timer)
+    try:
+        got = tpo.pose_optimization(*args, n_rounds=3, n_iters=7)
+    finally:
+        profiling.install(prev)
+    ref = tpo.pose_optimization_plain(*args, n_rounds=3, n_iters=7)
+    for f in tpo.PoseOptResult._fields:
+        assert torch.equal(getattr(got, f), getattr(ref, f)), f
+    assert [sp[0] for sp in timer.spans] == ["pose_lm.plain"]
+    assert pose_opt_cuda.launches == launches
