@@ -14,7 +14,8 @@ tensors once a process group exists. ``BatchNorm2d`` below subclasses
 eval mode it is ``nn.BatchNorm2d`` unchanged. Given a process group
 (``set_process_group``), it averages the per-rank means of x and x^2
 through the differentiable all-reduce, which is what flax's ``axis_name``
-pmean computes: statistics of the global batch.
+pmean computes: statistics of the global batch. That all-reduce records
+the span ``bn.allreduce`` (``utils.profiling.span``).
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..utils.profiling import span
 
 MOMENTUM = 0.9
 # truncated_normal's standard deviation on [-2, 2] (jax.nn.initializers)
@@ -46,8 +49,9 @@ class BatchNorm2d(nn.BatchNorm2d):
             import torch.distributed as dist
             from torch.distributed.nn.functional import all_reduce
 
-            stats = all_reduce(stats, group=self.process_group) / dist.get_world_size(
-                self.process_group)
+            with span("bn.allreduce"):
+                stats = all_reduce(stats, group=self.process_group) / dist.get_world_size(
+                    self.process_group)
         mean, mean2 = stats[0], stats[1]
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         with torch.no_grad():

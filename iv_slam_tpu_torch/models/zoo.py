@@ -31,8 +31,14 @@ Dilation reproduces ``_nostride_dilate`` (models.py:258-271): a stride-2
 conv becomes stride 1 with dilation d/2, the rest of the stage dilation d.
 Resizes are ``jax.image.resize``'s bilinear (``layers.resize``). In
 training mode the BatchNorms use flax's batch statistics and the PPM
-decoders' dropout (rate 0.1) is active; deep-supervision decoders return
+decoders' dropout is active: ``nn.Dropout2d(0.1)``, whole channels of a
+sample, as upstream's PPM and PPMDeepsup (models.py, ``nn.Dropout2d(0.1)`` in
+``conv_last`` and ``dropout_deepsup``; the JAX package drops single
+elements). Deep-supervision decoders return
 ``(pred, pred_deepsup)``.
+
+``SegmentationModel.forward`` records the spans ``fcn.encoder`` and
+``fcn.decoder`` (``utils.profiling.span``; a check with no recorder).
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.profiling import span
 from .layers import conv_bn, resize
 
 ENCODER_FC_DIM = {
@@ -349,8 +356,9 @@ class PPMCore(nn.Module):
 
 
 class PPM(nn.Module):
-    """models.py:417-467 (dropout 0.1 before the class conv); with deep_sup
-    PPMDeepsup (models.py:470-533)."""
+    """models.py:417-467 (channel dropout 0.1 before the class conv); with
+    deep_sup PPMDeepsup (models.py:470-533), whose deep-supervision branch
+    draws a channel dropout of its own through the same module."""
 
     def __init__(self, num_class: int = 1, fc_dim: int = 2048, regression_mode: bool = True,
                  deep_sup: bool = False, in_channels: Optional[Sequence[int]] = None):
@@ -358,7 +366,7 @@ class PPM(nn.Module):
         chans = in_channels or _default_channels(fc_dim)
         self.PPMCore_0 = PPMCore(chans[-1])
         self.ConvBNAct_0 = ConvBNAct(chans[-1] + len(POOL_SCALES) * PPM_DIM, PPM_DIM, 3)
-        self.dropout = nn.Dropout(0.1)
+        self.dropout = nn.Dropout2d(0.1)
         self.conv_last = nn.Conv2d(PPM_DIM, num_class, 1)
         self.regression_mode, self.deep_sup = regression_mode, deep_sup
         if deep_sup:
@@ -473,4 +481,7 @@ class SegmentationModel(nn.Module):
         self.eval()
 
     def forward(self, x: torch.Tensor):
-        return self.decoder(self.encoder(x))
+        with span("fcn.encoder"):
+            conv_out = self.encoder(x)
+        with span("fcn.decoder"):
+            return self.decoder(conv_out)

@@ -121,7 +121,8 @@ def train_step(state: TrainState, batch: Dict[str, np.ndarray], dp=None,
     the whole batch, so the ranks' losses add up to the whole batch's and
     the summed gradients are its gradient; the BatchNorms average their
     statistics over the ranks when ``models.set_process_group`` gave them
-    the group. Its spans carry ``step=``, the state's step count."""
+    the group; the gradients' and the metrics' all-reduce is the span
+    ``train.allreduce``. Its spans carry ``step=``, the state's step count."""
     with span("train.step", step=state.step):
         return _train_step(state, batch, dp, deep_sup_scale)
 
@@ -152,8 +153,9 @@ def _train_step(state, batch, dp, deep_sup_scale):
         if dp is not None:
             from ..parallel.mesh import all_reduce_grads, all_reduce_sum
 
-            all_reduce_grads(model, dp)
-            metrics = all_reduce_sum(metrics, dp)
+            with span("train.allreduce", step=step):
+                all_reduce_grads(model, dp)
+                metrics = all_reduce_sum(metrics, dp)
     with span("train.optimizer", step=step):
         state.optimizer.step()
         state.scheduler.step()

@@ -203,18 +203,29 @@ def test_decoder_matches_jax(arch):
 
 
 def test_ppm_training_dropout_rate():
-    """PPM drops 10% of the features before its class conv in training
-    mode (flax Dropout(0.1)), none in eval mode."""
+    """PPM drops 10% of the channels before its class conv in training mode,
+    each sample's channel whole (upstream's nn.Dropout2d(0.1); the JAX
+    package's flax Dropout(0.1) drops single elements), none in eval mode.
+    The rate is counted over 10 forwards (10,240 channel draws)."""
     dec = zoo.build_decoder("ppm", fc_dim=64)
     assert jzoo.build_decoder("ppm", fc_dim=64) is not None
     seen = {}
     dec.dropout.register_forward_hook(lambda m, i, o: seen.update(i=i[0], o=o))
     tin = [nchw(c) for c in fake_conv_out()]
     torch.manual_seed(0)
+    dropped, live = 0, 0
     with torch.no_grad():
-        dec.train()(tin)
-        dropped = float(((seen["o"] == 0) & (seen["i"] != 0)).sum() / (seen["i"] != 0).sum())
+        dec.train()
+        for _ in range(10):
+            dec(tin)
+            nz = seen["i"] != 0
+            gone = (seen["o"] == 0) & nz
+            lit = nz.any((2, 3))
+            # a channel is dropped whole or kept whole
+            assert torch.equal(gone.any((2, 3)), (gone.sum((2, 3)) == nz.sum((2, 3))) & lit)
+            dropped += int((gone.any((2, 3)) & lit).sum())
+            live += int(lit.sum())
         dec.eval()(tin)
         assert torch.equal(seen["o"], seen["i"])
-    assert abs(dropped - 0.1) < 0.01, dropped
+    assert abs(dropped / live - 0.1) < 0.01, dropped / live
     assert dec.dropout.p == 0.1
